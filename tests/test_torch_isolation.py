@@ -1,0 +1,99 @@
+"""The port stands alone: no JAX, nothing of ``repro``, and no silent CPU path.
+
+The port and ``chip_smoke.py`` run on a machine that has no JAX, so they
+must import neither ``jax`` nor anything of the reference package ``repro``
+(not even its framework-free modules: the port keeps its own copies).
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+PORT = SRC / "repro_torch"
+
+
+def _modules():
+    import repro_torch
+
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _run(code, cwd=ROOT):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           timeout=300, env=env, cwd=cwd)
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert {"repro_torch.core.mesh", "repro_torch.kernels._build",
+            "repro_torch.core.noc.model"} <= set(mods)
+    proc = _run(
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print('BAD', bad)\n")
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+                         + ["chip_smoke.py"])
+def test_no_source_names_jax_or_repro(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
+
+
+def test_kernel_sources_are_in_the_package():
+    sources = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu"))
+    assert sources == ["gemm.cu", "reduce_nway.cu"]
+
+
+def test_mesh_without_a_device_raises_on_a_host_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: Mesh() takes it")
+    from repro_torch.core.mesh import Mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Mesh((2, 2), ("row", "col"))
+    assert Mesh((2, 2), ("row", "col"), device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: chip_smoke.py runs")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Without the rest of the repository the script cannot run."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                          timeout=300, cwd=tmp_path, env=env)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
