@@ -9,15 +9,22 @@ Phases, each of which raises on failure:
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and print the build time;
 2. hold every kernel against its plain PyTorch version on the card, at
-   the shapes of the main path, with times, a library call as yardstick,
+   the shapes of the main paths, with times, a library call as yardstick,
    and the card's least time for the same work (``bound_ms``);
-3. drive the main path at the widths of yi-6b (d_model 4096, 32 heads x
-   128, d_ff 11008) with T = 4096 tokens: SUMMA on a 4x4 mesh (all five
-   schedules), FCL over 8 members (four schedules plus ``scatter``),
-   ``ag_matmul`` and ``matmul_rs`` over 8, and the barrier over 16; each
-   output is held against ``torch.matmul`` in f32, and both kernels must
-   have been launched;
-4. print the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+3. drive the collective GEMM path at the widths of yi-6b (d_model 4096,
+   32 heads x 128, d_ff 11008) with T = 4096 tokens: SUMMA on a 4x4 mesh
+   (all five schedules), FCL over 8 members (four schedules plus
+   ``scatter``), ``ag_matmul`` and ``matmul_rs`` over 8, and the barrier
+   over 16; each output is held against ``torch.matmul`` in f32, and
+   ``gemm`` and ``reduce_nway`` must have been launched;
+4. serve yi-6b at full width and depth (32 layers) with random weights
+   from ``--seed``: in f32, the prefill logits of one wave (4 x 2048
+   tokens) through the flash kernel against plain attention, and
+   decode-after-prefill against a longer prefill (the KV-cache gate); then
+   in bf16, ``Server.serve`` of 8 requests (prompts of 1536-2048 tokens, 4
+   slots, 32 new tokens), twice, which must give in-vocab, equal tokens,
+   with ``flash_attention`` launched 32 times per prefill;
+5. print the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 It exits non-zero, printing no result, when no CUDA card is present.
@@ -27,6 +34,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,7 +60,30 @@ D_MODEL, N_HEADS, HEAD_DIM, D_FF, TOKENS = 4096, 32, 128, 11008, 4096
 # a random-walk rounding error is ~sqrt(K) * 2^-24 of a typical term, three
 # orders below 1e-4, while one wrong block would give an error of order 1.
 MAIN_RTOL = 1e-4
+# bf16 kernel outputs are held element by element, |out - ref| <= BF16_RTOL *
+# |ref| + atol: kernel and plain version take every product and sum in f32
+# (in other orders, ~1e-6 relative apart) and round once to bf16, so they
+# may differ by one bf16 ulp, at most 2^-7 of the value; the atol (stated
+# per case) covers the f32 difference where the value is near zero.
+BF16_RTOL = 2.0 ** -7
 DEVICE = "cuda"
+
+# Serving phase: yi-6b (repro_torch.configs), one wave of 4 x 2048 tokens
+# for the f32 checks, then 8 requests of 1536-2048 tokens over 4 slots.
+SERVE_ARCH = "yi_6b"
+WAVE, SLOTS, REQUESTS, MAX_NEW = 2048, 4, 8, 32
+PROMPT_LENS = (1536, 2048)
+MAX_LEN = 2080
+# Further flash cases (BH, S, d[, window]): a gemma3-12b local layer of 4
+# sequences x 16 heads x 256 with its window of 1024, and a ragged S.
+GEMMA_LOCAL = (4 * 16, 4096, 256, 1024)
+RAGGED = (32, 1000, HEAD_DIM)
+# f32 prefill logits, flash kernel against plain attention, relative to
+# max|logits|: each layer's attention differs from the plain version by the
+# f32 rounding of another summation order (~1e-6 relative); 32 layers of
+# random weights carry that through, and a wrong block would give an error
+# of order 1.  The decode-after-prefill gate holds to the same bound.
+SERVE_RTOL = 1e-3
 
 
 def fail(msg: str):
@@ -86,7 +118,7 @@ def rel_err(out, ref) -> tuple[float, float]:
 def gemm_cases(gen):
     from repro_torch.kernels.ref import gemm_ref
 
-    def case(name, batch, M, K, N, dtype, accumulate, rtol, iters):
+    def case(name, batch, M, K, N, dtype, accumulate, rtol, iters, atol=None):
         shape = (batch,) if batch else ()
         a = torch.randn(*shape, M, K, generator=gen, device=DEVICE).to(dtype)
         b = torch.randn(*shape, K, N, generator=gen, device=DEVICE).to(dtype)
@@ -100,13 +132,14 @@ def gemm_cases(gen):
             lib = (lambda: torch.bmm(a, b)) if batch else (lambda: torch.matmul(a, b))
         return dict(name=name, kernel=lambda: gemm(a, b, c, accumulate=accumulate),
                     plain=lambda: gemm_ref(a, b, c, accumulate=accumulate), library=lib,
-                    rtol=rtol, iters=iters,
+                    rtol=rtol, atol=atol, iters=iters,
                     bound=bound(ops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32, nbytes))
 
     from repro_torch.kernels.ops import gemm
     f32, bf16 = torch.float32, torch.bfloat16
-    # f32: sums over K <= 1024 in another order than the plain version's;
-    # bf16: outputs round to 8 bits, so one ulp (2^-8 relative) may differ.
+    # f32: sums over K <= 1024 in another order than the plain version's,
+    # relative to max(1, max|ref|); bf16: element by element (BF16_RTOL), the
+    # atol above the f32 sum-order difference over K = 4096 (~1e-4 at most).
     summa = (16, TOKENS // 4, D_MODEL // 4, D_FF // 4)       # one step on the 4x4 mesh
     fcl = (8, TOKENS, N_HEADS * HEAD_DIM // 8, D_MODEL)      # partials over 8 members
     return [
@@ -114,7 +147,8 @@ def gemm_cases(gen):
              *summa, f32, True, 1e-4, 5),
         case("fcl_partials {}x({}x{} @ {}x{}) f32".format(*fcl[:3], *fcl[2:]),
              *fcl, f32, False, 1e-4, 5),
-        case(f"square {D_MODEL}^3 bf16", 0, D_MODEL, D_MODEL, D_MODEL, bf16, False, 2e-2, 5),
+        case(f"square {D_MODEL}^3 bf16", 0, D_MODEL, D_MODEL, D_MODEL, bf16, False, BF16_RTOL, 5,
+             atol=1e-3),
         case("ragged 1000x333 @ 333x777 +C f32", 0, 1000, 333, 777, f32, True, 1e-4, 20),
     ]
 
@@ -123,24 +157,75 @@ def reduce_cases(gen):
     from repro_torch.kernels.ops import reduce_nway
     from repro_torch.kernels.ref import reduce_nway_ref
 
-    def case(name, x, op, rtol, library):
+    def case(name, x, op, rtol, library, atol=None):
         n, m = x.shape
         nbytes = (n + 1) * m * x.element_size()
         return dict(name=name, kernel=lambda: reduce_nway(x, op=op),
                     plain=lambda: reduce_nway_ref(x, op), library=library,
-                    rtol=rtol, iters=20, bound=bound((n - 1) * m, PEAK_F32, nbytes))
+                    rtol=rtol, atol=atol, iters=20, bound=bound((n - 1) * m, PEAK_F32, nbytes))
 
     m = D_MODEL * TOKENS
     xf = torch.randn(8, m, generator=gen, device=DEVICE)
     xb = torch.randn(8, m, generator=gen, device=DEVICE).to(torch.bfloat16)
     bits = (torch.rand(16, 1 << 20, generator=gen, device=DEVICE) < 0.95).to(torch.int32)
-    # f32 add: 8 terms, rounding ~8 * 2^-24; bf16 add: the f32 sum rounds to
-    # 8 bits, so one ulp (2^-8 relative) may differ; max and and are exact.
+    # f32 add: 8 terms, rounding ~8 * 2^-24; bf16 add: the f32 sums round to
+    # bf16, held element by element (BF16_RTOL); max and and are exact.
     return [
         case(f"add (8, {D_MODEL}*{TOKENS}) f32", xf, "add", 1e-5, lambda: torch.sum(xf, 0)),
-        case(f"add (8, {D_MODEL}*{TOKENS}) bf16", xb, "add", 2e-2, lambda: torch.sum(xb, 0)),
+        case(f"add (8, {D_MODEL}*{TOKENS}) bf16", xb, "add", BF16_RTOL,
+             lambda: torch.sum(xb, 0), atol=1e-5),
         case(f"max (8, {D_MODEL}*{TOKENS}) f32", xf, "max", 0.0, lambda: torch.amax(xf, 0)),
         case("and (16, 2^20) int32", bits, "and", 0.0, None),
+    ]
+
+
+def causal_pairs(S: int, window: int) -> int:
+    """Live (query, key) pairs of a causal mask, within ``window`` when > 0."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_cases(gen):
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    import torch.nn.functional as F
+
+    def case(BH, S, d, window, dtype, rtol, iters, atol=None):
+        q, k, v = (torch.randn(BH, S, d, generator=gen, device=DEVICE).to(dtype)
+                   for _ in range(3))
+        ops = 4.0 * d * BH * causal_pairs(S, window)
+        nbytes = 4 * BH * S * d * q.element_size()
+        if window > 0:
+            i = torch.arange(S, device=DEVICE)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            lib = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                         attn_mask=mask)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                         is_causal=True)
+        name = f"({BH}, {S}, {d}) {str(dtype).split('.')[-1]} window {window}"
+        return dict(name=name, kernel=lambda: flash_attention(q, k, v, window=window),
+                    plain=lambda: flash_attention_ref(q, k, v, window=window), library=lib,
+                    rtol=rtol, atol=atol, iters=iters,
+                    bound=bound(ops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32,
+                                nbytes))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    bh = 4 * N_HEADS  # one wave of yi-6b: 4 sequences x 32 heads
+    # f32: sums over keys and head dims in another order than the plain
+    # version's, with the online softmax's rescaling, ~1e-6 relative to
+    # max(1, max|ref|); bf16: element by element (BF16_RTOL).  Row i's output
+    # has a spread of ~sqrt(e / (i + 1)), ~0.04 at S = 2048, so dropping one
+    # 64-key tile, or starting the window a tile late, moves it by ~0.01: far
+    # above either limit.  The gemma3 local layer runs in both types, so that
+    # the window's tile skip at d = 256 is held at the f32 limit too.
+    return [
+        case(bh, WAVE, HEAD_DIM, 0, bf16, BF16_RTOL, 5, atol=1e-5),
+        case(bh, WAVE, HEAD_DIM, 0, f32, 1e-4, 5),
+        case(*GEMMA_LOCAL, bf16, BF16_RTOL, 3, atol=1e-5),
+        case(*GEMMA_LOCAL, f32, 1e-4, 3),
+        case(*RAGGED, 0, f32, 1e-4, 10),
     ]
 
 
@@ -150,16 +235,25 @@ def run_case(cs) -> dict:
     if out.shape != ref.shape or out.dtype != ref.dtype or out.device.type != DEVICE:
         fail(f"{cs['name']}: kernel gave {out.shape} {out.dtype} {out.device}, "
              f"plain {ref.shape} {ref.dtype}")
-    err, rel = rel_err(out, ref)
-    if not rel <= cs["rtol"]:
-        fail(f"{cs['name']}: max_abs_err {err:.3e} (relative {rel:.3e}) above {cs['rtol']}")
+    if cs["atol"] is None:  # relative to max(1, max|ref|)
+        err, rel = rel_err(out, ref)
+        limit = f"{cs['rtol']} x max(1, max|ref|)"
+        ratio = rel / cs["rtol"] if cs["rtol"] else (0.0 if err == 0 else float("inf"))
+    else:  # element by element: |out - ref| <= rtol * |ref| + atol
+        diff = (out.float() - ref.float()).abs()
+        err, rel = diff.max().item(), rel_err(out, ref)[1]
+        limit = f"{cs['rtol']:.3e} x |ref| + {cs['atol']} per element"
+        ratio = (diff / (cs["rtol"] * ref.float().abs() + cs["atol"])).max().item()
+        del diff
+    if not ratio <= 1.0:
+        fail(f"{cs['name']}: max_abs_err {err:.3e} at {ratio:.3f} of its limit {limit}")
     bound_ms, bound_by = cs["bound"]
-    row = dict(case=cs["name"], max_abs_err=err, rel_err=rel, tol=cs["rtol"],
+    row = dict(case=cs["name"], max_abs_err=err, rel_err=rel, tol=limit, limit_ratio=ratio,
                ms=time_ms(cs["kernel"], cs["iters"]),
                plain_ms=time_ms(cs["plain"], cs["iters"]),
                library_ms=time_ms(cs["library"], cs["iters"]) if cs["library"] else None,
                bound_ms=bound_ms, bound_by=bound_by)
-    print(f"  {row['case']}: max_abs_err {err:.3e} (rel {rel:.3e} <= {cs['rtol']}) "
+    print(f"  {row['case']}: max_abs_err {err:.3e} ({ratio:.3f} of {limit}) "
           f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} library "
           f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
           f"bound {bound_ms:.4f} ({bound_by})", flush=True)
@@ -281,6 +375,161 @@ def main_path(gen) -> dict:
     return walls
 
 
+def serve_phase(seed: int) -> dict:
+    """yi-6b at full width: the f32 checks, then the bf16 serve; returns its numbers."""
+    from unittest import mock
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tt
+    from repro_torch.runtime.server import Request, Server
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tt.init(gen, cfg, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.head_dim} (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}; {n_params / 1e9:.3f} B parameters in "
+          f"{str(cfg.param_dtype).split('.')[-1]}, initialised in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "n_params": n_params}
+
+    # f32 checks: flash against plain attention, and the KV-cache gate.
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
+    model32 = copy.deepcopy(model).to(torch.float32)
+    x = torch.randint(0, cfg.vocab, (SLOTS, WAVE + 1), generator=gen, device=DEVICE)
+
+    def plain(q, k, v, *, window=0, **_):
+        return flash_attention_ref(q, k, v, window=window)
+
+    def check(key, name, got, ref):
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}, or not finite")
+        err = rel_err(got, ref)[0]
+        scale = ref.abs().max().item()
+        if not err <= SERVE_RTOL * scale:
+            fail(f"{name}: max_abs_err {err:.3e} above {SERVE_RTOL} x max|logits| {scale:.3e}")
+        print(f"  {name}: max_abs_err {err:.3e}, max|logits| {scale:.3e} "
+              f"(ratio {err / scale:.3e} <= {SERVE_RTOL})", flush=True)
+        out[key] = {"max_abs_err": err, "max_abs": scale}
+
+    with torch.inference_mode():
+        before = flash_attention.launches
+        logits, cache = tt.prefill(model32, x[:, :WAVE], cfg32, max_len=MAX_LEN)
+        if flash_attention.launches - before != cfg.n_layers:
+            fail(f"f32 prefill launched flash_attention {flash_attention.launches - before} "
+                 f"times, not {cfg.n_layers}")
+        with mock.patch.object(attn_mod, "flash_attention", plain):
+            plain_logits, _ = tt.prefill(model32, x[:, :WAVE], cfg32)
+        check("prefill_f32", f"f32 prefill logits, flash vs plain, {SLOTS} x {WAVE}",
+              logits, plain_logits)
+        del plain_logits
+        dec, _ = tt.decode_step(model32, cache, x[:, WAVE:], WAVE, cfg32)
+        del cache
+        full, _ = tt.prefill(model32, x, cfg32)
+        check("decode_gate_f32", f"f32 decode at {WAVE} vs prefill of {WAVE + 1}", dec, full)
+    del model32, logits, dec, full
+    torch.cuda.empty_cache()
+
+    # bf16 serving: 8 requests, two waves of ragged length, run twice.
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, REQUESTS)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
+    server = Server(cfg, model, max_len=MAX_LEN, device=DEVICE)
+    times = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            return r
+        return call
+
+    server._prefill = timed(server._prefill, "prefill")
+    server._decode = timed(server._decode, "decode")
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    for run in ("cold", "warm"):
+        for key in times:
+            times[key] = []
+        reqs = [Request(prompt=p, max_new=MAX_NEW) for p in prompts]
+        t = time.perf_counter()
+        done = server.serve(reqs, batch_slots=SLOTS)
+        wall = (time.perf_counter() - t) * 1e3
+        tokens = [r.out for r in done]
+        n_tok = sum(len(o) for o in tokens)
+        if not all(r.done and len(r.out) == MAX_NEW for r in done):
+            fail("serve: a request did not finish with its tokens")
+        if not all(0 <= tok < cfg.vocab for o in tokens for tok in o):
+            fail("serve: a token outside [0, vocab)")
+        runs.append({"run": run, "wall_ms": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall * 1e3,
+                     "prefill_ms": list(times["prefill"]),
+                     "decode_ms_per_step": sum(times["decode"]) / len(times["decode"]),
+                     "decode_steps": len(times["decode"]), "out": tokens})
+        print(f"  serve ({run}): {len(done)} requests, prompts {sorted(int(n) for n in lens)}, "
+              f"{n_tok} tokens in {wall:.1f} ms ({n_tok / wall * 1e3:.1f} tok/s); prefill ms per "
+              f"wave {[round(m, 2) for m in times['prefill']]}, decode "
+              f"{runs[-1]['decode_ms_per_step']:.2f} ms per step over "
+              f"{len(times['decode'])} steps", flush=True)
+    launches = flash_attention.launches
+    n_prefills = sum(len(r["prefill_ms"]) for r in runs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if runs[0]["out"] != runs[1]["out"]:
+        fail("serve: a second run gave other tokens")
+    if launches != cfg.n_layers * n_prefills:
+        fail(f"flash_attention launched {launches} times over {n_prefills} prefills, "
+             f"not {cfg.n_layers} per prefill")
+    print(f"  served twice, same tokens; flash_attention launches {launches} "
+          f"({n_prefills} prefills x {cfg.n_layers}); peak device memory {peak:.2f} GiB")
+
+    # One profiled prefill and one profiled decode step of the first wave.
+    wave = [[0] * (max(map(len, prompts[:SLOTS])) - len(p)) + p for p in prompts[:SLOTS]]
+    tokens = torch.tensor(wave, dtype=torch.int64, device=DEVICE)
+    with torch.inference_mode():
+        for name in ("prefill", "decode"):
+            walls = {}
+            for run in ("warm", "profiled"):
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+                    if run == "profiled" else contextlib.nullcontext()
+                torch.cuda.synchronize()
+                with prof:
+                    t = time.perf_counter()
+                    if name == "prefill":
+                        logits, cache = tt.prefill(model, tokens, cfg, max_len=MAX_LEN)
+                    else:
+                        nxt = logits.argmax(-1)[:, None]
+                        tt.decode_step(model, cache, nxt, tokens.shape[1], cfg)
+                    torch.cuda.synchronize()
+                    walls[run] = (time.perf_counter() - t) * 1e3
+            # Idle share against the unprofiled warm wall, as in phase 3: the
+            # profiler's own host overhead stretches the profiled wall.
+            br = device_breakdown(prof)
+            idle = 1 - br["device_ms"] / walls["warm"]
+            top = ", ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in br["top"])
+            print(f"  {name}: warm wall {walls['warm']:.2f} ms (profiled {walls['profiled']:.2f}), "
+                  f"device busy {br['device_ms']:.2f} ms (idle {idle:.1%}): {top}", flush=True)
+            out[f"profiled_{name}"] = {"wall_ms": walls["warm"], "idle_share": idle,
+                                       "profiled_wall_ms": walls["profiled"], **br}
+    for r in runs:
+        del r["out"]
+    out.update(runs=runs, launches=launches, prefills=n_prefills, peak_gib=peak,
+               prompt_lens=[int(n) for n in lens])
+    del model, server, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -316,6 +565,7 @@ def main(argv=None) -> int:
     gemm_rows = [run_case(cs) for cs in gemm_cases(gen)]
     reduce_rows = [run_case(cs) for cs in reduce_cases(gen)]
     lsb_and_barrier()
+    flash_rows = [run_case(cs) for cs in flash_cases(gen)]
     torch.cuda.empty_cache()
 
     # 3. The main path; only its launches count.
@@ -331,8 +581,13 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was never launched on the main path")
+    torch.cuda.empty_cache()
 
-    # 4. Result lines.
+    # 4. Serving yi-6b; only the served requests' launches count.
+    serving = serve_phase(args.seed)
+    launches["flash_attention"] = serving["launches"]
+
+    # 5. Result lines.
     def entry(name, source, replaces, rows):
         main_row = rows[0]  # the main-path shape of this kernel
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -347,8 +602,11 @@ def main(argv=None) -> int:
               "src/repro/kernels/gemm.py:48", gemm_rows),
         entry("reduce_nway", "src/repro_torch/kernels/csrc/reduce_nway.cu",
               "src/repro/kernels/reduce_nway.py:38", reduce_rows),
+        entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:67", flash_rows),
     ]
     print(json.dumps({"main_path": walls}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

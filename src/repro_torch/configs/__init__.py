@@ -1,0 +1,54 @@
+"""Architecture registry of the port: the dense transformers so far.
+
+The port's own records (``repro.configs`` loads JAX): ``get_config(arch_id)``
+returns the full configuration, ``get_smoke_config(arch_id)`` a reduced
+same-family one for CPU tests.  Ids and aliases are the reference's; the
+MoE, hybrid, rwkv and whisper ids raise ``KeyError`` until their families
+are ported.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = [
+    "yi_6b",
+    "qwen1_5_0_5b",
+    "glm4_9b",
+    "gemma3_12b",
+    "chameleon_34b",
+]
+
+# in the reference's registry, not ported yet
+WAITING = ["phi3_5_moe", "moonshot_v1_16b", "whisper_base", "recurrentgemma_2b", "rwkv6_3b"]
+
+# canonical external names -> module ids
+ALIASES = {
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b",
+    "yi-6b": "yi_6b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "glm4-9b": "glm4_9b",
+    "gemma3-12b": "gemma3_12b",
+    "chameleon-34b": "chameleon_34b",
+    "whisper-base": "whisper_base",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-3b": "rwkv6_3b",
+}
+
+
+def _module(arch_id: str):
+    arch_id = ALIASES.get(arch_id, arch_id)
+    if arch_id in WAITING:
+        raise KeyError(f"arch {arch_id!r} is not ported yet (see ROADMAP.md); have {ARCH_IDS}")
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{arch_id}")
+
+
+def get_config(arch_id: str):
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str):
+    return _module(arch_id).smoke_config()

@@ -33,6 +33,7 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "repro_gemm": (P, P, P, P, I, I, I, I, I, L, L, L, L, P),
     "repro_reduce_nway": (P, P, I, I, L, I, L, P),
+    "repro_flash_attention": (P, P, P, P, I, I, I, I, I, P),
 }
 
 

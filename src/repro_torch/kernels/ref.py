@@ -27,3 +27,17 @@ def reduce_nway_ref(x, op: str = "add", dim: int = 0):
             out = out & x.select(dim, i)
         return out
     raise ValueError(op)
+
+
+def flash_attention_ref(q, k, v, window: int = 0):
+    BH, S, d = q.shape
+    scale = 1.0 / (d ** 0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    s = torch.where(mask[None], s, -2.0e38)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

@@ -1,0 +1,181 @@
+"""Grouped-query attention with causal / sliding-window masks and KV caches.
+
+The port's counterpart of ``src/repro/models/attention.py``, for the dense
+decoder-only transformers:
+
+* causal self-attention over a full sequence (``attention``, and the
+  prefill of ``models/transformer.py``) goes through the hand-written
+  flash kernel (``kernels/flash_attention.py``), with the layer's sliding
+  window when it has one;
+* one-token decode (``attention_decode``) stays plain PyTorch: the grouped
+  einsum of the reference's ``_sdpa_block`` over the whole cache, under the
+  mask of valid positions;
+* bidirectional self-attention (whisper's encoder) and ``cross_attention``
+  wait with whisper.
+
+GQA: the reference's flat path repeats K/V with ``jnp.repeat(k, group,
+axis=2)``, so query head h reads kv head ``h // group``: that is
+``repeat_interleave`` here.  K and V are repeated to H heads, q, k and v
+are copied into contiguous (B*H, S, hd) for the kernel, and its output is
+copied back: six copies of a (B, S, H, hd) tensor per layer, which a
+kernel that reads kv head ``h // group`` in place would mostly save.
+
+Numbers: the reference model casts the probabilities to the compute dtype
+before ``P @ V``; the kernel, like the TPU kernel, keeps them in f32.  In
+bf16 the port therefore differs from the reference model by one rounding
+per layer; in f32 (the CPU tests' smoke configs) the two agree.
+
+The decode cache is updated in place (``KVCache`` tensors are written at
+``pos``), where the reference's ``dynamic_update_slice`` returns a new
+array: the returned cache holds the same tensors, and no copy of the cache
+is made per step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import ModelConfig, check_supported, dense_init
+from repro_torch.models.rope import apply_rope
+
+NEG_INF = -2.0e38
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (..., B, S_max, n_kv, head_dim)
+    v: torch.Tensor
+
+
+def init_attn_params(gen, cfg: ModelConfig, device=None,
+                     d_model: Optional[int] = None) -> dict:
+    d = d_model or cfg.d_model
+    hd = cfg.head_dim
+    p = {
+        "wq": dense_init(gen, (d, cfg.n_heads * hd), cfg.param_dtype, device),
+        "wk": dense_init(gen, (d, cfg.n_kv_heads * hd), cfg.param_dtype, device),
+        "wv": dense_init(gen, (d, cfg.n_kv_heads * hd), cfg.param_dtype, device),
+        "wo": dense_init(gen, (cfg.n_heads * hd, d), cfg.param_dtype, device),
+    }
+    if cfg.qkv_bias:
+        dev = device or gen.device
+        p["bq"] = torch.zeros((cfg.n_heads * hd,), dtype=cfg.param_dtype, device=dev)
+        p["bk"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=cfg.param_dtype, device=dev)
+        p["bv"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=cfg.param_dtype, device=dev)
+    return p
+
+
+def _qkv(params, x, cfg: ModelConfig):
+    B, S, _ = x.shape
+    hd, cd = cfg.head_dim, cfg.compute_dtype
+    q = x @ params["wq"].to(cd)
+    k = x @ params["wk"].to(cd)
+    v = x @ params["wv"].to(cd)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(cd)
+        k = k + params["bk"].to(cd)
+        v = v + params["bv"].to(cd)
+    return (q.reshape(B, S, cfg.n_heads, hd), k.reshape(B, S, cfg.n_kv_heads, hd),
+            v.reshape(B, S, cfg.n_kv_heads, hd))
+
+
+def _scale(hd: int) -> float:
+    return 1.0 / math.sqrt(hd)
+
+
+def _sdpa_block(q5, k, v, mask, cfg: ModelConfig):
+    """Grouped-query attention without repeating K/V (the decode path).
+
+    q5: (B, Sq, Hkv, G, hd); k, v: (B, Sk, Hkv, hd); mask: (B|1, 1, Sq, Sk).
+    """
+    B, Sq, Hkv, G, hd = q5.shape
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k.float()) * _scale(hd)
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(cfg.compute_dtype), v)
+    return out.reshape(B, Sq, Hkv * G * hd)
+
+
+def _causal_flash(q, k, v, window: int):
+    """Causal self-attention through the flash kernel.
+
+    q: (B, S, H, hd); k, v: (B, S, Hkv, hd).  Returns (B, S, H * hd).
+    """
+    B, S, H, hd = q.shape
+    group = H // k.shape[2]
+
+    def heads_first(t):  # (B, S, H, hd) -> contiguous (B * H, S, hd)
+        return t.transpose(1, 2).reshape(B * H, S, hd)
+
+    out = flash_attention(heads_first(q),
+                          heads_first(k.repeat_interleave(group, dim=2)),
+                          heads_first(v.repeat_interleave(group, dim=2)),
+                          window=int(window))
+    return out.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)
+
+
+def causal_window_mask(Sq: int, Sk: int, window: int, offset: int = 0, device=None):
+    """(1, 1, Sq, Sk) bool; window 0 means unlimited."""
+    qi = torch.arange(Sq, device=device)[:, None] + offset
+    ki = torch.arange(Sk, device=device)[None, :]
+    m = ki <= qi
+    if window > 0:
+        m = m & (ki > qi - window)
+    return m[None, None]
+
+
+def self_attention(params, x, positions, cfg: ModelConfig, *, window: int = 0):
+    """Causal self-attention before the output projection.
+
+    Returns (out (B, S, H * hd), k after RoPE, v), the last two for the
+    prefill's cache.
+    """
+    check_supported(cfg)
+    q, k, v = _qkv(params, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return _causal_flash(q, k, v, window), k, v
+
+
+def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0):
+    """Causal self-attention over a full sequence (training / prefill)."""
+    out = self_attention(params, x, positions, cfg, window=window)[0]
+    return out @ params["wo"].to(cfg.compute_dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+               dtype=None, device=None) -> KVCache:
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.compute_dtype
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def attention_decode(params, x, layer_cache: KVCache, pos: int, cfg: ModelConfig, *,
+                     window: int = 0):
+    """One-token decode with the cache written at ``pos`` in place.
+
+    x: (B, 1, d); layer_cache k/v: (B, S_max, n_kv, hd).  Returns (out, cache).
+    """
+    check_supported(cfg)
+    B = x.shape[0]
+    S_max = layer_cache.k.shape[1]
+    q, k_new, v_new = _qkv(params, x, cfg)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    layer_cache.k[:, pos] = k_new[:, 0].to(layer_cache.k.dtype)
+    layer_cache.v[:, pos] = v_new[:, 0].to(layer_cache.v.dtype)
+    ki = torch.arange(S_max, device=x.device)[None, :]
+    valid = ki <= pos
+    if window > 0:
+        valid = valid & (ki > pos - window)
+    mask = valid[:, None, None, :]  # (1, 1, 1, S_max)
+    cd = cfg.compute_dtype
+    Hkv = layer_cache.k.shape[2]
+    q5 = q.reshape(B, 1, Hkv, cfg.n_heads // Hkv, cfg.head_dim)
+    out = _sdpa_block(q5, layer_cache.k.to(cd), layer_cache.v.to(cd), mask, cfg)
+    return out @ params["wo"].to(cd), layer_cache

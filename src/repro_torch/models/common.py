@@ -1,0 +1,149 @@
+"""Shared building blocks: the model config, norms and initialisers.
+
+The port's counterpart of ``src/repro/models/common.py``.  ``ModelConfig``
+has the reference's fields, with torch dtypes.  The JAX-only knobs
+``scan_layers`` and ``remat`` are accepted and change nothing (the port runs
+its layers in a Python loop and trains nothing yet); ``attn_q_chunk`` only
+bounds memory in the reference, and the flash kernel already works in
+blocks, so it is ignored too.  ``attn_bf16_logits`` changes the numbers and
+is not ported: a model built with it raises ``NotImplementedError``.
+``ShardingPolicy`` / ``constrain`` have no meaning on one card and wait for
+the ``torch.distributed`` backend.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One record per assigned architecture (see ``repro_torch.configs``)."""
+
+    name: str
+    family: str                    # transformer | rglru_hybrid | rwkv6 | whisper
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    # attention pattern
+    attn_window: int = 0           # 0 -> full attention; >0 -> sliding window
+    local_global_ratio: int = 0    # gemma3: N local layers per 1 global
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # hybrid (recurrentgemma): pattern of blocks, e.g. ("rec", "rec", "attn")
+    block_pattern: tuple[str, ...] = ()
+    lru_width: int = 0             # 0 -> d_model
+    conv_width: int = 4
+    # rwkv
+    rwkv_head_size: int = 64
+    # whisper
+    encoder_layers: int = 0
+    encoder_len: int = 1500
+    # memory-only in the reference; ignored here (the kernel is blockwise)
+    attn_q_chunk: int = 0
+    # bf16 logits change the numbers; not ported (raises)
+    attn_bf16_logits: bool = False
+    moe_token_shard: bool = True
+    # numerics
+    param_dtype: Any = torch.bfloat16
+    compute_dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # loss
+    loss_chunk: int = 1024
+    remat: bool = True             # JAX-only; no effect
+    scan_layers: bool = True       # JAX-only; no effect
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(1, self.n_kv_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256, as the reference pads it."""
+        return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def n_params(self) -> int:
+        """Approximate parameter count, by the reference's formula."""
+        d, f, L, v = self.d_model, self.d_ff, self.n_layers, self.padded_vocab
+        hd = self.head_dim
+        if self.family == "rwkv6":
+            per_layer = 4 * d * d + d * d + 2 * d * f + 6 * d * 32 * 2
+        elif self.family == "rglru_hybrid":
+            rec = 2 * d * (self.lru_width or d) + (self.lru_width or d) * d
+            attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+            mlp = 3 * d * f
+            n_attn = sum(1 for i in range(L) if self._block_kind(i) == "attn")
+            return (L - n_attn) * (rec + mlp) + n_attn * (attn + mlp) + 2 * v * d
+        else:
+            attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+            if self.n_experts:
+                mlp = self.n_experts * 3 * d * f + d * self.n_experts
+            else:
+                mlp = 3 * d * f
+            per_layer = attn + mlp
+        total = L * per_layer + 2 * v * d
+        if self.family == "whisper":
+            total += self.encoder_layers * (2 * attn + 2 * d * f + d * f)
+        return total
+
+    def _block_kind(self, i: int) -> str:
+        if not self.block_pattern:
+            return "attn"
+        return self.block_pattern[i % len(self.block_pattern)]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a config field whose numbers the port does not reproduce."""
+    if cfg.attn_bf16_logits:
+        raise NotImplementedError("attn_bf16_logits is not ported (see ROADMAP.md)")
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMS norm scaled by ``1 + scale`` (the scales are initialised to zero)."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dtype)
+
+
+def dense_init(gen: torch.Generator, shape, dtype, device=None, scale: float | None = None):
+    """Normal weights with std ``scale / sqrt(fan_in)``, drawn from ``gen``."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = (scale if scale is not None else 1.0) / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=gen, device=device or gen.device)
+    return (w * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device=None):
+    w = torch.randn((vocab, d), generator=gen, device=device or gen.device)
+    return (w * 0.02).to(dtype)
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA, and raises without a card; the CPU only when asked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device='cpu' to run the plain "
+                               "versions on the host")
+        device = "cuda"
+    return torch.device(device)

@@ -13,9 +13,11 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.gemm import gemm as jgemm
 from repro.kernels.reduce_nway import reduce_nway as jreduce
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gemm
 from repro_torch.kernels.reduce_nway import reduce_nway
 
@@ -188,3 +190,80 @@ def test_plain_oracles_match_jax_oracles():
     x = _reduce_input("and", (7, 64), seed=4)
     np.testing.assert_array_equal(tref.reduce_nway_ref(torch.from_numpy(x), "and").numpy(),
                                   np.asarray(jref.reduce_nway_ref(jnp.asarray(x), "and")))
+
+
+# -- flash_attention ------------------------------------------------------------
+
+
+def _qkv_np(seed, shape):
+    return tuple(_rand(seed + i, shape) for i in range(3))
+
+
+@pytest.mark.parametrize("window", [0, 32])
+@pytest.mark.parametrize("S,d", [(128, 32), (256, 16)])
+def test_flash_attention_matches_jax(S, d, window):
+    """The reference test's shapes and tolerance (tests/test_kernels.py)."""
+    q, k, v = _qkv_np(0, (4, S, d))
+    out = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), window=window)
+    assert out.shape == (4, S, d) and out.dtype == torch.float32
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    np.testing.assert_allclose(
+        _np(out), _np(jflash(jq, jk, jv, window=window, bq=64, bkv=64)), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        _np(out), _np(jref.flash_attention_ref(jq, jk, jv, window=window)),
+        rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("bq,bkv", [(32, 32), (64, 32), (128, 64)])
+def test_flash_attention_block_shape_invariance(bq, bkv):
+    """bq / bkv are the TPU's block shape: they do not change the result."""
+    q, k, v = _qkv_np(10, (2, 128, 16))
+    out = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), bq=bq, bkv=bkv)
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    np.testing.assert_allclose(_np(out), _np(jflash(jq, jk, jv, bq=bq, bkv=bkv)),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("S,window", [(1, 0), (77, 0), (100, 16), (200, 64)])
+def test_flash_attention_ragged_s_matches_oracle(S, window):
+    """Any S: the reference kernel asserts S % bq == 0, its oracle does not."""
+    q, k, v = _qkv_np(20, (3, S, 32))
+    out = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), window=window)
+    np.testing.assert_allclose(
+        _np(out), _np(jref.flash_attention_ref(*(jnp.asarray(t) for t in (q, k, v)),
+                                               window=window)),
+        rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_bf16_matches_jax_oracle():
+    q, k, v = _qkv_np(30, (2, 64, 16))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(t, "bf16") for t in (q, k, v))
+    out = flash_attention(tq, tk, tv, window=8)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(out), _np(jref.flash_attention_ref(jq, jk, jv, window=8)),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "rank", "int"])
+def test_flash_attention_rejects_bad_operands(bad):
+    q = k = v = torch.zeros(2, 8, 16)
+    if bad == "dtype":
+        k = k.to(torch.bfloat16)
+    elif bad == "shape":
+        v = torch.zeros(2, 9, 16)
+    elif bad == "rank":
+        q = k = v = torch.zeros(8, 16)
+    else:
+        q = k = v = torch.zeros(2, 8, 16, dtype=torch.int32)
+    with pytest.raises((TypeError, ValueError)):
+        flash_attention(q, k, v)
+
+
+def test_flash_attention_oracle_matches_jax_oracle():
+    q, k, v = _qkv_np(40, (2, 48, 16))
+    for window in (0, 5):
+        np.testing.assert_allclose(
+            _np(tref.flash_attention_ref(*(torch.from_numpy(t) for t in (q, k, v)),
+                                         window=window)),
+            _np(jref.flash_attention_ref(*(jnp.asarray(t) for t in (q, k, v)), window=window)),
+            rtol=2e-4, atol=2e-4)
