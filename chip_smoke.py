@@ -24,7 +24,17 @@ Phases, each of which raises on failure:
    in bf16, ``Server.serve`` of 8 requests (prompts of 1536-2048 tokens, 4
    slots, 32 new tokens), twice, which must give in-vocab, equal tokens,
    with ``flash_attention`` launched 32 times per prefill;
-5. print the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+5. serve recurrentgemma-2b at full width and depth (26 layers) in the same
+   way: f32 prefill logits through ``rglru_scan`` and ``flash_attention``
+   against their plain versions, decode at 2600 after a prefill of 2600
+   (past the attention window of 2048) against a prefill of 2601, then the
+   bf16 serve twice, with ``rglru_scan`` launched 18 and ``flash_attention``
+   8 times per prefill;
+6. serve rwkv6-3b at full width and depth (32 layers) in the same way:
+   f32 prefill logits through ``wkv`` against its plain version, decode at
+   2048 against a prefill of 2049 (a ragged last chunk), then the bf16
+   serve twice, with ``wkv`` launched 32 times per prefill;
+7. print the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 It exits non-zero, printing no result, when no CUDA card is present.
@@ -36,6 +46,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -68,9 +79,8 @@ MAIN_RTOL = 1e-4
 BF16_RTOL = 2.0 ** -7
 DEVICE = "cuda"
 
-# Serving phase: yi-6b (repro_torch.configs), one wave of 4 x 2048 tokens
-# for the f32 checks, then 8 requests of 1536-2048 tokens over 4 slots.
-SERVE_ARCH = "yi_6b"
+# Serving phases (repro_torch.configs): one wave of 4 x 2048 tokens for the
+# f32 checks, then 8 requests of 1536-2048 tokens over 4 slots.
 WAVE, SLOTS, REQUESTS, MAX_NEW = 2048, 4, 8, 32
 PROMPT_LENS = (1536, 2048)
 MAX_LEN = 2080
@@ -84,6 +94,21 @@ RAGGED = (32, 1000, HEAD_DIM)
 # random weights carry that through, and a wrong block would give an error
 # of order 1.  The decode-after-prefill gate holds to the same bound.
 SERVE_RTOL = 1e-3
+# The models each serving phase drives: its kernels with their launches per
+# prefill, and the decode gate's position (past recurrentgemma's window of
+# 2048; a ragged last chunk of rwkv6's 64).
+SERVES = (
+    dict(arch="yi_6b", kernels={"flash_attention": 32}, gate=WAVE),
+    dict(arch="recurrentgemma_2b", kernels={"rglru_scan": 18, "flash_attention": 8}, gate=2600),
+    dict(arch="rwkv6_3b", kernels={"wkv": 32}, gate=2048),
+)
+# Recurrence kernel cases: the hybrid's wave (B, S, lru width), the rwkv6
+# wave (B, S, heads, head size), and ragged S.
+RGLRU_WAVE = (4, WAVE, 2560)
+RGLRU_RAGGED = (3, 1000, 2560)
+WKV_WAVE = (4, WAVE, 40, 64)
+WKV_RAGGED = (2, 1000, 40, 64)
+WKV_STRONG = (2, 1024, 40, 64)  # at the model's strongest decay, logw = -e^2
 
 
 def fail(msg: str):
@@ -229,9 +254,93 @@ def flash_cases(gen):
     ]
 
 
+def rglru_cases(gen):
+    from repro_torch.kernels.ops import rglru_scan
+    from repro_torch.kernels.ref import rglru_scan_ref
+
+    def case(shape, dtype, rtol, iters, atol=None):
+        # decays in (0, 1), a tenth of them above 0.99 (long memory)
+        a = (torch.rand(shape, generator=gen, device=DEVICE) ** 0.1).to(dtype)
+        b = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        n = a.numel()
+        name = f"{tuple(shape)} {str(dtype).split('.')[-1]}"
+        return dict(name=name, kernel=lambda: rglru_scan(a, b), plain=lambda: rglru_scan_ref(a, b),
+                    library=None, rtol=rtol, atol=atol, iters=iters,
+                    bound=bound(2.0 * n, PEAK_F32, 3 * n * a.element_size()))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # f32: the same products and sums associated otherwise (segments of 8
+    # steps folded together), ~1e-6 relative to max(1, max|ref|); bf16: the
+    # f32 result rounded once, element by element (BF16_RTOL), the atol above
+    # that f32 difference near zero.  A dropped or misplaced carry between
+    # chunks moves a long-memory channel by O(1).
+    return [
+        case(RGLRU_WAVE, f32, 1e-4, 20),
+        case(RGLRU_WAVE, bf16, BF16_RTOL, 20, atol=1e-4),
+        case(RGLRU_RAGGED, f32, 1e-4, 20),
+    ]
+
+
+def wkv_flops(B: int, S: int, H: int, hd: int) -> float:
+    """Flops of the chunked WKV: per chunk of n tokens, 4 hd per live pair
+    s <= t (the decayed r . k and P @ V) and 4 hd^2 per token (r . state and
+    the state update)."""
+    total = 0.0
+    for t0 in range(0, S, 64):
+        n = min(64, S - t0)
+        total += 4.0 * hd * n * (n + 1) / 2 + 4.0 * hd * hd * n
+    return B * H * total
+
+
+def wkv_cases(gen):
+    import math
+
+    from repro_torch.kernels.ops import wkv
+    from repro_torch.kernels.ref import wkv_ref
+
+    def case(shape, dtype, rtol, iters, atol=None, logw=None):
+        B, S, H, hd = shape
+        r, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
+        if logw is None:  # decay rates log-uniform over the model's range
+            lw = -torch.exp(torch.rand(shape, generator=gen, device=DEVICE) * 10 - 8)
+        else:
+            lw = torch.full(shape, logw, device=DEVICE)
+        u = 0.5 * torch.randn(H, hd, generator=gen, device=DEVICE)
+        nbytes = r.numel() * (4 * r.element_size() + 4) + 4 * (u.numel() + B * H * hd * hd)
+        name = f"{tuple(shape)} {str(dtype).split('.')[-1]}" + (
+            f" logw {logw:.4f}" if logw is not None else "")
+        return dict(name=name, kernel=lambda: wkv(r, k, v, lw, u),
+                    plain=lambda: wkv_ref(r, k, v, lw, u), library=None, rtol=rtol, atol=atol,
+                    iters=iters, bound=bound(wkv_flops(B, S, H, hd), PEAK_F32, nbytes))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # f32: sums over 64 key channels and up to 64 tokens in another order
+    # than the sequential plain version's, ~1e-6 relative to max(1, max|ref|)
+    # (values up to ~1e3 with the weakest decays); bf16: element by element
+    # (BF16_RTOL), the atol above that f32 difference where a value is near
+    # zero.  At logw = -e^2 the reference's chunked form overflows to NaN;
+    # the kernel must be finite and equal the sequential plain version.
+    return [
+        case(WKV_WAVE, bf16, BF16_RTOL, 3, atol=1e-3),
+        case(WKV_WAVE, f32, 1e-4, 3),
+        case(WKV_RAGGED, f32, 1e-4, 3),
+        case(WKV_STRONG, f32, 1e-4, 3, logw=-math.e ** 2),
+    ]
+
+
 def run_case(cs) -> dict:
     out, ref = cs["kernel"](), cs["plain"]()
     torch.cuda.synchronize()
+    if isinstance(out, tuple):  # wkv's final state: f32, relative to max(1, max|ref|)
+        (out, state), (ref, ref_state) = out, ref
+        if state.shape != ref_state.shape or not bool(torch.isfinite(state).all()):
+            fail(f"{cs['name']}: state {tuple(state.shape)}, plain {tuple(ref_state.shape)}, "
+                 "or not finite")
+        state_rel = rel_err(state, ref_state)[1]
+        if not state_rel <= 1e-4:
+            fail(f"{cs['name']}: final state at {state_rel:.3e} of max(1, max|ref|), above 1e-4")
+    if not bool(torch.isfinite(out.float()).all()):
+        fail(f"{cs['name']}: the kernel's output is not finite")
     if out.shape != ref.shape or out.dtype != ref.dtype or out.device.type != DEVICE:
         fail(f"{cs['name']}: kernel gave {out.shape} {out.dtype} {out.device}, "
              f"plain {ref.shape} {ref.dtype}")
@@ -375,39 +484,56 @@ def main_path(gen) -> dict:
     return walls
 
 
-def serve_phase(seed: int) -> dict:
-    """yi-6b at full width: the f32 checks, then the bf16 serve; returns its numbers."""
+def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
+    """One model at full width and depth: the f32 checks, then the bf16
+    serve; returns its numbers.
+
+    ``kernels`` maps each kernel on the model's path to its launches per
+    prefill; ``gate`` is the decode gate's position.
+    """
     from unittest import mock
 
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.ops import flash_attention, rglru_scan, wkv
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import transformer as tt
+    from repro_torch.models import get_family
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import rwkv6 as rwkv_mod
     from repro_torch.runtime.server import Request, Server
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config(SERVE_ARCH)
+    def plain_flash(q, k, v, *, window=0, **_):
+        return kref.flash_attention_ref(q, k, v, window=window)
+
+    def plain_rglru(a, b, **_):
+        return kref.rglru_scan_ref(a, b)
+
+    wrappers = {"flash_attention": flash_attention, "rglru_scan": rglru_scan, "wkv": wkv}
+    # where the models call each kernel, and its plain version for the f32 check
+    plains = {"flash_attention": (attn_mod, "flash_attention", plain_flash),
+              "rglru_scan": (rglru_mod, "rglru_scan", plain_rglru),
+              "wkv": (rwkv_mod, "wkv", kref.wkv_ref)}
+
+    cfg = get_config(arch)
+    fam = get_family(cfg)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     t0 = time.perf_counter()
-    model = tt.init(gen, cfg, DEVICE)
+    model = fam.init(gen, cfg, DEVICE)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"[serve] {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads x {cfg.head_dim} (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab}; {n_params / 1e9:.3f} B parameters in "
           f"{str(cfg.param_dtype).split('.')[-1]}, initialised in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "n_params": n_params}
 
-    # f32 checks: flash against plain attention, and the KV-cache gate.
+    # f32 checks: the kernels against their plain versions, and the cache gate.
     cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
     model32 = copy.deepcopy(model).to(torch.float32)
-    x = torch.randint(0, cfg.vocab, (SLOTS, WAVE + 1), generator=gen, device=DEVICE)
-
-    def plain(q, k, v, *, window=0, **_):
-        return flash_attention_ref(q, k, v, window=window)
+    x = torch.randint(0, cfg.vocab, (SLOTS, max(WAVE, gate) + 1), generator=gen, device=DEVICE)
 
     def check(key, name, got, ref):
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
@@ -421,20 +547,26 @@ def serve_phase(seed: int) -> dict:
         out[key] = {"max_abs_err": err, "max_abs": scale}
 
     with torch.inference_mode():
-        before = flash_attention.launches
-        logits, cache = tt.prefill(model32, x[:, :WAVE], cfg32, max_len=MAX_LEN)
-        if flash_attention.launches - before != cfg.n_layers:
-            fail(f"f32 prefill launched flash_attention {flash_attention.launches - before} "
-                 f"times, not {cfg.n_layers}")
-        with mock.patch.object(attn_mod, "flash_attention", plain):
-            plain_logits, _ = tt.prefill(model32, x[:, :WAVE], cfg32)
-        check("prefill_f32", f"f32 prefill logits, flash vs plain, {SLOTS} x {WAVE}",
-              logits, plain_logits)
+        before = {name: wrappers[name].launches for name in kernels}
+        logits, cache = fam.prefill(model32, x[:, :WAVE], cfg32, max_len=MAX_LEN)
+        for name, per in kernels.items():
+            if wrappers[name].launches - before[name] != per:
+                fail(f"f32 prefill launched {name} {wrappers[name].launches - before[name]} "
+                     f"times, not {per}")
+        with contextlib.ExitStack() as stack:
+            for name in kernels:
+                stack.enter_context(mock.patch.object(*plains[name]))
+            plain_logits, _ = fam.prefill(model32, x[:, :WAVE], cfg32)
+        check("prefill_f32", f"f32 prefill logits, {' + '.join(kernels)} vs plain, "
+              f"{SLOTS} x {WAVE}", logits, plain_logits)
         del plain_logits
-        dec, _ = tt.decode_step(model32, cache, x[:, WAVE:], WAVE, cfg32)
+        if gate != WAVE:
+            del cache
+            _, cache = fam.prefill(model32, x[:, :gate], cfg32, max_len=gate + 1)
+        dec = fam.decode_step(model32, cache, x[:, gate:gate + 1], gate, cfg32)[0]
         del cache
-        full, _ = tt.prefill(model32, x, cfg32)
-        check("decode_gate_f32", f"f32 decode at {WAVE} vs prefill of {WAVE + 1}", dec, full)
+        full = fam.prefill(model32, x[:, :gate + 1], cfg32, max_len=gate + 1)[0]
+        check("decode_gate_f32", f"f32 decode at {gate} vs prefill of {gate + 1}", dec, full)
     del model32, logits, dec, full
     torch.cuda.empty_cache()
 
@@ -459,7 +591,9 @@ def serve_phase(seed: int) -> dict:
     server._decode = timed(server._decode, "decode")
     runs = []
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    resident = torch.cuda.memory_allocated() / 2**30  # the weights and what else is held
+    for name in kernels:
+        wrappers[name].launches = 0
     for run in ("cold", "warm"):
         for key in times:
             times[key] = []
@@ -482,16 +616,18 @@ def serve_phase(seed: int) -> dict:
               f"wave {[round(m, 2) for m in times['prefill']]}, decode "
               f"{runs[-1]['decode_ms_per_step']:.2f} ms per step over "
               f"{len(times['decode'])} steps", flush=True)
-    launches = flash_attention.launches
+    launches = {name: wrappers[name].launches for name in kernels}
     n_prefills = sum(len(r["prefill_ms"]) for r in runs)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if runs[0]["out"] != runs[1]["out"]:
         fail("serve: a second run gave other tokens")
-    if launches != cfg.n_layers * n_prefills:
-        fail(f"flash_attention launched {launches} times over {n_prefills} prefills, "
-             f"not {cfg.n_layers} per prefill")
-    print(f"  served twice, same tokens; flash_attention launches {launches} "
-          f"({n_prefills} prefills x {cfg.n_layers}); peak device memory {peak:.2f} GiB")
+    for name, per in kernels.items():
+        if launches[name] != per * n_prefills:
+            fail(f"{name} launched {launches[name]} times over {n_prefills} prefills, "
+                 f"not {per} per prefill")
+    print(f"  served twice, same tokens; launches {launches} ({n_prefills} prefills x "
+          f"{kernels}); peak device memory {peak:.2f} GiB ({resident:.2f} GiB resident "
+          "at the start)")
 
     # One profiled prefill and one profiled decode step of the first wave.
     wave = [[0] * (max(map(len, prompts[:SLOTS])) - len(p)) + p for p in prompts[:SLOTS]]
@@ -503,29 +639,37 @@ def serve_phase(seed: int) -> dict:
                 prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
                     if run == "profiled" else contextlib.nullcontext()
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 with prof:
                     t = time.perf_counter()
                     if name == "prefill":
-                        logits, cache = tt.prefill(model, tokens, cfg, max_len=MAX_LEN)
+                        logits, cache = fam.prefill(model, tokens, cfg, max_len=MAX_LEN)
                     else:
                         nxt = logits.argmax(-1)[:, None]
-                        tt.decode_step(model, cache, nxt, tokens.shape[1], cfg)
+                        fam.decode_step(model, cache, nxt, tokens.shape[1], cfg)
                     torch.cuda.synchronize()
                     walls[run] = (time.perf_counter() - t) * 1e3
+                if run == "warm":
+                    call_peak = torch.cuda.max_memory_allocated() / 2**30
             # Idle share against the unprofiled warm wall, as in phase 3: the
             # profiler's own host overhead stretches the profiled wall.
             br = device_breakdown(prof)
             idle = 1 - br["device_ms"] / walls["warm"]
             top = ", ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in br["top"])
             print(f"  {name}: warm wall {walls['warm']:.2f} ms (profiled {walls['profiled']:.2f}), "
-                  f"device busy {br['device_ms']:.2f} ms (idle {idle:.1%}): {top}", flush=True)
+                  f"peak device memory {call_peak:.2f} GiB, device busy {br['device_ms']:.2f} ms "
+                  f"(idle {idle:.1%}): {top}", flush=True)
             out[f"profiled_{name}"] = {"wall_ms": walls["warm"], "idle_share": idle,
-                                       "profiled_wall_ms": walls["profiled"], **br}
+                                       "profiled_wall_ms": walls["profiled"],
+                                       "peak_gib": call_peak, **br}
     for r in runs:
         del r["out"]
     out.update(runs=runs, launches=launches, prefills=n_prefills, peak_gib=peak,
-               prompt_lens=[int(n) for n in lens])
+               resident_gib=resident, prompt_lens=[int(n) for n in lens])
+    # The timed wrappers hold the server's bound methods: a reference cycle
+    # that keeps the model alive until the collector runs.
     del model, server, cache, logits
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -566,6 +710,8 @@ def main(argv=None) -> int:
     reduce_rows = [run_case(cs) for cs in reduce_cases(gen)]
     lsb_and_barrier()
     flash_rows = [run_case(cs) for cs in flash_cases(gen)]
+    rglru_rows = [run_case(cs) for cs in rglru_cases(gen)]
+    wkv_rows = [run_case(cs) for cs in wkv_cases(gen)]
     torch.cuda.empty_cache()
 
     # 3. The main path; only its launches count.
@@ -583,11 +729,16 @@ def main(argv=None) -> int:
             fail(f"{name} was never launched on the main path")
     torch.cuda.empty_cache()
 
-    # 4. Serving yi-6b; only the served requests' launches count.
-    serving = serve_phase(args.seed)
-    launches["flash_attention"] = serving["launches"]
+    # 4-6. Serving yi-6b, recurrentgemma-2b and rwkv6-3b; only each one's
+    # served requests' launches count, and each kernel's entry takes them from
+    # the first model that serves through it.
+    serving = {}
+    for spec in SERVES:
+        serving[spec["arch"]] = serve_phase(args.seed, **spec)
+        for name, n in serving[spec["arch"]]["launches"].items():
+            launches.setdefault(name, n)
 
-    # 5. Result lines.
+    # 7. Result lines.
     def entry(name, source, replaces, rows):
         main_row = rows[0]  # the main-path shape of this kernel
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -604,6 +755,10 @@ def main(argv=None) -> int:
               "src/repro/kernels/reduce_nway.py:38", reduce_rows),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:67", flash_rows),
+        entry("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+              "src/repro/kernels/rglru.py:44", rglru_rows),
+        entry("wkv", "src/repro_torch/kernels/csrc/wkv.cu",
+              "src/repro/kernels/rwkv6.py:54", wkv_rows),
     ]
     print(json.dumps({"main_path": walls}))
     print(json.dumps({"serving": serving}))

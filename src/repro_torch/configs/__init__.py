@@ -1,10 +1,10 @@
-"""Architecture registry of the port: the dense transformers so far.
+"""Architecture registry of the port: the dense transformers, recurrentgemma
+and rwkv6 so far.
 
 The port's own records (``repro.configs`` loads JAX): ``get_config(arch_id)``
 returns the full configuration, ``get_smoke_config(arch_id)`` a reduced
 same-family one for CPU tests.  Ids and aliases are the reference's; the
-MoE, hybrid, rwkv and whisper ids raise ``KeyError`` until their families
-are ported.
+MoE and whisper ids raise ``KeyError`` until their families are ported.
 """
 
 from __future__ import annotations
@@ -17,10 +17,12 @@ ARCH_IDS = [
     "glm4_9b",
     "gemma3_12b",
     "chameleon_34b",
+    "recurrentgemma_2b",
+    "rwkv6_3b",
 ]
 
 # in the reference's registry, not ported yet
-WAITING = ["phi3_5_moe", "moonshot_v1_16b", "whisper_base", "recurrentgemma_2b", "rwkv6_3b"]
+WAITING = ["phi3_5_moe", "moonshot_v1_16b", "whisper_base"]
 
 # canonical external names -> module ids
 ALIASES = {

@@ -34,6 +34,8 @@ SIGNATURES = {
     "repro_gemm": (P, P, P, P, I, I, I, I, I, L, L, L, L, P),
     "repro_reduce_nway": (P, P, I, I, L, I, L, P),
     "repro_flash_attention": (P, P, P, P, I, I, I, I, I, P),
+    "repro_rglru_scan": (P, P, P, I, I, I, I, P),
+    "repro_wkv": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
 }
 
 

@@ -1,0 +1,78 @@
+"""The RWKV-6 WKV: linear attention with a data-dependent decay.
+
+Replaces ``src/repro/kernels/rwkv6.py:wkv`` (``_wkv_kernel``).  The kernel
+is ``csrc/wkv.cu``: one block of 256 threads per (batch row, head) loops
+over chunks of 64 tokens (in place of the TPU's sequential chunk axis and
+its VMEM state), with the (hd x hd) f32 state in shared memory; per chunk
+it forms the masked (64 x 64) intra-chunk matrix with the bonus on its
+diagonal, the ``r . state`` term and the state update.  It is bound by
+operations on the f32 CUDA cores (the decays are f32): per chunk of n
+tokens, 4 * hd flops per live (query, key) pair and 4 * hd^2 per token.
+
+It reads the model's (B, S, H, hd) layout in place: no transpose around
+it.  Numbers: every product in f32, out cast to r's dtype, the final state
+f32.  Where the reference forms ``k * exp(-cum)``, which overflows f32
+inside the model's decay range (``logw`` down to ``-e^2``; ROADMAP.md queue
+3), the kernel takes every decay as ``exp`` of a difference of cumulative
+log-decays that is <= 0, so it stays finite and equal to the sequential
+recurrence there.  The last chunk may be ragged: the reference's
+``S % chunk == 0`` assert is not kept.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import wkv_ref
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64)
+
+
+def wkv(r, k, v, logw, u, state0=None):
+    """r, k, v: (B, S, H, hd) of one dtype; logw: (B, S, H, hd) f32, <= 0;
+    u: (H, hd); state0: (B, H, hd, hd) f32 or None for zeros.
+
+    Returns (out (B, S, H, hd) in r's dtype, final state (B, H, hd, hd)
+    f32).  A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel or raises.
+    """
+    if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw)):
+        raise ValueError(f"wkv: r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"logw {tuple(logw.shape)}; need four equal (B, S, H, hd)")
+    B, S, H, hd = r.shape
+    if u.shape != (H, hd):
+        raise ValueError(f"wkv: u {tuple(u.shape)}, need ({H}, {hd})")
+    if state0 is not None and state0.shape != (B, H, hd, hd):
+        raise ValueError(f"wkv: state0 {tuple(state0.shape)}, need ({B}, {H}, {hd}, {hd})")
+    operands = (k, v, logw, u) + (() if state0 is None else (state0,))
+    if any(t.device != r.device for t in operands):
+        raise ValueError("wkv: operands lie on different devices")
+    if k.dtype != r.dtype or v.dtype != r.dtype or r.dtype not in DTYPES:
+        raise TypeError(f"wkv: r, k, v dtypes {r.dtype}, {k.dtype}, {v.dtype}; "
+                        "need one of float32, bfloat16 for all three")
+    if logw.dtype != torch.float32 or (state0 is not None and state0.dtype != torch.float32):
+        raise TypeError("wkv: logw and state0 must be float32")
+    if r.device.type == "cpu":
+        return wkv_ref(r, k, v, logw, u, state0)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv: unsupported device {r.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv: head dim {hd} not in {HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in (r,) + operands):
+        raise ValueError("wkv: operands must be contiguous")
+    u32 = u.float().contiguous()
+    out = torch.empty_like(r)
+    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        rc = _build.library().repro_wkv(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u32.data_ptr(),
+            None if state0 is None else state0.data_ptr(), out.data_ptr(), state.data_ptr(),
+            DTYPES[r.dtype], B, S, H, hd, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "wkv")
+    wkv.launches += 1
+    return out, state
+
+
+wkv.launches = 0

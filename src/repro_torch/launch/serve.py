@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1_5_0_5b \
       --requests 8 --max-new 16                  # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6_3b
 
 The counterpart of ``src/repro/launch/serve.py`` with the same flags and
 ``--device``.  Weights are random, drawn from a ``torch.Generator`` seeded

@@ -1,4 +1,5 @@
-"""The model zoo in PyTorch: the dense decoder-only transformers so far.
+"""The model zoo in PyTorch: the dense decoder-only transformers, the
+RG-LRU / local-attention hybrid (recurrentgemma) and RWKV-6 so far.
 
 ``get_family(cfg)`` returns the family's module, which exposes
 ``init(gen, cfg, device)``, ``forward``, ``prefill`` and ``decode_step``

@@ -1,17 +1,18 @@
 """Uniform functional API over the model families (``repro.models.api``).
 
-Only the dense ``transformer`` family is ported; the others raise.
+The dense ``transformer``, the ``rglru_hybrid`` (recurrentgemma) and
+``rwkv6`` families are ported; ``whisper`` raises.
 """
 
 from __future__ import annotations
 
 import types
 
-from repro_torch.models import transformer
+from repro_torch.models import rglru, rwkv6, transformer
 from repro_torch.models.common import ModelConfig
 
-_FAMILIES = {"transformer": transformer}
-_WAITING = ("rglru_hybrid", "rwkv6", "whisper")
+_FAMILIES = {"transformer": transformer, "rglru_hybrid": rglru, "rwkv6": rwkv6}
+_WAITING = ("whisper",)
 
 
 def get_family(cfg_or_name) -> types.ModuleType:

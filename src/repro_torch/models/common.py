@@ -18,6 +18,7 @@ import math
 from typing import Any
 
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +125,11 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(dtype)
+
+
+def frozen_param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter without gradients: nothing in the port trains yet."""
+    return nn.Parameter(t, requires_grad=False)
 
 
 def dense_init(gen: torch.Generator, shape, dtype, device=None, scale: float | None = None):

@@ -1,12 +1,20 @@
-"""Carry the JAX reference's transformer parameters into the port.
+"""Carry the JAX reference's parameters into the port.
 
-``from_jax_params(params, cfg, device)`` takes the pytree that
-``repro.models.transformer.init`` returns, as a nested dict of numpy arrays
-(``np.asarray`` of each leaf) with the layers stacked on a leading L dim,
-and builds the port's ``Transformer``.  Going through numpy keeps the port
-free of JAX.  A bf16 leaf arrives as ``ml_dtypes.bfloat16``, which
-``torch.from_numpy`` refuses: it goes through float32 and back to the
-config's dtype, which is exact.
+``from_jax_params(params, cfg, device)`` takes the pytree that the
+reference family's ``init`` returns, as a nested structure of numpy arrays
+(``np.asarray`` of each leaf), and builds the port's model for
+``cfg.family``:
+
+* ``transformer``: layers stacked on a leading L dim (``layers`` holds
+  ``norm1``, ``norm2`` and the ``attn`` and ``mlp`` dicts);
+* ``rwkv6``: layers stacked on L (the reference ``vmap``s its layer init);
+* ``rglru_hybrid``: a list of per-layer dicts, each with ``rec`` or
+  ``attn``.
+
+Going through numpy keeps the port free of JAX.  Each leaf keeps its own
+dtype (rwkv6 and the hybrid hold f32 leaves beside ``param_dtype`` ones).
+A bf16 leaf arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+refuses: it goes through float32 and back to bf16, which is exact.
 """
 
 from __future__ import annotations
@@ -14,26 +22,42 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import rglru, rwkv6
 from repro_torch.models.common import ModelConfig, resolve_device
 from repro_torch.models.transformer import Block, Transformer
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-def from_jax_params(params, cfg: ModelConfig, device=None) -> Transformer:
+
+def from_jax_params(params, cfg: ModelConfig, device=None):
     """The port's model with the reference's weights (``device=None`` means
     CUDA, and raises without a card)."""
     device = resolve_device(device)
 
     def tensor(a):
+        dtype = _DTYPES[np.asarray(a).dtype.name]
         t = torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
-        return t.to(device=device, dtype=cfg.param_dtype)
+        return t.to(device=device, dtype=dtype)
 
+    def tensors(tree, i=None):
+        return {k: tensor(v if i is None else v[i]) for k, v in tree.items()}
+
+    embed, final_norm = tensor(params["embed"]), tensor(params["final_norm"])
     layers = params["layers"]
-    blocks = []
-    for i in range(cfg.n_layers):
-        blocks.append(Block(
-            tensor(layers["norm1"][i]), tensor(layers["norm2"][i]),
-            {k: tensor(v[i]) for k, v in layers["attn"].items()},
-            {k: tensor(v[i]) for k, v in layers["mlp"].items()}))
-    lm_head = tensor(params["lm_head"]) if "lm_head" in params else None
-    return Transformer(cfg, tensor(params["embed"]), blocks, tensor(params["final_norm"]),
-                       lm_head)
+    if cfg.family == "transformer":
+        blocks = [Block(tensor(layers["norm1"][i]), tensor(layers["norm2"][i]),
+                        tensors(layers["attn"], i), tensors(layers["mlp"], i))
+                  for i in range(cfg.n_layers)]
+        lm_head = tensor(params["lm_head"]) if "lm_head" in params else None
+        return Transformer(cfg, embed, blocks, final_norm, lm_head)
+    if cfg.family == "rwkv6":
+        return rwkv6.Rwkv(cfg, embed, [tensors(layers, i) for i in range(cfg.n_layers)],
+                          final_norm, tensor(params["lm_head"]))
+    if cfg.family == "rglru_hybrid":
+        hybrid_layers = []
+        for lp in layers:
+            kind = "rec" if "rec" in lp else "attn"
+            hybrid_layers.append(rglru.Layer(kind, tensor(lp["norm1"]), tensor(lp["norm2"]),
+                                             tensors(lp[kind]), tensors(lp["mlp"])))
+        return rglru.Hybrid(cfg, embed, hybrid_layers, final_norm)
+    raise KeyError(f"model family {cfg.family!r} is not ported yet (see ROADMAP.md)")

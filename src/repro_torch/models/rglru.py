@@ -1,0 +1,329 @@
+"""RecurrentGemma / Griffin-style hybrid: RG-LRU recurrent blocks + local attention.
+
+The port's counterpart of ``src/repro/models/rglru.py``.  The block pattern
+(2 recurrent : 1 local attention by default) is heterogeneous, so the
+layers are a list of per-layer modules, not a stack.  Prefill and
+``forward`` run every recurrent layer's linear recurrence
+``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t x_t)`` through the hand-written
+scan kernel (``kernels/rglru.py``; the reference uses an associative scan)
+and every attention layer's sliding-window self-attention through the
+flash kernel (``models/attention.self_attention``).  Decode is one plain
+step of the recurrence and grouped attention over a rolling window-sized
+KV cache.  ``loss_fn`` is training and waits (ROADMAP.md).
+
+Numbers follow the reference: the gates' products and the recurrence in
+f32, the recurrent state f32, the conv state in the compute dtype,
+``gelu`` in its tanh form (``jax.nn.gelu``'s default), logits from the tied
+``embed``.
+
+The rolling cache holds position p in slot ``p % window``, in prefill as in
+decode.  The reference's prefill writes the last ``window`` positions to
+slots 0..window-1 instead, which equals ``p % window`` only when the prompt
+is at most one window long or a whole multiple of it; elsewhere its decode
+reads the wrong keys (ROADMAP.md queue 3).  The port equals the reference
+wherever the reference is right.  ``decode_step`` writes the KV cache in
+place and replaces the recurrent and conv states in the cache's lists.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import KVCache
+from repro_torch.models.common import (
+    ModelConfig,
+    check_supported,
+    dense_init,
+    embed_init,
+    frozen_param,
+    resolve_device,
+    rms_norm,
+)
+from repro_torch.models.rope import apply_rope
+
+_C = 8.0  # the RG-LRU's "c" constant (Griffin paper)
+
+
+class HybridCache(NamedTuple):
+    """Per-layer caches; entries are None where a layer has no such state."""
+
+    rec_h: list   # per layer: (B, lru) f32, or None for attention layers
+    conv: list    # per layer: (B, conv_width - 1, lru), or None
+    attn: list    # per layer: KVCache of (B, window, n_kv, hd), or None
+
+
+def _lru_width(cfg: ModelConfig) -> int:
+    return cfg.lru_width or cfg.d_model
+
+
+def _kinds(cfg: ModelConfig) -> list[str]:
+    pat = cfg.block_pattern or ("rec", "rec", "attn")
+    return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+
+
+class Layer(nn.Module):
+    """One layer: a pre-norm recurrent or attention block and a pre-norm MLP."""
+
+    def __init__(self, kind: str, norm1, norm2, mixer: dict, mlp: dict):
+        super().__init__()
+        if kind not in ("rec", "attn"):
+            raise ValueError(f"layer kind {kind!r}")
+        self.kind = kind
+        self.norm1 = frozen_param(norm1)
+        self.norm2 = frozen_param(norm2)
+        self.mixer = nn.ParameterDict({k: frozen_param(v) for k, v in mixer.items()})
+        self.mlp = nn.ParameterDict({k: frozen_param(v) for k, v in mlp.items()})
+
+
+class Hybrid(nn.Module):
+    """The parameters of one model; the passes are the module functions below."""
+
+    def __init__(self, cfg: ModelConfig, embed, layers: list[Layer], final_norm):
+        super().__init__()
+        check_supported(cfg)
+        if [layer.kind for layer in layers] != _kinds(cfg):
+            raise ValueError(f"layer kinds {[layer.kind for layer in layers]} do not follow "
+                             f"the pattern {_kinds(cfg)}")
+        self.cfg = cfg
+        self.embed = frozen_param(embed)
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = frozen_param(final_norm)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens):
+        return forward(self, tokens, self.cfg)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_rec_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d, w, pd = cfg.d_model, _lru_width(cfg), cfg.param_dtype
+    return {
+        "w_x": dense_init(gen, (d, w), pd, device),
+        "w_gate": dense_init(gen, (d, w), pd, device),
+        "conv_w": dense_init(gen, (cfg.conv_width, w), pd, device, scale=0.5),
+        "lambda": torch.full((w,), 2.0, dtype=torch.float32, device=device),  # softplus ~ 2.1
+        "w_input_gate": dense_init(gen, (w, w), pd, device),
+        "w_a_gate": dense_init(gen, (w, w), pd, device),
+        "w_out": dense_init(gen, (w, d), pd, device),
+    }
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Hybrid:
+    """Random weights drawn from ``gen`` on ``device`` (None means CUDA, and
+    raises without a card).  Norm scales start at zero, as in the reference."""
+    device = resolve_device(device)
+
+    def zeros():
+        return torch.zeros((cfg.d_model,), dtype=cfg.param_dtype, device=device)
+
+    layers = []
+    for kind in _kinds(cfg):
+        mixer = (init_rec_block(gen, cfg, device) if kind == "rec"
+                 else attn_mod.init_attn_params(gen, cfg, device))
+        layers.append(Layer(kind, zeros(), zeros(), mixer,
+                            mlp_mod.init_mlp_params(gen, cfg, device)))
+    embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
+    return Hybrid(cfg, embed, layers, zeros())
+
+
+# ---------------------------------------------------------------------------
+# The recurrent block
+# ---------------------------------------------------------------------------
+
+
+def _causal_conv(x, conv_w, state=None):
+    """Depthwise causal conv along time.  x: (B, S, W); conv_w: (K, W);
+    state: the previous K - 1 inputs (B, K - 1, W) or None for zeros.
+    Returns (out, new state)."""
+    K = conv_w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S] * conv_w[i][None, None] for i in range(K))
+    return out, (xp[:, -(K - 1):] if K > 1 else None)
+
+
+def _rg_lru_coeffs(params, xw, cfg: ModelConfig):
+    """Returns (a_t, gated input b_t) of the recurrence, both f32."""
+    x32 = xw.float()
+    r = torch.sigmoid(x32 @ params["w_a_gate"].float())
+    i = torch.sigmoid(x32 @ params["w_input_gate"].float())
+    log_a = -_C * F.softplus(params["lambda"].float()) * r
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, mult * i * x32
+
+
+def _lru_scan(a, b, h0=None):
+    """h_t = a_t h_{t-1} + b_t over dim 1, through the scan kernel; ``h0``
+    is folded into b_0 as the reference folds it."""
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0] += a[:, 0] * h0
+    return rglru_scan(a.contiguous(), b.contiguous())
+
+
+def rec_block(params, x, cfg: ModelConfig, state=None, conv_state=None):
+    """Griffin recurrent block.  x: (B, S, d) -> (out, (h_last, conv_state))."""
+    cd = cfg.compute_dtype
+    gate = F.gelu(x @ params["w_gate"].to(cd), approximate="tanh")
+    xw = x @ params["w_x"].to(cd)
+    xw, new_conv = _causal_conv(xw, params["conv_w"].to(cd), conv_state)
+    a, b = _rg_lru_coeffs(params, xw, cfg)
+    h = _lru_scan(a, b, state)
+    out = (h.to(cd) * gate) @ params["w_out"].to(cd)
+    # copies, so that the cache does not hold the whole sequence's h and xw
+    return out, (h[:, -1].clone(), None if new_conv is None else new_conv.clone())
+
+
+def rec_block_decode(params, x, cfg: ModelConfig, state, conv_state):
+    """One token of the recurrent block.  x: (B, 1, d)."""
+    cd = cfg.compute_dtype
+    gate = F.gelu(x @ params["w_gate"].to(cd), approximate="tanh")
+    xw = x @ params["w_x"].to(cd)
+    xw, new_conv = _causal_conv(xw, params["conv_w"].to(cd), conv_state)
+    a, b = _rg_lru_coeffs(params, xw, cfg)
+    h = a[:, 0] * state + b[:, 0]
+    out = (h[:, None].to(cd) * gate) @ params["w_out"].to(cd)
+    return out, (h, new_conv)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def _logits(model: Hybrid, x, cfg: ModelConfig) -> torch.Tensor:
+    """The last token's logits in f32 over the padded vocab (tied embed)."""
+    x = rms_norm(x[:, -1], model.final_norm, cfg.norm_eps)
+    return x.float() @ model.embed.float().T
+
+
+def forward(model: Hybrid, tokens, cfg: ModelConfig):
+    """tokens: (B, S) -> (hidden (B, S, d), aux loss)."""
+    B, S = tokens.shape
+    x = model.embed[tokens].to(cfg.compute_dtype)
+    positions = _positions(B, S, x.device)
+    for layer in model.layers:
+        h = rms_norm(x, layer.norm1, cfg.norm_eps)
+        if layer.kind == "rec":
+            h = rec_block(layer.mixer, h, cfg)[0]
+        else:
+            h = attn_mod.attention(layer.mixer, h, positions, cfg, window=cfg.attn_window)
+        x = x + h
+        h = rms_norm(x, layer.norm2, cfg.norm_eps)
+        x = x + mlp_mod.mlp(layer.mlp, h, cfg)
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    return x, torch.zeros((), device=x.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> HybridCache:
+    """Attention layers cache only the local window (O(window), not O(S))."""
+    w, cd = _lru_width(cfg), cfg.compute_dtype
+    window = max(1, min(cfg.attn_window or max_len, max_len))
+    rec_h, conv, attn = [], [], []
+    for kind in _kinds(cfg):
+        if kind == "rec":
+            rec_h.append(torch.zeros((batch, w), dtype=torch.float32, device=device))
+            conv.append(torch.zeros((batch, cfg.conv_width - 1, w), dtype=cd, device=device))
+            attn.append(None)
+        else:
+            rec_h.append(None)
+            conv.append(None)
+            shape = (batch, window, cfg.n_kv_heads, cfg.head_dim)
+            attn.append(KVCache(k=torch.zeros(shape, dtype=cd, device=device),
+                                v=torch.zeros(shape, dtype=cd, device=device)))
+    return HybridCache(rec_h=rec_h, conv=conv, attn=attn)
+
+
+def prefill(model: Hybrid, tokens, cfg: ModelConfig, max_len: int | None = None):
+    """Full-sequence prefill; returns (last-token logits, cache).
+
+    Each attention layer's rolling cache gets the keys (after RoPE) and
+    values of the last ``window`` positions, position p in slot
+    ``p % window``, where decode looks for it.
+    """
+    B, S = tokens.shape
+    cd = cfg.compute_dtype
+    x = model.embed[tokens].to(cd)
+    positions = _positions(B, S, x.device)
+    cache = init_cache(cfg, B, max_len or S, device=x.device)
+    for i, layer in enumerate(model.layers):
+        h = rms_norm(x, layer.norm1, cfg.norm_eps)
+        if layer.kind == "rec":
+            h, (cache.rec_h[i], cache.conv[i]) = rec_block(layer.mixer, h, cfg)
+        else:
+            o, kr, v = attn_mod.self_attention(layer.mixer, h, positions, cfg,
+                                               window=cfg.attn_window)
+            h = o @ layer.mixer["wo"].to(cd)
+            kc, vc = cache.attn[i]
+            window = kc.shape[1]
+            take = min(window, S)
+            slots = torch.arange(S - take, S, device=x.device) % window
+            kc.index_copy_(1, slots, kr[:, S - take:].to(kc.dtype))
+            vc.index_copy_(1, slots, v[:, S - take:].to(vc.dtype))
+        x = x + h
+        h = rms_norm(x, layer.norm2, cfg.norm_eps)
+        x = x + mlp_mod.mlp(layer.mlp, h, cfg)
+    return _logits(model, x, cfg), cache
+
+
+def _attn_decode(params, h, kv: KVCache, pos: int, cfg: ModelConfig):
+    """One token of local attention over the rolling cache, written at
+    ``pos % window`` in place."""
+    B = h.shape[0]
+    cd = cfg.compute_dtype
+    window = kv.k.shape[1]
+    slot = pos % window
+    q, k_new, v_new = attn_mod._qkv(params, h, cfg)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    kv.k[:, slot] = k_new[:, 0].to(kv.k.dtype)
+    kv.v[:, slot] = v_new[:, 0].to(kv.v.dtype)
+    ki = torch.arange(window, device=h.device)
+    # a slot is live if it holds one of the last ``window`` positions
+    abs_idx = torch.where(ki <= slot, pos - slot + ki, pos - slot - window + ki)
+    mask = (abs_idx >= max(0, pos - window + 1))[None, None, None, :]
+    Hkv = kv.k.shape[2]
+    q5 = q.reshape(B, 1, Hkv, cfg.n_heads // Hkv, cfg.head_dim)
+    out = attn_mod._sdpa_block(q5, kv.k.to(cd), kv.v.to(cd), mask, cfg)
+    return out @ params["wo"].to(cd)
+
+
+def decode_step(model: Hybrid, cache: HybridCache, tokens, pos: int, cfg: ModelConfig):
+    """One-token decode at position ``pos``.  tokens: (B, 1).  Returns
+    (logits, cache)."""
+    x = model.embed[tokens].to(cfg.compute_dtype)
+    rec_h, conv = list(cache.rec_h), list(cache.conv)
+    for i, layer in enumerate(model.layers):
+        h = rms_norm(x, layer.norm1, cfg.norm_eps)
+        if layer.kind == "rec":
+            h, (rec_h[i], conv[i]) = rec_block_decode(layer.mixer, h, cfg, rec_h[i], conv[i])
+        else:
+            h = _attn_decode(layer.mixer, h, cache.attn[i], pos, cfg)
+        x = x + h
+        h = rms_norm(x, layer.norm2, cfg.norm_eps)
+        x = x + mlp_mod.mlp(layer.mlp, h, cfg)
+    return _logits(model, x, cfg), HybridCache(rec_h=rec_h, conv=conv, attn=cache.attn)

@@ -25,6 +25,7 @@ from repro_torch.models.common import (
     ModelConfig,
     check_supported,
     embed_init,
+    frozen_param,
     resolve_device,
     rms_norm,
 )
@@ -41,19 +42,15 @@ def layer_windows_list(cfg: ModelConfig) -> list[int]:
     return [0] * L
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Block(nn.Module):
     """One layer: pre-norm attention and pre-norm gated MLP, both residual."""
 
     def __init__(self, norm1, norm2, attn: dict, mlp: dict):
         super().__init__()
-        self.norm1 = _param(norm1)
-        self.norm2 = _param(norm2)
-        self.attn = nn.ParameterDict({k: _param(v) for k, v in attn.items()})
-        self.mlp = nn.ParameterDict({k: _param(v) for k, v in mlp.items()})
+        self.norm1 = frozen_param(norm1)
+        self.norm2 = frozen_param(norm2)
+        self.attn = nn.ParameterDict({k: frozen_param(v) for k, v in attn.items()})
+        self.mlp = nn.ParameterDict({k: frozen_param(v) for k, v in mlp.items()})
 
 
 class Transformer(nn.Module):
@@ -70,10 +67,10 @@ class Transformer(nn.Module):
         if (lm_head is None) != cfg.tie_embeddings:
             raise ValueError("lm_head must be given iff the embeddings are not tied")
         self.cfg = cfg
-        self.embed = _param(embed)
+        self.embed = frozen_param(embed)
         self.blocks = nn.ModuleList(blocks)
-        self.final_norm = _param(final_norm)
-        self.lm_head = None if lm_head is None else _param(lm_head)
+        self.final_norm = frozen_param(final_norm)
+        self.lm_head = None if lm_head is None else frozen_param(lm_head)
 
     @property
     def head(self) -> torch.Tensor:

@@ -6,7 +6,9 @@ requests of one wave are left-padded with token 0 (no pad mask) to the
 wave's longest prompt, so they share one length; the padded vocab tail is
 stripped before sampling; sampling is greedy, or at ``temperature > 0``
 draws from a numpy ``Generator(seed)``.  It runs eagerly, one
-``decode_step`` per token, on the model's device.
+``decode_step`` per token, on the model's device.  It serves any ported
+family through ``models.get_family``: the dense transformers, the
+recurrentgemma hybrid and RWKV-6.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ class Request:
 
 
 class Server:
-    """Serves ``model`` (a ``Transformer``) on ``device``: None means CUDA,
+    """Serves ``model`` (of any ported family) on ``device``: None means CUDA,
     and raises without a card; the model must lie on that device."""
 
     def __init__(self, model_cfg: ModelConfig, model, max_len: int = 64,

@@ -10,6 +10,9 @@ skips (the ``cuda`` marker), and tests/test_torch_kernels.py holds the
 plain versions against the JAX reference instead.
 """
 
+import copy
+import math
+
 import pytest
 import torch
 
@@ -17,6 +20,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gemm
 from repro_torch.kernels.reduce_nway import reduce_nway
+from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.kernels.rwkv6 import wkv
 
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -126,4 +131,110 @@ def test_smoke_model_prefill_and_decode_on_card(card, arch):
     dec, _ = tt.decode_step(model, cache, tokens[:, 16:], 16, cfg)
     torch.cuda.synchronize()
     assert full.is_cuda and bool(torch.isfinite(dec).all())
+    assert (dec - full).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (3, 1000, 77), (1, 1, 5), (4, 129, 2560)])
+def test_rglru_kernel_matches_plain_on_card(card, shape, dt):
+    gen = torch.Generator(device=card).manual_seed(3)
+    a = torch.sigmoid(2 * torch.randn(shape, generator=gen, device=card)).to(TDT[dt])
+    b = torch.randn(shape, generator=gen, device=card).to(TDT[dt])
+    before = rglru_scan.launches
+    out = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1 and out.is_cuda and out.dtype == a.dtype
+    ref = tref.rglru_scan_ref(a, b)
+    # f32: another association of the same products; bf16: one ulp of the output
+    tol = 1e-5 if dt == "f32" else 2e-2
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+def _wkv_inputs(card, B, S, H, hd, dt, logw=None, seed=4):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=card).to(TDT[dt]) for _ in range(3))
+    if logw is None:
+        lw = -torch.exp(torch.clamp(torch.randn(B, S, H, hd, generator=gen, device=card) * 2 - 3,
+                                    -20.0, 2.0))
+    else:
+        lw = torch.full((B, S, H, hd), logw, device=card)
+    u = torch.randn(H, hd, generator=gen, device=card)
+    return r, k, v, lw, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 128, 3, 64), (1, 200, 2, 32), (3, 37, 4, 16),
+                                   (1, 1, 1, 64)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv_kernel_matches_plain_on_card(card, shape, dt, with_state):
+    B, S, H, hd = shape
+    r, k, v, lw, u = _wkv_inputs(card, B, S, H, hd, dt)
+    s0 = (torch.randn(B, H, hd, hd, generator=torch.Generator(device=card).manual_seed(5),
+                      device=card) if with_state else None)
+    before = wkv.launches
+    out, state = wkv(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert wkv.launches == before + 1 and out.is_cuda and out.dtype == r.dtype
+    ref, ref_state = tref.wkv_ref(r, k, v, lw, u, s0)
+    # f32: sums in another order, relative to max(1, max|ref|); bf16: the same
+    # f32 result rounded once, one ulp
+    tol = 1e-4 if dt == "f32" else 2e-2
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+    sscale = max(1.0, ref_state.abs().max().item())
+    assert (state - ref_state).abs().max().item() <= 1e-4 * sscale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, 300])
+def test_wkv_kernel_is_finite_at_the_strongest_decay_on_card(card, S):
+    r, k, v, lw, u = _wkv_inputs(card, 2, S, 3, 64, "f32", logw=-math.e ** 2)
+    out, state = wkv(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(state).all())
+    ref, _ = tref.wkv_ref(r, k, v, lw, u)
+    scale = max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_recurrence_kernels_reject_bad_operands_on_card(card):
+    a = torch.zeros(2, 16, 8, device=card)
+    with pytest.raises(ValueError):
+        rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), a)
+    r = torch.zeros(1, 8, 2, 48, device=card)
+    with pytest.raises(ValueError):  # head dim 48
+        wkv(r, r, r, r, torch.zeros(2, 48, device=card))
+    r = torch.zeros(1, 8, 2, 64, device=card)
+    with pytest.raises(ValueError):
+        wkv(r.transpose(1, 2).contiguous().transpose(1, 2), r, r, r, torch.zeros(2, 64, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_3b"])
+def test_recurrent_smoke_model_on_card_matches_the_host(card, arch):
+    """A smoke config's prefill on the card (through the kernels) equals the
+    same weights' prefill on the host (plain versions); decode after a
+    prompt longer than the hybrid's window of 8 equals the longer prefill."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_family
+
+    cfg = get_smoke_config(arch)
+    fam = get_family(cfg)
+    host = fam.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    model = copy.deepcopy(host).to(card)
+    tokens = torch.randint(0, cfg.vocab, (2, 14), generator=torch.Generator().manual_seed(1))
+    counters = [rglru_scan, flash_attention] if arch == "recurrentgemma_2b" else [wkv]
+    before = [c.launches for c in counters]
+    full, _ = fam.prefill(model, tokens.to(card), cfg, max_len=14)
+    _, cache = fam.prefill(model, tokens[:, :13].to(card), cfg, max_len=14)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    dec, _ = fam.decode_step(model, cache, tokens[:, 13:].to(card), 13, cfg)
+    torch.cuda.synchronize()
+    host_full, _ = fam.prefill(host, tokens, cfg, max_len=14)
+    assert full.is_cuda and bool(torch.isfinite(dec).all())
+    assert (full.cpu() - host_full).abs().max().item() <= 2e-4
     assert (dec - full).abs().max().item() <= 2e-4

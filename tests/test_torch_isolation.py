@@ -39,6 +39,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _modules()
     assert {"repro_torch.core.mesh", "repro_torch.kernels._build",
             "repro_torch.core.noc.model", "repro_torch.models.transformer",
+            "repro_torch.models.rglru", "repro_torch.models.rwkv6",
+            "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6",
             "repro_torch.runtime.server"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
@@ -68,7 +70,8 @@ def test_no_source_names_jax_or_repro(path):
 
 def test_kernel_sources_are_in_the_package():
     sources = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu"))
-    assert sources == ["flash_attention.cu", "gemm.cu", "reduce_nway.cu"]
+    assert sources == ["flash_attention.cu", "gemm.cu", "reduce_nway.cu", "rglru_scan.cu",
+                       "wkv.cu"]
 
 
 def test_mesh_without_a_device_raises_on_a_host_without_cuda():

@@ -7,6 +7,8 @@ kernels themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +18,16 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.gemm import gemm as jgemm
 from repro.kernels.reduce_nway import reduce_nway as jreduce
+from repro.kernels.rglru import rglru_scan as jrglru
+from repro.kernels.rwkv6 import wkv as jwkv
+from repro.models.rglru import _lru_scan as jlru_scan
+from repro.models.rwkv6 import chunked_wkv as jchunked_wkv
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gemm
 from repro_torch.kernels.reduce_nway import reduce_nway
+from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.kernels.rwkv6 import wkv
 
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -267,3 +275,189 @@ def test_flash_attention_oracle_matches_jax_oracle():
                                          window=window)),
             _np(jref.flash_attention_ref(*(jnp.asarray(t) for t in (q, k, v)), window=window)),
             rtol=2e-4, atol=2e-4)
+
+
+# -- rglru_scan -------------------------------------------------------------------
+
+
+def _decays(seed, shape):
+    """a in (0, 1), as the RG-LRU's exp(-8 softplus(lambda) r) is."""
+    return (1.0 / (1.0 + np.exp(-_rand(seed, shape) * 2))).astype(np.float32)
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_rglru_scan_matches_jax(chunk):
+    """The reference test's shapes and tolerance (tests/test_kernels.py)."""
+    a, b = _decays(0, (2, 128, 16)), _rand(1, (2, 128, 16))
+    out = rglru_scan(torch.from_numpy(a), torch.from_numpy(b), chunk=chunk)
+    assert out.shape == a.shape and out.dtype == torch.float32
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    np.testing.assert_allclose(_np(out), _np(jrglru(ja, jb, chunk=chunk)), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(out), _np(jref.rglru_scan_ref(ja, jb)), rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_scan_matches_model_associative_scan():
+    a, b = _decays(2, (2, 64, 8)), _rand(3, (2, 64, 8))
+    np.testing.assert_allclose(
+        _np(rglru_scan(torch.from_numpy(a), torch.from_numpy(b))),
+        _np(jlru_scan(jnp.asarray(a), jnp.asarray(b))), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S", [1, 77, 130, 300])
+def test_rglru_scan_ragged_s_matches_oracle(S):
+    """Any S: the reference kernel asserts S % chunk == 0, its oracle does not."""
+    a, b = _decays(4, (3, S, 5)), _rand(5, (3, S, 5))
+    np.testing.assert_allclose(
+        _np(rglru_scan(torch.from_numpy(a), torch.from_numpy(b))),
+        _np(jref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b))), rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_scan_bf16_matches_jax_oracle():
+    (ja, ta), (jb, tb) = _both(_decays(6, (2, 64, 16)), "bf16"), _both(_rand(7, (2, 64, 16)), "bf16")
+    out = rglru_scan(ta, tb)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(out), _np(jref.rglru_scan_ref(ja, jb)), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "rank", "int"])
+def test_rglru_scan_rejects_bad_operands(bad):
+    a = b = torch.zeros(2, 8, 4)
+    if bad == "dtype":
+        b = b.to(torch.bfloat16)
+    elif bad == "shape":
+        b = torch.zeros(2, 9, 4)
+    elif bad == "rank":
+        a = b = torch.zeros(8, 4)
+    else:
+        a = b = torch.zeros(2, 8, 4, dtype=torch.int32)
+    with pytest.raises((TypeError, ValueError)):
+        rglru_scan(a, b)
+
+
+# -- wkv ----------------------------------------------------------------------------
+
+
+def _wkv_inputs(seed, B, S, H, hd, logw=None):
+    """r, k, v, logw (B, S, H, hd) and u (H, hd); logw as the reference test
+    draws it unless a constant is given."""
+    r, k, v = (_rand(seed + i, (B, S, H, hd)) for i in range(3))
+    if logw is None:
+        lw = -np.exp(np.clip(_rand(seed + 3, (B, S, H, hd)) - 2.0, -8, 1)).astype(np.float32)
+    else:
+        lw = np.full((B, S, H, hd), logw, np.float32)
+    return r, k, v, lw, _rand(seed + 4, (H, hd))
+
+
+def _heads_first(x):
+    """(B, S, H, hd) -> (B * H, S, hd), the Pallas kernel's layout."""
+    B, S, H, hd = x.shape
+    return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(B * H, S, hd))
+
+
+def _wkv_port(r, k, v, lw, u, state0=None):
+    return wkv(*(torch.from_numpy(t) for t in (r, k, v, lw, u)),
+               None if state0 is None else torch.from_numpy(state0))
+
+
+@pytest.mark.parametrize("chunk,S", [(16, 64), (32, 64), (64, 128)])
+def test_wkv_matches_jax(chunk, S):
+    """The reference test's shapes and tolerance, through the Pallas kernel
+    (reshaped to (B * H, S, hd) as tests/test_kernels.py does) and the
+    sequential oracle."""
+    B, H, hd = 3, 1, 16
+    r, k, v, lw, u = _wkv_inputs(0, B, S, H, hd)
+    out, state = _wkv_port(r, k, v, lw, u)
+    assert out.shape == (B, S, H, hd) and out.dtype == torch.float32
+    assert state.shape == (B, H, hd, hd) and state.dtype == torch.float32
+    j = [_heads_first(t) for t in (r, k, v, lw)]
+    ju = jnp.tile(jnp.asarray(u), (B, 1))
+    for ref in (jwkv(*j, ju, chunk=chunk), jref.wkv_ref(*j, ju)):
+        ref = np.asarray(ref).reshape(B, H, S, hd).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(_np(out), ref, rtol=2e-3, atol=2e-3)
+
+
+def test_wkv_matches_model_chunked_with_its_state():
+    """Against ``models/rwkv6.chunked_wkv``: the output and the final state
+    that prefill hands to decode, from a non-zero state0."""
+    B, S, H, hd = 2, 64, 2, 16
+    r, k, v, lw, u = _wkv_inputs(20, B, S, H, hd)
+    s0 = _rand(25, (B, H, hd, hd))
+    out, state = _wkv_port(r, k, v, lw, u, s0)
+    jout, jstate = jchunked_wkv(*(jnp.asarray(t) for t in (r, k, v, lw, u, s0)))
+    np.testing.assert_allclose(_np(out), _np(jout), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_np(state), _np(jstate), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("S", [128, 200])
+def test_wkv_is_finite_at_the_strongest_decay(S):
+    """At logw = -e^2, the model's bound, the chunked reference overflows to
+    NaN (ROADMAP.md queue 3); the port equals the sequential oracle."""
+    B, H, hd = 2, 2, 16
+    r, k, v, lw, u = _wkv_inputs(30, B, S, H, hd, logw=-math.e ** 2)
+    out, state = _wkv_port(r, k, v, lw, u)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(state).all())
+    j = [_heads_first(t) for t in (r, k, v, lw)]
+    ref = np.asarray(jref.wkv_ref(*j, jnp.tile(jnp.asarray(u), (B, 1))))
+    np.testing.assert_allclose(_np(out), ref.reshape(B, H, S, hd).transpose(0, 2, 1, 3),
+                               rtol=2e-3, atol=2e-3)
+    if S % 64 == 0:
+        jout, _ = jchunked_wkv(*(jnp.asarray(t) for t in (r, k, v, lw, u)),
+                               jnp.zeros((B, H, hd, hd)))
+        assert np.isnan(np.asarray(jout)).any()
+
+
+@pytest.mark.parametrize("S", [1, 37, 100])
+def test_wkv_ragged_s_matches_oracle(S):
+    """Any S: the reference asserts that its chunk divides S, its oracle does not."""
+    B, H, hd = 2, 3, 16
+    r, k, v, lw, u = _wkv_inputs(40, B, S, H, hd)
+    out, _ = _wkv_port(r, k, v, lw, u)
+    j = [_heads_first(t) for t in (r, k, v, lw)]
+    ref = np.asarray(jref.wkv_ref(*j, jnp.tile(jnp.asarray(u), (B, 1))))
+    np.testing.assert_allclose(_np(out), ref.reshape(B, H, S, hd).transpose(0, 2, 1, 3),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_wkv_bf16_matches_jax_oracle():
+    B, S, H, hd = 1, 32, 2, 16
+    r, k, v, lw, u = _wkv_inputs(50, B, S, H, hd)
+    (jr, tr), (jk, tk), (jv, tv) = (_both(t, "bf16") for t in (r, k, v))
+    out, _ = wkv(tr, tk, tv, torch.from_numpy(lw), torch.from_numpy(u))
+    assert out.dtype == torch.bfloat16
+    ref = jref.wkv_ref(*(_heads_first(np.asarray(t, np.float32)) for t in (jr, jk, jv, lw)),
+                       jnp.tile(jnp.asarray(u), (B, 1)))
+    ref = np.asarray(ref).reshape(B, H, S, hd).transpose(0, 2, 1, 3)
+    scale = max(1.0, np.abs(ref).max())
+    assert np.abs(_np(out) - ref).max() <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "logw_dtype", "u", "state0"])
+def test_wkv_rejects_bad_operands(bad):
+    r = k = v = lw = torch.zeros(2, 8, 3, 16)
+    u, s0 = torch.zeros(3, 16), None
+    if bad == "dtype":
+        k = k.to(torch.bfloat16)
+    elif bad == "shape":
+        v = torch.zeros(2, 9, 3, 16)
+    elif bad == "logw_dtype":
+        lw = lw.to(torch.bfloat16)
+    elif bad == "u":
+        u = torch.zeros(2, 16)
+    else:
+        s0 = torch.zeros(2, 3, 16, 8)
+    with pytest.raises((TypeError, ValueError)):
+        wkv(r, k, v, lw, u, s0)
+
+
+def test_recurrence_oracles_match_jax_oracles():
+    a, b = _decays(60, (2, 40, 6)), _rand(61, (2, 40, 6))
+    np.testing.assert_allclose(
+        _np(tref.rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b))),
+        _np(jref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b))), rtol=1e-5, atol=1e-5)
+    B, S, H, hd = 2, 24, 2, 8
+    r, k, v, lw, u = _wkv_inputs(62, B, S, H, hd)
+    out, _ = tref.wkv_ref(*(torch.from_numpy(t) for t in (r, k, v, lw, u)))
+    j = [_heads_first(t) for t in (r, k, v, lw)]
+    ref = np.asarray(jref.wkv_ref(*j, jnp.tile(jnp.asarray(u), (B, 1))))
+    np.testing.assert_allclose(_np(out), ref.reshape(B, H, S, hd).transpose(0, 2, 1, 3),
+                               rtol=1e-5, atol=1e-5)

@@ -24,7 +24,10 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 B, S = 2, 16
 
 
-@pytest.fixture(scope="module", params=tconfigs.ARCH_IDS)
+DENSE = [a for a in tconfigs.ARCH_IDS if tconfigs.get_config(a).family == "transformer"]
+
+
+@pytest.fixture(scope="module", params=DENSE)
 def pair(request):
     arch = request.param
     jc, tc = jconfigs.get_smoke_config(arch), tconfigs.get_smoke_config(arch)
