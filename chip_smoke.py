@@ -7,10 +7,16 @@ Run from the repository root on a machine with one CUDA card and ``nvcc``.
 Phases, each of which raises on failure:
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` and print the build time;
+   ``src/repro_torch/kernels/csrc``, print the build time and ptxas's
+   registers and spills, and count the HGMMA instructions of the two
+   tensor-core kernels in the library's SASS (none fails);
 2. hold every kernel against its plain PyTorch version on the card, at
    the shapes of the main paths, with times, a library call as yardstick,
-   and the card's least time for the same work (``bound_ms``);
+   and the card's least time for the same work (``bound_ms``).  ``gemm``
+   and ``flash_attention`` have two routes each (tensor-core for bf16,
+   CUDA-core for the rest): every case names the route it must take, and
+   the 4096^3 bf16 gemm and the yi-6b bf16 flash wave also run through the
+   CUDA-core route, so that the speed-up is read on one card;
 3. drive the collective GEMM path at the widths of yi-6b (d_model 4096,
    32 heads x 128, d_ff 11008) with T = 4096 tokens: SUMMA on a 4x4 mesh
    (all five schedules), FCL over 8 members (four schedules plus
@@ -23,19 +29,20 @@ Phases, each of which raises on failure:
    decode-after-prefill against a longer prefill (the KV-cache gate); then
    in bf16, ``Server.serve`` of 8 requests (prompts of 1536-2048 tokens, 4
    slots, 32 new tokens), twice, which must give in-vocab, equal tokens,
-   with ``flash_attention`` launched 32 times per prefill;
+   with ``flash_attention`` launched 32 times per prefill, all on its
+   tensor-core route (the f32 checks take the CUDA-core route);
 5. serve recurrentgemma-2b at full width and depth (26 layers) in the same
    way: f32 prefill logits through ``rglru_scan`` and ``flash_attention``
    against their plain versions, decode at 2600 after a prefill of 2600
    (past the attention window of 2048) against a prefill of 2601, then the
    bf16 serve twice, with ``rglru_scan`` launched 18 and ``flash_attention``
-   8 times per prefill;
+   8 times per prefill (tensor-core route);
 6. serve rwkv6-3b at full width and depth (32 layers) in the same way:
    f32 prefill logits through ``wkv`` against its plain version, decode at
    2048 against a prefill of 2049 (a ragged last chunk), then the bf16
    serve twice, with ``wkv`` launched 32 times per prefill;
-7. print the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-   line.
+7. print the ``{"kernels": [...]}`` line, one entry per route of each
+   kernel, and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -85,9 +92,13 @@ WAVE, SLOTS, REQUESTS, MAX_NEW = 2048, 4, 8, 32
 PROMPT_LENS = (1536, 2048)
 MAX_LEN = 2080
 # Further flash cases (BH, S, d[, window]): a gemma3-12b local layer of 4
-# sequences x 16 heads x 256 with its window of 1024, and a ragged S.
+# sequences x 16 heads x 256 with its window of 1024, a ragged S, and the
+# hybrid's layer.
 GEMMA_LOCAL = (4 * 16, 4096, 256, 1024)
 RAGGED = (32, 1000, HEAD_DIM)
+# recurrentgemma-2b's attention layer over one wave: 4 sequences x 10 heads
+# of 256, window 2048.
+HYBRID_WAVE = (4 * 10, WAVE, 256, 2048)
 # f32 prefill logits, flash kernel against plain attention, relative to
 # max|logits|: each layer's attention differs from the plain version by the
 # f32 rounding of another summation order (~1e-6 relative); 32 layers of
@@ -141,9 +152,10 @@ def rel_err(out, ref) -> tuple[float, float]:
 
 
 def gemm_cases(gen):
+    from repro_torch.kernels.gemm import gemm_route
     from repro_torch.kernels.ref import gemm_ref
 
-    def case(name, batch, M, K, N, dtype, accumulate, rtol, iters, atol=None):
+    def case(name, batch, M, K, N, dtype, accumulate, rtol, iters, atol=None, route=None):
         shape = (batch,) if batch else ()
         a = torch.randn(*shape, M, K, generator=gen, device=DEVICE).to(dtype)
         b = torch.randn(*shape, K, N, generator=gen, device=DEVICE).to(dtype)
@@ -155,7 +167,12 @@ def gemm_cases(gen):
             lib = (lambda: torch.baddbmm(c, a, b)) if batch else (lambda: torch.addmm(c, a, b))
         else:
             lib = (lambda: torch.bmm(a, b)) if batch else (lambda: torch.matmul(a, b))
-        return dict(name=name, kernel=lambda: gemm(a, b, c, accumulate=accumulate),
+        # ``route`` forces a route (the CUDA-core kernel on a tensor-core
+        # shape, for the speed-up on one card); else the wrapper's rule picks.
+        ptrs = [t.data_ptr() for t in (a, b) + ((c,) if accumulate else ())]
+        taken = route or gemm_route(dtype, K, N, ptrs)
+        return dict(name=f"{name} [{taken}]", route=taken, wrapper=gemm,
+                    kernel=lambda: gemm(a, b, c, accumulate=accumulate, _route=route),
                     plain=lambda: gemm_ref(a, b, c, accumulate=accumulate), library=lib,
                     rtol=rtol, atol=atol, iters=iters,
                     bound=bound(ops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32, nbytes))
@@ -167,12 +184,20 @@ def gemm_cases(gen):
     # atol above the f32 sum-order difference over K = 4096 (~1e-4 at most).
     summa = (16, TOKENS // 4, D_MODEL // 4, D_FF // 4)       # one step on the 4x4 mesh
     fcl = (8, TOKENS, N_HEADS * HEAD_DIM // 8, D_MODEL)      # partials over 8 members
+    sq = (0, D_MODEL, D_MODEL, D_MODEL)
     return [
         case("summa_step {}x({}x{} @ {}x{}) +C f32".format(*summa[:3], *summa[2:]),
              *summa, f32, True, 1e-4, 5),
         case("fcl_partials {}x({}x{} @ {}x{}) f32".format(*fcl[:3], *fcl[2:]),
              *fcl, f32, False, 1e-4, 5),
-        case(f"square {D_MODEL}^3 bf16", 0, D_MODEL, D_MODEL, D_MODEL, bf16, False, BF16_RTOL, 5,
+        case(f"square {D_MODEL}^3 bf16", *sq, bf16, False, BF16_RTOL, 20, atol=1e-3),
+        case(f"square {D_MODEL}^3 bf16", *sq, bf16, False, BF16_RTOL, 5, atol=1e-3,
+             route="cuda_core"),
+        case("summa_step {}x({}x{} @ {}x{}) +C bf16".format(*summa[:3], *summa[2:]),
+             *summa, bf16, True, BF16_RTOL, 20, atol=1e-3),
+        case("ragged 1000x328 @ 328x776 +C bf16", 0, 1000, 328, 776, bf16, True, BF16_RTOL, 20,
+             atol=1e-3),
+        case("ragged 1000x333 @ 333x776 +C bf16", 0, 1000, 333, 776, bf16, True, BF16_RTOL, 20,
              atol=1e-3),
         case("ragged 1000x333 @ 333x777 +C f32", 0, 1000, 333, 777, f32, True, 1e-4, 20),
     ]
@@ -212,16 +237,17 @@ def causal_pairs(S: int, window: int) -> int:
 
 
 def flash_cases(gen):
+    from repro_torch.kernels.flash_attention import flash_route
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     import torch.nn.functional as F
 
-    def case(BH, S, d, window, dtype, rtol, iters, atol=None):
+    def case(BH, S, d, window, dtype, rtol, iters, atol=None, route=None):
         q, k, v = (torch.randn(BH, S, d, generator=gen, device=DEVICE).to(dtype)
                    for _ in range(3))
         ops = 4.0 * d * BH * causal_pairs(S, window)
         nbytes = 4 * BH * S * d * q.element_size()
-        if window > 0:
+        if 0 < window < S:
             i = torch.arange(S, device=DEVICE)
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
             lib = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
@@ -229,8 +255,11 @@ def flash_cases(gen):
         else:
             lib = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                          is_causal=True)
-        name = f"({BH}, {S}, {d}) {str(dtype).split('.')[-1]} window {window}"
-        return dict(name=name, kernel=lambda: flash_attention(q, k, v, window=window),
+        # ``route`` forces a route (see gemm_cases); else the wrapper's rule.
+        taken = route or flash_route(dtype, d, [t.data_ptr() for t in (q, k, v)])
+        name = f"({BH}, {S}, {d}) {str(dtype).split('.')[-1]} window {window} [{taken}]"
+        return dict(name=name, route=taken, wrapper=flash_attention,
+                    kernel=lambda: flash_attention(q, k, v, window=window, _route=route),
                     plain=lambda: flash_attention_ref(q, k, v, window=window), library=lib,
                     rtol=rtol, atol=atol, iters=iters,
                     bound=bound(ops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32,
@@ -246,9 +275,11 @@ def flash_cases(gen):
     # above either limit.  The gemma3 local layer runs in both types, so that
     # the window's tile skip at d = 256 is held at the f32 limit too.
     return [
-        case(bh, WAVE, HEAD_DIM, 0, bf16, BF16_RTOL, 5, atol=1e-5),
+        case(bh, WAVE, HEAD_DIM, 0, bf16, BF16_RTOL, 20, atol=1e-5),
+        case(bh, WAVE, HEAD_DIM, 0, bf16, BF16_RTOL, 5, atol=1e-5, route="cuda_core"),
         case(bh, WAVE, HEAD_DIM, 0, f32, 1e-4, 5),
-        case(*GEMMA_LOCAL, bf16, BF16_RTOL, 3, atol=1e-5),
+        case(*HYBRID_WAVE, bf16, BF16_RTOL, 20, atol=1e-5),
+        case(*GEMMA_LOCAL, bf16, BF16_RTOL, 10, atol=1e-5),
         case(*GEMMA_LOCAL, f32, 1e-4, 3),
         case(*RAGGED, 0, f32, 1e-4, 10),
     ]
@@ -329,8 +360,14 @@ def wkv_cases(gen):
 
 
 def run_case(cs) -> dict:
+    wrapper = cs.get("wrapper")  # a kernel with two routes: the case names its route
+    before = dict(wrapper.route_launches) if wrapper else {}
     out, ref = cs["kernel"](), cs["plain"]()
     torch.cuda.synchronize()
+    if wrapper:
+        moved = {r: wrapper.route_launches[r] - n for r, n in before.items()}
+        if moved != {r: int(r == cs["route"]) for r in before}:
+            fail(f"{cs['name']}: route launches moved by {moved}, not one {cs['route']}")
     if isinstance(out, tuple):  # wkv's final state: f32, relative to max(1, max|ref|)
         (out, state), (ref, ref_state) = out, ref
         if state.shape != ref_state.shape or not bool(torch.isfinite(state).all()):
@@ -357,7 +394,8 @@ def run_case(cs) -> dict:
     if not ratio <= 1.0:
         fail(f"{cs['name']}: max_abs_err {err:.3e} at {ratio:.3f} of its limit {limit}")
     bound_ms, bound_by = cs["bound"]
-    row = dict(case=cs["name"], max_abs_err=err, rel_err=rel, tol=limit, limit_ratio=ratio,
+    row = dict(case=cs["name"], route=cs.get("route"), max_abs_err=err, rel_err=rel, tol=limit,
+               limit_ratio=ratio,
                ms=time_ms(cs["kernel"], cs["iters"]),
                plain_ms=time_ms(cs["plain"], cs["iters"]),
                library_ms=time_ms(cs["library"], cs["iters"]) if cs["library"] else None,
@@ -367,6 +405,67 @@ def run_case(cs) -> dict:
           f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
           f"bound {bound_ms:.4f} ({bound_by})", flush=True)
     return row
+
+
+def kernel_symbol(mangled: str) -> str:
+    """``flash_wgmma_kernel[ILi64E]`` from an Itanium-mangled kernel symbol:
+    the name that ends in ``kernel`` and its template arguments as mangled."""
+    i, last = mangled.find("_ZN") + 3, mangled
+    while 0 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        ident, i = mangled[j:j + n], j + n
+        if ident.endswith("kernel"):
+            args = mangled[i:mangled.find("E", i) + 1] if mangled[i:i + 1] == "I" else ""
+            return ident + (f"[{args}]" if args else "")
+        last = ident
+    return last
+
+
+def print_ptxas(report: str):
+    """ptxas's registers, spills and performance notes, by kernel."""
+    name = "?"
+    for line in report.splitlines():
+        if line.startswith("=="):
+            print(f"  {line.strip()}")
+        elif "Function properties for" in line:
+            name = kernel_symbol(line.split("for ", 1)[1].strip())
+        elif "registers" in line or "spill" in line or "Potential" in line:
+            print(f"    {name}: {line.split(':', 1)[-1].strip()}")
+
+
+def tensor_core_sass(lib) -> dict:
+    """HGMMA instructions in the SASS of each tensor-core kernel of ``lib``."""
+    from repro_torch.kernels import _build
+
+    exe = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(exe), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {"gemm_wgmma_kernel": 0, "flash_wgmma_kernel": 0}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in counts if k in line), None)
+        elif current and "HGMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def speedups(gemm_rows, flash_rows):
+    """The tensor-core routes against the CUDA-core ones and the library,
+    at the shapes both routes ran in this run."""
+    for kind, rows in (("gemm", gemm_rows), ("flash_attention", flash_rows)):
+        by_shape = {}
+        for r in rows:
+            by_shape.setdefault(r["case"].rsplit(" [", 1)[0], {})[r["route"]] = r
+        for shape, pair in by_shape.items():
+            if len(pair) == 2:
+                tc, cc = pair["tensor_core"], pair["cuda_core"]
+                print(f"  {kind} {shape}: tensor-core {tc['ms']:.4f} ms, CUDA-core "
+                      f"{cc['ms']:.4f} ms ({cc['ms'] / tc['ms']:.2f}x faster), library "
+                      f"{tc['library_ms']:.4f} ms ({tc['ms'] / tc['library_ms']:.2f}x its time)")
 
 
 def lsb_and_barrier():
@@ -546,6 +645,17 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
               f"(ratio {err / scale:.3e} <= {SERVE_RTOL})", flush=True)
         out[key] = {"max_abs_err": err, "max_abs": scale}
 
+    # A kernel with two routes takes its CUDA-core one in f32 (these checks)
+    # and its tensor-core one in bf16 (the serve): each route's count is
+    # read after the part that drives it.
+    routed = {name: wrappers[name] for name in kernels
+              if hasattr(wrappers[name], "route_launches")}
+
+    def zero_routes():
+        for w in routed.values():
+            w.route_launches.update(dict.fromkeys(w.route_launches, 0))
+
+    zero_routes()
     with torch.inference_mode():
         before = {name: wrappers[name].launches for name in kernels}
         logits, cache = fam.prefill(model32, x[:, :WAVE], cfg32, max_len=MAX_LEN)
@@ -568,6 +678,10 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
         full = fam.prefill(model32, x[:, :gate + 1], cfg32, max_len=gate + 1)[0]
         check("decode_gate_f32", f"f32 decode at {gate} vs prefill of {gate + 1}", dec, full)
     del model32, logits, dec, full
+    f32_routes = {name: dict(w.route_launches) for name, w in routed.items()}
+    for name, counts in f32_routes.items():
+        if counts["tensor_core"] or not counts["cuda_core"]:
+            fail(f"f32 checks launched {name} by route {counts}: f32 takes the CUDA-core route")
     torch.cuda.empty_cache()
 
     # bf16 serving: 8 requests, two waves of ragged length, run twice.
@@ -594,6 +708,7 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
     resident = torch.cuda.memory_allocated() / 2**30  # the weights and what else is held
     for name in kernels:
         wrappers[name].launches = 0
+    zero_routes()
     for run in ("cold", "warm"):
         for key in times:
             times[key] = []
@@ -625,9 +740,14 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
         if launches[name] != per * n_prefills:
             fail(f"{name} launched {launches[name]} times over {n_prefills} prefills, "
                  f"not {per} per prefill")
+    serve_routes = {name: dict(w.route_launches) for name, w in routed.items()}
+    for name, counts in serve_routes.items():
+        if counts != {"cuda_core": 0, "tensor_core": kernels[name] * n_prefills}:
+            fail(f"bf16 serve launched {name} by route {counts}, not "
+                 f"{kernels[name]} tensor-core launches per prefill")
     print(f"  served twice, same tokens; launches {launches} ({n_prefills} prefills x "
-          f"{kernels}); peak device memory {peak:.2f} GiB ({resident:.2f} GiB resident "
-          "at the start)")
+          f"{kernels}), by route {serve_routes} (f32 checks: {f32_routes}); peak device "
+          f"memory {peak:.2f} GiB ({resident:.2f} GiB resident at the start)")
 
     # One profiled prefill and one profiled decode step of the first wave.
     wave = [[0] * (max(map(len, prompts[:SLOTS])) - len(p)) + p for p in prompts[:SLOTS]]
@@ -664,7 +784,8 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
                                        "peak_gib": call_peak, **br}
     for r in runs:
         del r["out"]
-    out.update(runs=runs, launches=launches, prefills=n_prefills, peak_gib=peak,
+    out.update(runs=runs, launches=launches, route_launches=serve_routes,
+               f32_route_launches=f32_routes, prefills=n_prefills, peak_gib=peak,
                resident_gib=resident, prompt_lens=[int(n) for n in lens])
     # The timed wrappers hold the server's bound methods: a reference cycle
     # that keeps the model alive until the collector runs.
@@ -697,10 +818,12 @@ def main(argv=None) -> int:
     # 1. Build.
     path, secs, report = _build.build()
     print(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    print_ptxas(report)
     _build.library()
+    hgmma = tensor_core_sass(path)
+    print(f"  HGMMA instructions in the SASS: {hgmma}")
+    if not all(hgmma.values()):
+        fail(f"a tensor-core kernel issues no HGMMA: {hgmma}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
 
@@ -719,42 +842,61 @@ def main(argv=None) -> int:
           f"d_ff {D_FF}, {TOKENS} tokens")
     torch.cuda.reset_peak_memory_stats()
     gemm.launches = 0
+    gemm.route_launches.update(dict.fromkeys(gemm.route_launches, 0))
     reduce_nway.launches = 0
     walls = main_path(gen)
-    launches = {"gemm": gemm.launches, "reduce_nway": reduce_nway.launches}
-    print(f"  launches on the main path: {launches}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name, n in launches.items():
-        if n <= 0:
+    launches = {"gemm": gemm.route_launches["cuda_core"],
+                "gemm_wgmma": gemm.route_launches["tensor_core"],
+                "reduce_nway": reduce_nway.launches}
+    print(f"  launches on the main path: {launches} (f32: the tensor-core gemm is on no "
+          f"main path); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in ("gemm", "reduce_nway"):
+        if launches[name] <= 0:
             fail(f"{name} was never launched on the main path")
     torch.cuda.empty_cache()
 
     # 4-6. Serving yi-6b, recurrentgemma-2b and rwkv6-3b; only each one's
     # served requests' launches count, and each kernel's entry takes them from
-    # the first model that serves through it.
+    # the first model that serves through it.  flash_attention's CUDA-core
+    # route counts the f32 checks of that phase, its tensor-core route the
+    # bf16 serve.
     serving = {}
     for spec in SERVES:
-        serving[spec["arch"]] = serve_phase(args.seed, **spec)
-        for name, n in serving[spec["arch"]]["launches"].items():
-            launches.setdefault(name, n)
+        served = serving[spec["arch"]] = serve_phase(args.seed, **spec)
+        for name, n in served["launches"].items():
+            if name in served["route_launches"]:
+                f32_counts, bf16_counts = (served["f32_route_launches"][name],
+                                           served["route_launches"][name])
+                launches.setdefault(name, f32_counts["cuda_core"])
+                launches.setdefault(name + "_wgmma", bf16_counts["tensor_core"])
+            else:
+                launches.setdefault(name, n)
 
-    # 7. Result lines.
-    def entry(name, source, replaces, rows):
+    # 7. Result lines.  Each route of a kernel is an entry of its own.
+    def entry(name, source, replaces, rows, route=None):
+        if route is not None:
+            rows = [r for r in rows if r["route"] == route]
         main_row = rows[0]  # the main-path shape of this kernel
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+        return {"name": name, "route": "cuda", "kernel_route": route, "source": source,
+                "replaces": replaces,
                 "launches": launches[name], "max_abs_err": main_row["max_abs_err"],
                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                 "library_ms": main_row["library_ms"], "case": main_row["case"],
                 "cases": rows}
 
+    speedups(gemm_rows, flash_rows)
     kernels = [
         entry("gemm", "src/repro_torch/kernels/csrc/gemm.cu",
-              "src/repro/kernels/gemm.py:48", gemm_rows),
+              "src/repro/kernels/gemm.py:48", gemm_rows, "cuda_core"),
+        entry("gemm_wgmma", "src/repro_torch/kernels/csrc/gemm_wgmma.cu",
+              "src/repro/kernels/gemm.py:48", gemm_rows, "tensor_core"),
         entry("reduce_nway", "src/repro_torch/kernels/csrc/reduce_nway.cu",
               "src/repro/kernels/reduce_nway.py:38", reduce_rows),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:67", flash_rows),
+              "src/repro/kernels/flash_attention.py:67", flash_rows, "cuda_core"),
+        entry("flash_attention_wgmma", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+              "src/repro/kernels/flash_attention.py:67", flash_rows, "tensor_core"),
         entry("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru.py:44", rglru_rows),
         entry("wkv", "src/repro_torch/kernels/csrc/wkv.cu",

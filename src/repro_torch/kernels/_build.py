@@ -1,13 +1,16 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) as one shared library.
 
 Each source is compiled by its own ``nvcc`` process, all started together,
-for ``sm_90a``; the objects are then linked into ``libreprokernels.so``,
-which is loaded with ``ctypes``.  The library has a plain C interface (no
-PyTorch headers), so a build takes seconds.  It lands in
-``build/repro_torch_kernels/<hash>/`` under the repository root, where the
-hash covers the sources and the flags: a changed source builds anew, an
-unchanged one is loaded as it is.  Nothing is built on import; the first
-kernel launch on a CUDA tensor calls :func:`library`.
+for ``sm_90a`` (``*.cuh`` are headers the sources share); the objects are
+then linked into ``libreprokernels.so``, which is loaded with ``ctypes``.
+The library has a plain C interface (no PyTorch headers), so a build takes
+seconds.  It links against the CUDA runtime only: the tensor-core kernels
+reach the driver's ``cuTensorMapEncodeTiled`` through
+``cudaGetDriverEntryPoint``.  It lands in ``build/repro_torch_kernels/<hash>/``
+under the repository root, where the hash covers the sources, the headers
+and the flags: a changed source builds anew, an unchanged one is loaded as
+it is.  Nothing is built on import; the first kernel launch on a CUDA
+tensor calls :func:`library`.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype is int = cudaError_t).
 SIGNATURES = {
     "repro_gemm": (P, P, P, P, I, I, I, I, I, L, L, L, L, P),
+    "repro_gemm_wgmma": (P, P, P, P, I, I, I, I, P),
     "repro_reduce_nway": (P, P, I, I, L, I, L, P),
     "repro_flash_attention": (P, P, P, P, I, I, I, I, I, P),
+    "repro_flash_attention_wgmma": (P, P, P, P, I, I, I, I, P),
     "repro_rglru_scan": (P, P, P, I, I, I, I, P),
     "repro_wkv": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
 }
@@ -57,8 +62,9 @@ def _sources() -> list[Path]:
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,22 +1,35 @@
 """Causal (optionally sliding-window) flash attention, forward.
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention``
-(``_flash_kernel``).  The kernel is ``csrc/flash_attention.cu``: one block
-of 256 threads per tile of 64 queries loops over the 64-key tiles inside
-the block (in place of the TPU's sequential kv grid axis and its VMEM
-scratch), with K and V tiles in shared memory and the online softmax's f32
-m / l / accumulator in registers.  Tiles that hold no live key for any query
-of the block are not visited, so a sliding-window layer costs O(S * window).
-It is bound by operations: 4 * d f32 multiply-adds per live (query, key)
-pair on the CUDA cores, since the reference multiplies in f32 (on an H100
-SXM, 2 * d * BH * S * (S + 1) / 67 TFLOP/s for a causal call).
+(``_flash_kernel``) with two hand-written kernels; :func:`flash_route`
+chooses between them by dtype and head dim:
 
-The numbers are the reference kernel's: logits ``(q * scale) @ k^T`` in f32
-with ``scale = 1 / sqrt(d)``, masked logits at -2e38, the output
-``acc / max(l, 1e-30)`` cast to q's dtype; ``p`` stays f32 through ``P @ V``.
-The ragged last tiles are masked, so S need not divide by any tile: the
-reference's ``S % bq == 0`` assert is not kept, and ``bq`` / ``bkv`` are
-accepted for its signature without changing the result.
+- ``tensor_core``, ``csrc/flash_attention_wgmma.cu``: bf16 at d in {64,
+  128, 256}.  Q, K and V reach shared memory by TMA (K and V through a
+  two-slot mbarrier ring fed by a producer warp); S = Q K^T and O += P V
+  are ``wgmma`` products with f32 accumulators, one consumer warpgroup per
+  64 queries (two per block at d <= 128, one at d = 256).  ``scale``
+  multiplies the f32 logits (Q is not pre-scaled in bf16), and P enters
+  P V as ``bf16(P) + bf16(P - bf16(P))``, two products that keep it at
+  f32 accuracy.  Bound: 4 * d flops per live (query, key) pair at the
+  bf16 tensor-core rate.
+- ``cuda_core``, ``csrc/flash_attention.cu``: f32, and bf16 at d in {16,
+  32}.  One block of 256 threads per tile of 64 queries loops over the
+  64-key tiles inside the block (in place of the TPU's sequential kv grid
+  axis and its VMEM scratch), with K and V tiles in shared memory and the
+  online softmax's f32 m / l / accumulator in registers.  Bound: 4 * d f32
+  multiply-adds per live pair on the CUDA cores, since the reference
+  multiplies in f32 (on an H100 SXM, 2 * d * BH * S * (S + 1) / 67 TFLOP/s
+  for a causal call).
+
+Both visit only the kv tiles that hold a live key for some query of the
+block, so a sliding-window layer costs O(S * window).  The numbers are the
+reference kernel's: logits ``(q * scale) @ k^T`` in f32 with ``scale = 1 /
+sqrt(d)``, masked logits at -2e38, the output ``acc / max(l, 1e-30)`` cast
+to q's dtype; ``p`` stays at f32 accuracy through ``P @ V``.  The ragged
+last tiles are masked, so S need not divide by any tile: the reference's
+``S % bq == 0`` assert is not kept, and ``bq`` / ``bkv`` are accepted for
+its signature without changing the result.
 """
 
 from __future__ import annotations
@@ -28,14 +41,31 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TENSOR_CORE_DIMS = (64, 128, 256)
+ROUTES = ("cuda_core", "tensor_core")
 
 
-def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128):
+def flash_route(dtype, d: int, ptrs=()) -> str:
+    """The kernel a call on the card takes.
+
+    ``tensor_core`` for bfloat16 at d in (64, 128, 256) when every address
+    in ``ptrs`` (the operands' ``data_ptr()``) is a multiple of 16, as TMA
+    needs; ``cuda_core`` for float32 and for bfloat16 at d in (16, 32).
+    """
+    if dtype == torch.bfloat16 and d in TENSOR_CORE_DIMS and all(p % 16 == 0 for p in ptrs):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
+                    _route: str | None = None):
     """Causal self-attention over (BH, S, d) q, k, v of one dtype.
 
     ``window > 0`` keeps, for query i, only keys j with i - window < j <= i.
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    that :func:`flash_route` names, or raises.  ``_route`` forces one
+    route, for timing the two against each other on the card; a call
+    outside the forced route's rule raises.
     """
     del bq, bkv  # the TPU's block shape; the CUDA kernel tiles itself
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -57,13 +87,25 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: operands must be contiguous")
     out = torch.empty_like(q)
+    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+    route = flash_route(q.dtype, d, ptrs)
+    if _route is not None:
+        if _route not in ROUTES or (_route == "tensor_core" and route != _route):
+            raise ValueError(f"flash_attention: route {_route!r} does not take {q.dtype} "
+                             f"d={d} at these addresses")
+        route = _route
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = _build.library().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
-            BH, S, d, window, torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "flash_attention")
+        if route == "tensor_core":
+            rc = _build.library().repro_flash_attention_wgmma(*ptrs, BH, S, d, window, stream)
+        else:
+            rc = _build.library().repro_flash_attention(*ptrs, DTYPES[q.dtype], BH, S, d,
+                                                        window, stream)
+    _build.check(rc, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # every launch
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

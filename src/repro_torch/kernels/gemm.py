@@ -1,17 +1,28 @@
 """Batched GEMM with an accumulate-into-output epilogue (the DCA analogue).
 
-Replaces ``src/repro/kernels/gemm.py:gemm`` (``_gemm_kernel``).  The kernel
-is ``csrc/gemm.cu``: one thread block per 128x128 output tile, a K loop
-inside the block through shared memory (in place of the TPU's sequential K
-grid axis and VMEM accumulator), an 8x8 f32 register tile per thread, and
-``C_in`` added in f32 in the epilogue.  It is bound by FP32 FMAs on the CUDA
-cores, since the reference multiplies in f32; on an H100 SXM that bound is
-2*M*N*K / 67 TFLOP/s per member.  Ragged M, N, K are masked by the kernel,
-so the TPU's divisibility assert is not kept; ``bm/bn/bk`` are accepted for
-the reference's signature and do not change the result.
+Replaces ``src/repro/kernels/gemm.py:gemm`` (``_gemm_kernel``) with two
+hand-written kernels; :func:`gemm_route` chooses between them by dtype,
+shape and alignment:
 
-Leading batch dimensions are the mesh members of a stacked mesh: one launch
-covers them all (the counterpart of ``vmap(gemm)``).
+- ``tensor_core``, ``csrc/gemm_wgmma.cu``: bf16 on the tensor cores.  One
+  block per 128x128 output tile; a producer warpgroup keeps TMA loads of A
+  and B tiles in flight through a four-slot mbarrier ring, two consumer
+  warpgroups issue ``wgmma`` (A K-major, B MN-major through the transpose-B
+  bit).  A bf16 product is exact in f32 and wgmma sums in f32, so the
+  numbers are the reference's.  Bound: 2*M*N*K / 989 TFLOP/s per member on
+  an H100 SXM.
+- ``cuda_core``, ``csrc/gemm.cu``: f32, and the bf16 shapes TMA cannot
+  address.  One thread block per 128x128 output tile, a K loop inside the
+  block through shared memory (in place of the TPU's sequential K grid axis
+  and VMEM accumulator), an 8x8 f32 register tile per thread.  It is bound
+  by FP32 FMAs on the CUDA cores, since the reference multiplies in f32
+  (TF32 would change the numbers): 2*M*N*K / 67 TFLOP/s per member.
+
+Both add ``C_in`` in f32 in the epilogue and mask ragged M, N, K, so the
+TPU's divisibility assert is not kept; ``bm/bn/bk`` are accepted for the
+reference's signature and do not change the result.  Leading batch
+dimensions are the mesh members of a stacked mesh: one launch covers them
+all (the counterpart of ``vmap(gemm)``).
 """
 
 from __future__ import annotations
@@ -24,16 +35,34 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gemm_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("cuda_core", "tensor_core")
+
+
+def gemm_route(dtype, K: int, N: int, ptrs=()) -> str:
+    """The kernel a call on the card takes.
+
+    ``tensor_core`` for bfloat16 when TMA can address every operand: K > 0,
+    K % 8 == 0 and N % 8 == 0 (every row stride a multiple of 16 bytes),
+    and every address in ``ptrs`` (the operands' ``data_ptr()``) a multiple
+    of 16.  ``cuda_core`` for every other call: float32, and the other
+    bf16 shapes.
+    """
+    if (dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
-         accumulate: bool = False):
+         accumulate: bool = False, _route: str | None = None):
     """C = A @ B (+ C_in if accumulate), over any equal leading batch dims.
 
     a: (..., M, K), b: (..., K, N), c: (..., M, N), all of one dtype
     (float32 or bfloat16).  Products and sums are f32; the result has
     a's dtype.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel or raises.
+    launches the kernel that :func:`gemm_route` names, or raises.
+    ``_route`` forces one route, for timing the two against each other on
+    the card; a shape outside the forced route's rule raises.
     """
     del bm, bn, bk  # the TPU's block shape; the CUDA kernel tiles itself
     if a.ndim < 2 or b.ndim != a.ndim:
@@ -60,14 +89,28 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
         raise ValueError("gemm: operands must be contiguous")
     out = torch.empty((*batch, M, N), dtype=a.dtype, device=a.device)
     nb = math.prod(batch)
+    ptrs = [t.data_ptr() for t in (*tensors, out)]
+    route = gemm_route(a.dtype, K, N, ptrs)
+    if _route is not None:
+        if _route not in ROUTES or (_route == "tensor_core" and route != _route):
+            raise ValueError(f"gemm: route {_route!r} does not take {a.dtype} "
+                             f"K={K} N={N} at these addresses")
+        route = _route
+    c_ptr = None if c is None else c.data_ptr()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        rc = _build.library().repro_gemm(
-            a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(),
-            out.data_ptr(), DTYPES[a.dtype], nb, M, N, K,
-            M * K, K * N, M * N, M * N, torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "gemm")
+        if route == "tensor_core":
+            rc = _build.library().repro_gemm_wgmma(
+                a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), nb, M, N, K, stream)
+        else:
+            rc = _build.library().repro_gemm(
+                a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), DTYPES[a.dtype], nb, M, N, K,
+                M * K, K * N, M * N, M * N, stream)
+    _build.check(rc, f"gemm ({route})")
     gemm.launches += 1
+    gemm.route_launches[route] += 1
     return out
 
 
-gemm.launches = 0
+gemm.launches = 0  # every launch
+gemm.route_launches = dict.fromkeys(ROUTES, 0)

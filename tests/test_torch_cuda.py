@@ -33,19 +33,30 @@ def card():
     return torch.device("cuda")
 
 
+def _route_moved(wrapper, before):
+    return {r: n - before[r] for r, n in wrapper.route_launches.items()}
+
+
+# (B, M, K, N): bf16 takes the tensor-core route when K % 8 == N % 8 == 0
+# (batched; ragged M and N tiles; K = 8; the SUMMA step), else the CUDA-core
+# one (K = 77, 333, 1); f32 always the CUDA-core one.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 128, 128, 128), (3, 200, 77, 130), (1, 1, 1, 1)])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 128), (3, 200, 77, 130), (1, 1, 1, 1),
+                                   (3, 200, 72, 136), (1, 64, 8, 64), (16, 1024, 1024, 2752),
+                                   (1, 100, 333, 64)])
 @pytest.mark.parametrize("accumulate", [False, True])
 def test_gemm_kernel_matches_plain_on_card(card, shape, dt, accumulate):
     B, M, K, N = shape
     gen = torch.Generator(device=card).manual_seed(0)
     a, b, c = (torch.randn(B, *s, generator=gen, device=card).to(TDT[dt])
                for s in ((M, K), (K, N), (M, N)))
-    before = gemm.launches
+    route = "tensor_core" if dt == "bf16" and K % 8 == 0 and N % 8 == 0 else "cuda_core"
+    before, routes = gemm.launches, dict(gemm.route_launches)
     out = gemm(a, b, c, accumulate=accumulate)
     torch.cuda.synchronize()
     assert gemm.launches == before + 1 and out.is_cuda
+    assert _route_moved(gemm, routes) == {r: int(r == route) for r in routes}
     ref = tref.gemm_ref(a, b, c, accumulate=accumulate)
     # f32: another summation order; bf16: one ulp of the rounded output
     tol = 1e-4 if dt == "f32" else 2e-2
@@ -75,6 +86,27 @@ def test_reduce_kernel_matches_plain_on_card(card, op, dtype, shape, dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_gemm_cuda_core_route_on_a_tensor_core_shape_on_card(card, accumulate):
+    """The private route argument: the CUDA-core kernel on a bf16 shape the
+    tensor-core one takes gives the same result, counted on its route."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    a, b, c = (torch.randn(2, *s, generator=gen, device=card).to(torch.bfloat16)
+               for s in ((256, 128), (128, 192), (256, 192)))
+    routes = dict(gemm.route_launches)
+    fast = gemm(a, b, c, accumulate=accumulate)
+    slow = gemm(a, b, c, accumulate=accumulate, _route="cuda_core")
+    torch.cuda.synchronize()
+    assert _route_moved(gemm, routes) == {"cuda_core": 1, "tensor_core": 1}
+    ref = tref.gemm_ref(a, b, c, accumulate=accumulate).float()
+    for out in (fast, slow):  # one bf16 ulp, element by element
+        assert bool(((out.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-3).all())
+    with pytest.raises(ValueError):  # K = 333 is not the tensor-core route's
+        gemm(torch.zeros(4, 333, device=card, dtype=torch.bfloat16),
+             torch.zeros(333, 8, device=card, dtype=torch.bfloat16), _route="tensor_core")
+
+
+@pytest.mark.cuda
 def test_kernels_reject_non_contiguous_on_card(card):
     a = torch.zeros(16, 8, device=card).t()
     with pytest.raises(ValueError):
@@ -83,21 +115,46 @@ def test_kernels_reject_non_contiguous_on_card(card):
         reduce_nway(a)
 
 
+# bf16 at d in (64, 128, 256) takes the tensor-core route, f32 and d = 16
+# the CUDA-core one.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
-@pytest.mark.parametrize("S,window", [(256, 0), (256, 48), (200, 0), (77, 16)])
+@pytest.mark.parametrize("S,window", [(256, 0), (256, 48), (200, 0), (77, 16), (2048, 0),
+                                      (2048, 1024)])
 def test_flash_kernel_matches_plain_on_card(card, d, S, window, dt):
     gen = torch.Generator(device=card).manual_seed(2)
     q, k, v = (torch.randn(3, S, d, generator=gen, device=card).to(TDT[dt]) for _ in range(3))
-    before = flash_attention.launches
+    route = "tensor_core" if dt == "bf16" and d in (64, 128, 256) else "cuda_core"
+    before, routes = flash_attention.launches, dict(flash_attention.route_launches)
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1 and out.is_cuda and out.dtype == q.dtype
+    assert _route_moved(flash_attention, routes) == {r: int(r == route) for r in routes}
     ref = tref.flash_attention_ref(q, k, v, window=window)
     # f32: another summation order; bf16: one ulp of the rounded output
     tol = 2e-4 if dt == "f32" else 2e-2
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,S,window", [(64, 77, 0), (128, 200, 16), (256, 2048, 1024)])
+def test_flash_routes_agree_on_card(card, d, S, window):
+    """Both routes on one bf16 input, each within one bf16 ulp of the plain
+    version element by element, each counted on its route."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn(2, S, d, generator=gen, device=card).to(torch.bfloat16)
+               for _ in range(3))
+    routes = dict(flash_attention.route_launches)
+    fast = flash_attention(q, k, v, window=window)
+    slow = flash_attention(q, k, v, window=window, _route="cuda_core")
+    torch.cuda.synchronize()
+    assert _route_moved(flash_attention, routes) == {"cuda_core": 1, "tensor_core": 1}
+    ref = tref.flash_attention_ref(q, k, v, window=window).float()
+    for out in (fast, slow):
+        assert bool(((out.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-5).all())
+    with pytest.raises(ValueError):  # f32 is not the tensor-core route's
+        flash_attention(q.float(), k.float(), v.float(), _route="tensor_core")
 
 
 @pytest.mark.cuda

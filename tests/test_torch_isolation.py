@@ -69,8 +69,9 @@ def test_no_source_names_jax_or_repro(path):
 
 
 def test_kernel_sources_are_in_the_package():
-    sources = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu"))
-    assert sources == ["flash_attention.cu", "gemm.cu", "reduce_nway.cu", "rglru_scan.cu",
+    sources = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu*"))
+    assert sources == ["flash_attention.cu", "flash_attention_wgmma.cu", "gemm.cu",
+                       "gemm_wgmma.cu", "hopper.cuh", "reduce_nway.cu", "rglru_scan.cu",
                        "wkv.cu"]
 
 
