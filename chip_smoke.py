@@ -8,15 +8,20 @@ Phases, each of which raises on failure:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc``, print the build time and ptxas's
-   registers and spills, and count the HGMMA instructions of the two
-   tensor-core kernels in the library's SASS (none fails);
+   registers and spills (and a summary for the CUDA-core ``gemm`` and
+   ``wkv`` kernels, which should not spill), and count the HGMMA
+   instructions of the two tensor-core kernels in the library's SASS (none
+   fails);
 2. hold every kernel against its plain PyTorch version on the card, at
    the shapes of the main paths, with times, a library call as yardstick,
    and the card's least time for the same work (``bound_ms``).  ``gemm``
    and ``flash_attention`` have two routes each (tensor-core for bf16,
    CUDA-core for the rest): every case names the route it must take, and
    the 4096^3 bf16 gemm and the yi-6b bf16 flash wave also run through the
-   CUDA-core route, so that the speed-up is read on one card;
+   CUDA-core route, so that the speed-up is read on one card.  Each
+   CUDA-core ``gemm`` case names its launch plan (``gemm_plan``: tile 128
+   or 64, vector or scalar loads); ``wkv`` prints its cluster size, shared
+   memory and resident clusters at head sizes 64 and 32;
 3. drive the collective GEMM path at the widths of yi-6b (d_model 4096,
    32 heads x 128, d_ff 11008) with T = 4096 tokens: SUMMA on a 4x4 mesh
    (all five schedules), FCL over 8 members (four schedules plus
@@ -120,6 +125,7 @@ RGLRU_RAGGED = (3, 1000, 2560)
 WKV_WAVE = (4, WAVE, 40, 64)
 WKV_RAGGED = (2, 1000, 40, 64)
 WKV_STRONG = (2, 1024, 40, 64)  # at the model's strongest decay, logw = -e^2
+WKV_HD32 = (4, WAVE, 80, 32)    # the same width in heads of 32 (clusters of 2)
 
 
 def fail(msg: str):
@@ -152,7 +158,7 @@ def rel_err(out, ref) -> tuple[float, float]:
 
 
 def gemm_cases(gen):
-    from repro_torch.kernels.gemm import gemm_route
+    from repro_torch.kernels.gemm import gemm_plan, gemm_route, sm_count
     from repro_torch.kernels.ref import gemm_ref
 
     def case(name, batch, M, K, N, dtype, accumulate, rtol, iters, atol=None, route=None):
@@ -171,7 +177,11 @@ def gemm_cases(gen):
         # shape, for the speed-up on one card); else the wrapper's rule picks.
         ptrs = [t.data_ptr() for t in (a, b) + ((c,) if accumulate else ())]
         taken = route or gemm_route(dtype, K, N, ptrs)
-        return dict(name=f"{name} [{taken}]", route=taken, wrapper=gemm,
+        tag = taken
+        if taken == "cuda_core":  # the launch plan the wrapper will take
+            tile, vector = gemm_plan(nb, M, N, K, sm_count(0), ptrs, dtype)
+            tag += f", tile {tile}, {'vector' if vector else 'scalar'}"
+        return dict(name=f"{name} [{tag}]", route=taken, wrapper=gemm,
                     kernel=lambda: gemm(a, b, c, accumulate=accumulate, _route=route),
                     plain=lambda: gemm_ref(a, b, c, accumulate=accumulate), library=lib,
                     rtol=rtol, atol=atol, iters=iters,
@@ -200,6 +210,7 @@ def gemm_cases(gen):
         case("ragged 1000x333 @ 333x776 +C bf16", 0, 1000, 333, 776, bf16, True, BF16_RTOL, 20,
              atol=1e-3),
         case("ragged 1000x333 @ 333x777 +C f32", 0, 1000, 333, 777, f32, True, 1e-4, 20),
+        case("ragged 1000x332 @ 332x776 +C f32", 0, 1000, 332, 776, f32, True, 1e-4, 20),
     ]
 
 
@@ -356,6 +367,7 @@ def wkv_cases(gen):
         case(WKV_WAVE, f32, 1e-4, 3),
         case(WKV_RAGGED, f32, 1e-4, 3),
         case(WKV_STRONG, f32, 1e-4, 3, logw=-math.e ** 2),
+        case(WKV_HD32, bf16, BF16_RTOL, 3, atol=1e-3),
     ]
 
 
@@ -434,6 +446,25 @@ def print_ptxas(report: str):
             name = kernel_symbol(line.split("for ", 1)[1].strip())
         elif "registers" in line or "spill" in line or "Potential" in line:
             print(f"    {name}: {line.split(':', 1)[-1].strip()}")
+
+
+def cuda_core_spills(report: str) -> dict:
+    """Registers and spill bytes (stores + loads) of each instantiation of
+    the CUDA-core ``gemm`` and ``wkv`` kernels, from ptxas's report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            mangled = line.split("for ", 1)[1].strip()
+            name = next((k for k in ("gemm_kernel", "wkv_kernel") if k + "I" in mangled), None)
+            if name:  # the kernel's name and its template arguments as mangled
+                args = mangled.split(name, 1)[1]
+                name += f"[{args[1:args.find('EE') + 1]}]"
+        elif name and "spill" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out.setdefault(name, {})["spill_bytes"] = sum(nums[1:3])
+        elif name and "Used" in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(line.split("Used", 1)[1].split()[0])
+    return out
 
 
 def tensor_core_sass(lib) -> dict:
@@ -819,6 +850,9 @@ def main(argv=None) -> int:
     path, secs, report = _build.build()
     print(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s")
     print_ptxas(report)
+    spills = cuda_core_spills(report)
+    print(f"  CUDA-core gemm and wkv kernels (registers, spill bytes; 0 spills expected): "
+          f"{spills}")
     _build.library()
     hgmma = tensor_core_sass(path)
     print(f"  HGMMA instructions in the SASS: {hgmma}")
@@ -834,6 +868,10 @@ def main(argv=None) -> int:
     lsb_and_barrier()
     flash_rows = [run_case(cs) for cs in flash_cases(gen)]
     rglru_rows = [run_case(cs) for cs in rglru_cases(gen)]
+    from repro_torch.kernels.rwkv6 import wkv_launch_info
+    for dtype, hd in ((torch.bfloat16, 64), (torch.float32, 64), (torch.bfloat16, 32)):
+        print(f"  wkv launch at hd {hd} {str(dtype).split('.')[-1]}: "
+              f"{wkv_launch_info(dtype, hd)}")
     wkv_rows = [run_case(cs) for cs in wkv_cases(gen)]
     torch.cuda.empty_cache()
 

@@ -34,13 +34,14 @@ LIB_NAME = "libreprokernels.so"
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype is int = cudaError_t).
 SIGNATURES = {
-    "repro_gemm": (P, P, P, P, I, I, I, I, I, L, L, L, L, P),
+    "repro_gemm": (P, P, P, P, I, I, I, I, I, L, L, L, L, I, I, P),
     "repro_gemm_wgmma": (P, P, P, P, I, I, I, I, P),
     "repro_reduce_nway": (P, P, I, I, L, I, L, P),
     "repro_flash_attention": (P, P, P, P, I, I, I, I, I, P),
     "repro_flash_attention_wgmma": (P, P, P, P, I, I, I, I, P),
     "repro_rglru_scan": (P, P, P, I, I, I, I, P),
     "repro_wkv": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "repro_wkv_info": (I, I, P, P, P),
 }
 
 

@@ -11,271 +11,503 @@
 // is written in r's type.
 //
 // Replaces src/repro/kernels/rwkv6.py:wkv (_wkv_kernel): the same chunked
-// form, per chunk of C = 64 tokens an intra-chunk masked (C x C) term, the
-// r . state term and the diagonal bonus, with the state carried in f32.
+// form, per chunk of C = 64 tokens an intra-chunk masked (C x C) matrix P
+// with the bonus on its diagonal, the r . state term and the state update.
 //
 // Numerics.  The TPU kernel and the reference model form k * exp(-cum),
 // which overflows f32 inside the model's own decay range (logw down to
-// -e^2: 64 tokens of it is exp(473)).  Here every decay is a difference of
-// cumulative log-decays that is <= 0: exp(cum_{t-1} - cum_s) for s < t,
-// exp(cum_{t-1}) on r, and exp(cum_last - cum_s) on k.  The cumulative
-// sums are f32 sums of non-positive terms, so they are non-increasing and
-// each difference is <= 0 as rounded; exponents are taken base 2 on sums
-// scaled by log2(e).
+// -e^2: 64 tokens of it is exp(473)).  Here every exponent is a difference
+// of cumulative log-decays (base 2) that is <= 0, clamped with fminf(., 0)
+// where a scan order could break monotonicity by an ulp.  With x_t the
+// cumulative decay before token t and c_s the one through token s, P's
+// entry for a key s < t is sum_i r_ti k_si exp2(x_ti - c_si).  Its tokens
+// fall in sub-chunks of L = 16; for a key in an earlier sub-chunk than t's,
+// whose start is ``ref``,
+//
+//   exp2(x_t - c_s) = exp2(x_t - x_ref) * exp2(x_ref - c_s),
+//
+// both factors <= 0 in the exponent: r decayed once per token to its
+// sub-chunk's start (rq), k once per (key, later sub-chunk) (kq), and the
+// off-diagonal sub-blocks of P are plain f32 products rq . kq.  Only the
+// diagonal sub-blocks keep the pairwise exp2.  At HD = 64 a chunk takes
+// 41 K exponentials for P (over the whole cluster) and 8 K in each block for
+// its decayed r and k, 74 K in all, instead of 262 K.
 //
 // Bound: operations.  Per chunk of n tokens, 2 * HD flops per live (t, s)
-// pair s <= t for the decayed r . k products and 2 * HD more for P @ V,
-// and 2 * HD^2 per token each for r . state and the state update, on the f32
-// CUDA cores (the decays are f32, so bf16 tensor cores would round them).
+// pair s <= t for r . k and 2 * HD more for P @ V, and 2 * HD^2 per token
+// each for r . state and the state update, on the f32 CUDA cores (the
+// decays are f32: tensor cores in TF32 or bf16 would round them).
 //
-// Design.  The TPU kernel walks the chunks as a sequential grid axis and
-// carries the state in VMEM.  Here one block of 256 threads owns one
-// (b, h) and loops over the chunks inside the block, with the state in
-// shared memory.  Each chunk is staged in shared memory in f32 (r and the
-// exclusive cumulative decay transposed, [i][t]; k, the inclusive
-// cumulative decay and v as [t][i]), reading the (B, S, H, HD) layout in
-// place, with no transpose around the kernel.  Then: the cumulative sums
-// (one thread per key channel) and the bonus diagonal; the masked (C x C)
-// matrix P[s][t] = sum_i r_ti k_si exp2(x_ti - c_si), one thread per query
-// t over 16 keys s, the keys' k and c read as warp-wide broadcasts, with
-// the bonus on the diagonal; r and k are decayed in place; out = r' St +
-// P^T v in 4 x 4 register tiles; and St <- exp(A) St + k'^T v.  A ragged
-// last chunk is padded with zeros (logw 0), so S need not be a multiple of
-// C: the TPU's S % chunk assert is not kept.  HD is 16, 32 or 64 (122 KB
-// of shared memory at 64).
+// Design.  out[:, j] and the state's column j depend only on v[:, j], so a
+// block of 128 threads owns (b, h, 16 value columns): its (HD x 16) slice of
+// the state, in shared memory, and of out; HD / 16 blocks per (b, h) form a
+// thread-block cluster.  Each block stages the chunk by cp.async (16-byte
+// copies, reading the (B, S, H, HD) layout in place; a ragged last chunk is
+// zero-filled, logw 0: no decay).  Per chunk: the cumulative decays (each
+// thread holds a segment of tokens in registers, the segments joined by a
+// warp-shuffle scan); the rows of P for the query sub-chunks the block owns
+// (sub-chunk q belongs to rank q % (HD/16)), written to its own shared
+// memory; r and k decayed to the chunk's start and end; then two warps form
+// out = r' St + P^T v over 4x4 register tiles, after a cluster barrier,
+// reading P's rows from their owners through distributed shared memory,
+// while the other two issue the next chunk's copies (its inputs are
+// consumed) and form St <- exp(A) St + k'^T v into a second state buffer.
+// The flops of P are those of one P per (b, h).  A split cluster barrier
+// (arrive after the reads, wait before the next chunk's writes) keeps a
+// block from overwriting rows another still reads.  HD is 16, 32 or 64 (1,
+// 2 or 4 blocks a cluster); shared memory stays under 113 KB so that two
+// blocks fit on an SM.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int C = 64;          // tokens per chunk
-constexpr int CP = C + 4;      // row stride of the [i][t] and [s][t] arrays
-constexpr int THREADS = 256;
-constexpr int KEYS = 16;       // keys per thread in the P pass
+constexpr int C = 64;           // tokens per chunk
+constexpr int L = 16;           // tokens per sub-chunk
+constexpr int NSUB = C / L;
+constexpr int COLS = 16;        // value columns per block
+constexpr int THREADS = 128;
+constexpr int PS = C + 4;       // row stride of P
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ float ex2(float x) {  // 2^x, x <= 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  constexpr int HP = HD + 4;
-  // rT, xT [HD][CP]; kS, cS, vS [C][HP]; P [C][CP]; St [HD][HP]; u [HD]; diag [C]
-  return sizeof(float) * ((size_t)2 * HD * CP + (size_t)3 * C * HP + (size_t)C * CP +
-                          (size_t)HD * HP + HD + C);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !live.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool live) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(live ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+struct Layout {
+  static constexpr int G = HD / COLS;                          // blocks per (b, h)
+  static constexpr int RS = HD + 16 / (int)sizeof(T);          // raw r, k row stride
+  static constexpr int FS = HD + 4;                            // f32 [t][i] row stride
+  static constexpr int PROWS = C / G;                          // P rows a block owns
+  // element offsets, each a multiple of 16 bytes
+  static constexpr size_t rr = 0;                                       // T [C][RS]
+  static constexpr size_t rk = rr + (size_t)C * RS * sizeof(T);         // T [C][RS]
+  static constexpr size_t rv = rk + (size_t)C * RS * sizeof(T);         // T [C][COLS]
+  static constexpr size_t cw = rv + (size_t)C * COLS * sizeof(T);       // f32 [C][FS]
+  static constexpr size_t rp = cw + (size_t)C * FS * 4;                 // f32 [C][FS]
+  static constexpr size_t kp = rp + (size_t)C * FS * 4;                 // f32 [C][FS]
+  static constexpr size_t pw = kp + (size_t)C * FS * 4;                 // f32 [PROWS][PS]
+  static constexpr size_t vf = pw + (size_t)PROWS * PS * 4;             // f32 [C][COLS]
+  static constexpr size_t st = vf + (size_t)C * COLS * 4;               // f32 [2][HD][COLS]
+  static constexpr size_t us = st + (size_t)2 * HD * COLS * 4;         // f32 [HD]
+  static constexpr size_t dc = us + (size_t)HD * 4;                     // f32 [HD]
+  static constexpr size_t bytes = dc + (size_t)HD * 4;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS, 2)
 wkv_kernel(const T* __restrict__ R, const T* __restrict__ K, const T* __restrict__ V,
            const float* __restrict__ LW, const float* __restrict__ U,
            const float* __restrict__ S0, T* __restrict__ O, float* __restrict__ SOUT,
            int S, int H) {
-  static_assert(HD % 4 == 0 && HD + C <= THREADS, "HD must be a multiple of 4, at most 192");
-  static_assert(C == 4 * KEYS && THREADS == 8 * 32, "the P pass maps 8 warps on 64 x 64");
-  constexpr int HP = HD + 4;
-  constexpr int JT = HD / 4;  // 4-wide column tiles
-  extern __shared__ __align__(16) float smem[];
-  float* rT = smem;            // [HD][CP]  r, then r_t * exp(cum_{t-1})
-  float* xT = rT + HD * CP;    // [HD][CP]  cum_{t-1} * log2(e), exclusive
-  float* kS = xT + HD * CP;    // [C][HP]   k, then k_s * exp(A - cum_s)
-  float* cS = kS + C * HP;     // [C][HP]   logw, then cum_s * log2(e), inclusive
-  float* vS = cS + C * HP;     // [C][HP]
-  float* P = vS + C * HP;      // [C][CP]   P[s][t]
-  float* St = P + C * CP;      // [HD][HP]  state[i][j]
-  float* uS = St + HD * HP;    // [HD]
-  float* dg = uS + HD;         // [C]
+  using Ly = Layout<T, HD>;
+  constexpr int G = Ly::G, RS = Ly::RS, FS = Ly::FS;
+  constexpr int Q4 = HD / 4;                 // float4 quads per channel row
+  constexpr int NSEG = THREADS / HD;         // scan segments per channel
+  constexpr int SEG = C / NSEG;              // tokens per segment
+  static_assert(HD % COLS == 0 && G >= 1 && G <= NSUB && NSUB % G == 0, "HD in {16, 32, 64}");
+  static_assert(Ly::bytes <= 113 * 1024, "two blocks an SM");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* rr = reinterpret_cast<T*>(smem + Ly::rr);
+  T* rk = reinterpret_cast<T*>(smem + Ly::rk);
+  T* rv = reinterpret_cast<T*>(smem + Ly::rv);
+  float* cw = reinterpret_cast<float*>(smem + Ly::cw);  // logw, then cumulative (base 2)
+  float* rp = reinterpret_cast<float*>(smem + Ly::rp);  // rq, then r'
+  float* kp = reinterpret_cast<float*>(smem + Ly::kp);  // kq, then k'
+  float* pw = reinterpret_cast<float*>(smem + Ly::pw);  // the rows of P this block owns
+  float* vf = reinterpret_cast<float*>(smem + Ly::vf);
+  float* st = reinterpret_cast<float*>(smem + Ly::st);  // this chunk's state
+  float* sn = st + HD * COLS;                            // the next chunk's
+  float* us = reinterpret_cast<float*>(smem + Ly::us);
+  float* dc = reinterpret_cast<float*>(smem + Ly::dc);
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
+  const int g = G > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int bh = blockIdx.x / G;
   const int b = bh / H, h = bh % H;
   const long long tok = (long long)H * HD;  // elements between tokens
   const long long base = (long long)b * S * tok + (long long)h * HD;
+  const int j0g = g * COLS;                 // the block's first value column
 
-  for (int e = tid; e < HD; e += THREADS) uS[e] = U[h * HD + e];
-  for (int e = tid; e < HD * HD; e += THREADS)
-    St[(e / HD) * HP + e % HD] = S0 ? S0[(long long)bh * HD * HD + e] : 0.f;
+  for (int e = tid; e < HD; e += THREADS) us[e] = U[h * HD + e];
+  for (int e = tid; e < HD * COLS; e += THREADS) {
+    const int i = e / COLS, j = e % COLS;
+    st[e] = S0 ? S0[((long long)bh * HD + i) * HD + j0g + j] : 0.f;
+  }
+
+  // The copies of the chunk at t0, consecutive threads on consecutive 16-byte
+  // pieces of a token's row; rows past S are zero-filled.
+  auto stage = [&](int t0, int first, int stride) {
+    constexpr int RQ = HD * (int)sizeof(T) / 16;     // pieces of an r or k row
+    constexpr int WQ = HD / 4;                       // of a logw row
+    constexpr int VQ = COLS * (int)sizeof(T) / 16;   // of the block's v columns
+    constexpr int EP = 16 / (int)sizeof(T);          // elements a piece
+    auto row = [&](int t) {  // a dead row reads nothing: any valid address will do
+      return base + (long long)(t0 + t < S ? t0 + t : t0) * tok;
+    };
+    for (int e = first; e < C * RQ; e += stride) {
+      const int t = e / RQ, p = (e % RQ) * EP;
+      cp16(rr + t * RS + p, R + row(t) + p, t0 + t < S);
+      cp16(rk + t * RS + p, K + row(t) + p, t0 + t < S);
+    }
+    for (int e = first; e < C * WQ; e += stride) {
+      const int t = e / WQ, p = (e % WQ) * 4;
+      cp16(cw + t * FS + p, LW + row(t) + p, t0 + t < S);
+    }
+    for (int e = first; e < C * VQ; e += stride) {
+      const int t = e / VQ, p = (e % VQ) * EP;
+      cp16(rv + t * COLS + p, V + row(t) + j0g + p, t0 + t < S);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  if (S > 0) stage(0, tid, THREADS);
+  bool pending_b = false;  // a cluster arrive whose wait is still due
 
   for (int t0 = 0; t0 < S; t0 += C) {
     const int n = min(C, S - t0);
-
-    // 1. Stage the chunk; rows past n are zeros (logw 0: no decay).
-    for (int e = tid; e < C * HD; e += THREADS) {
-      const int t = e / HD, i = e % HD;
-      const bool live = t < n;
-      const long long g = base + (long long)(t0 + t) * tok + i;
-      rT[i * CP + t] = live ? to_f32(R[g]) : 0.f;
-      kS[t * HP + i] = live ? to_f32(K[g]) : 0.f;
-      vS[t * HP + i] = live ? to_f32(V[g]) : 0.f;
-      cS[t * HP + i] = live ? LW[g] : 0.f;
-    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
 
-    // 2. Cumulative log-decays, one thread per key channel; the bonus
-    //    diagonal r_t . (u * k_t), one thread per token.
-    if (tid < HD) {
-      float run = 0.f;
-      for (int t = 0; t < C; ++t) {
-        xT[tid * CP + t] = run * LOG2E;
-        run += cS[t * HP + tid];
-        cS[t * HP + tid] = run * LOG2E;
-      }
-    } else if (tid < HD + C) {
-      const int t = tid - HD;
-      float d = 0.f;
-      for (int i = 0; i < HD; ++i) d = fmaf(rT[i * CP + t], uS[i] * kS[t * HP + i], d);
-      dg[t] = d;
-    }
-    __syncthreads();
-
-    // 3. P[s][t] = sum_i r_ti k_si exp2(x_ti - c_si) for s < t, the bonus at
-    //    s = t, 0 above.  Warp w: queries t = 32 (w & 1) + lane, keys
-    //    s0 = 16 (w >> 1) .. s0 + 15.
+    // 1. Cumulative log-decays in place, base 2: thread (i, segment) holds
+    //    SEG tokens in registers; the segment totals are joined by a shuffle
+    //    scan across the NSEG neighbouring lanes of channel i.
     {
-      const int warp = tid / 32, lane = tid % 32;
-      const int t = (warp & 1) * 32 + lane;
-      const int s0 = (warp >> 1) * KEYS;
-      float acc[KEYS];
+      const int seg = tid % NSEG, i = tid / NSEG;
+      float w[SEG];
+      float tot = 0.f;
 #pragma unroll
-      for (int q = 0; q < KEYS; ++q) acc[q] = 0.f;
-      if (s0 <= (warp & 1) * 32 + 31) {  // some lane of the warp has a live pair
-#pragma unroll 2
+      for (int u = 0; u < SEG; ++u) {
+        w[u] = cw[(seg * SEG + u) * FS + i] * LOG2E;
+        tot += w[u];
+      }
+      float incl = tot;
+#pragma unroll
+      for (int d = 1; d < NSEG; d <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, incl, d, NSEG);
+        if (seg >= d) incl += y;
+      }
+      float run = __shfl_up_sync(0xffffffffu, incl, 1, NSEG);
+      if (seg == 0) run = 0.f;
+#pragma unroll
+      for (int u = 0; u < SEG; ++u) {
+        run += w[u];
+        cw[(seg * SEG + u) * FS + i] = run;
+      }
+    }
+    __syncthreads();
+
+    // x_t: the cumulative decay before token t (0 at the chunk's start).
+    auto xrow = [&](int t, int i) -> float4 {
+      return t > 0 ? ld4(cw + (t - 1) * FS + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    };
+
+    // 2. The rows of P of the sub-chunks this block owns: P[t][s] for
+    //    s <= t < 16(q + 1), zeros above the diagonal.
+    for (int q = g; q < NSUB; q += G) {
+      const int tq = q * L;
+      // 2a. rq[t'] = r_t exp2(x_t - x_ref), kq[s] = k_s exp2(x_ref - c_s), s < tq.
+      for (int e = tid; e < L * Q4; e += THREADS) {
+        const int tl = e / Q4, i = (e % Q4) * 4;
+        const float4 xr = xrow(tq, i), xt = xrow(tq + tl, i), r4 = ld4(rr + (tq + tl) * RS + i);
+        st4(rp + tl * FS + i, make_float4(r4.x * ex2(fminf(xt.x - xr.x, 0.f)),
+                                          r4.y * ex2(fminf(xt.y - xr.y, 0.f)),
+                                          r4.z * ex2(fminf(xt.z - xr.z, 0.f)),
+                                          r4.w * ex2(fminf(xt.w - xr.w, 0.f))));
+      }
+      for (int e = tid; e < tq * Q4; e += THREADS) {
+        const int s = e / Q4, i = (e % Q4) * 4;
+        const float4 xr = xrow(tq, i), c4 = ld4(cw + s * FS + i), k4 = ld4(rk + s * RS + i);
+        st4(kp + s * FS + i, make_float4(k4.x * ex2(fminf(xr.x - c4.x, 0.f)),
+                                         k4.y * ex2(fminf(xr.y - c4.y, 0.f)),
+                                         k4.z * ex2(fminf(xr.z - c4.z, 0.f)),
+                                         k4.w * ex2(fminf(xr.w - c4.w, 0.f))));
+      }
+      __syncthreads();
+      if (G > 1 && pending_b) {  // every reader of the previous chunk's rows is done
+        cluster_wait();
+        pending_b = false;
+      }
+      // 2b. Thread (t' = tid % 16, g' = tid / 16): the off-diagonal keys
+      //     s = g' + 8m < tq.
+      {
+        const int tl = tid % L, cgp = tid / L;
+        const int t = tq + tl;
+        float* prow = pw + ((q / G) * L + tl) * PS;
+        float acc[2 * (NSUB - 1)];
+#pragma unroll
+        for (int m = 0; m < 2 * (NSUB - 1); ++m) acc[m] = 0.f;
         for (int i = 0; i < HD; i += 4) {
-          float rv[4], xv[4];
+          const float4 a = ld4(rp + tl * FS + i);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            rv[q] = rT[(i + q) * CP + t];
-            xv[q] = xT[(i + q) * CP + t];
+          for (int m = 0; m < 2 * (NSUB - 1); ++m)
+            if (m < 2 * q) acc[m] = dot4(a, ld4(kp + (cgp + 8 * m) * FS + i), acc[m]);
+        }
+#pragma unroll
+        for (int m = 0; m < 2 * (NSUB - 1); ++m)
+          if (m < 2 * q) prow[cgp + 8 * m] = acc[m];
+      }
+      // The diagonal sub-block as a flat list: the 120 pairs s < t, each with
+      // the zero above the diagonal, then the 16 bonuses r_t . (u * k_t).
+      constexpr int PAIRS = L * (L - 1) / 2;
+      for (int w = tid; w < PAIRS + L; w += THREADS) {
+        int tl, sl;
+        if (w < PAIRS) {  // w = tl (tl - 1) / 2 + sl, sl < tl
+          tl = (int)((1.f + sqrtf(1.f + 8.f * w)) * 0.5f);
+          if (tl * (tl - 1) / 2 > w) --tl;
+          if (tl * (tl + 1) / 2 <= w) ++tl;
+          sl = w - tl * (tl - 1) / 2;
+        } else {
+          tl = sl = w - PAIRS;
+        }
+        const int t = tq + tl, s = tq + sl;
+        float d0 = 0.f, d1 = 0.f;  // two partial sums: a shorter chain
+        if (sl < tl) {  // sum_i r_ti k_si exp2(x_ti - c_si)
+#pragma unroll 4
+          for (int i = 0; i < HD; i += 4) {
+            const float4 r4 = ld4(rr + t * RS + i), xt = xrow(t, i);
+            const float4 k4 = ld4(rk + s * RS + i), c4 = ld4(cw + s * FS + i);
+            d0 = fmaf(r4.x * k4.x, ex2(fminf(xt.x - c4.x, 0.f)), d0);
+            d1 = fmaf(r4.y * k4.y, ex2(fminf(xt.y - c4.y, 0.f)), d1);
+            d0 = fmaf(r4.z * k4.z, ex2(fminf(xt.z - c4.z, 0.f)), d0);
+            d1 = fmaf(r4.w * k4.w, ex2(fminf(xt.w - c4.w, 0.f)), d1);
           }
-#pragma unroll
-          for (int q = 0; q < KEYS; ++q) {
-            const float4 k4 = *reinterpret_cast<const float4*>(&kS[(s0 + q) * HP + i]);
-            const float4 c4 = *reinterpret_cast<const float4*>(&cS[(s0 + q) * HP + i]);
-            // min(., 0) only matters above the diagonal, whose values are dropped
-            float a = acc[q];
-            a = fmaf(rv[0] * k4.x, exp2f(fminf(xv[0] - c4.x, 0.f)), a);
-            a = fmaf(rv[1] * k4.y, exp2f(fminf(xv[1] - c4.y, 0.f)), a);
-            a = fmaf(rv[2] * k4.z, exp2f(fminf(xv[2] - c4.z, 0.f)), a);
-            a = fmaf(rv[3] * k4.w, exp2f(fminf(xv[3] - c4.w, 0.f)), a);
-            acc[q] = a;
+          pw[((q / G) * L + sl) * PS + t] = 0.f;
+        } else {
+          for (int i = 0; i < HD; i += 4) {
+            const float4 r4 = ld4(rr + t * RS + i), k4 = ld4(rk + t * RS + i);
+            const float4 u4 = ld4(us + i);
+            d0 = fmaf(r4.x, u4.x * k4.x, d0);
+            d1 = fmaf(r4.y, u4.y * k4.y, d1);
+            d0 = fmaf(r4.z, u4.z * k4.z, d0);
+            d1 = fmaf(r4.w, u4.w * k4.w, d1);
           }
         }
+        pw[((q / G) * L + tl) * PS + s] = d0 + d1;
       }
-#pragma unroll
-      for (int q = 0; q < KEYS; ++q) {
-        const int s = s0 + q;
-        P[s * CP + t] = s < t ? acc[q] : (s == t ? dg[t] : 0.f);
-      }
+      __syncthreads();  // rq and kq are reused by the next owned sub-chunk and by step 3
     }
+    if (G > 1) cluster_arrive();  // this block's rows of P are written
+
+    // 3. r'_t = r_t exp2(x_t), k'_s = k_s exp2(c_last - c_s), v in f32, and
+    //    the chunk's decay exp2(c_last) of the state.
+    for (int e = tid; e < C * Q4; e += THREADS) {
+      const int t = e / Q4, i = (e % Q4) * 4;
+      const float4 xt = xrow(t, i), ct = ld4(cw + t * FS + i), cl = ld4(cw + (C - 1) * FS + i);
+      const float4 r4 = ld4(rr + t * RS + i), k4 = ld4(rk + t * RS + i);
+      st4(rp + t * FS + i, make_float4(r4.x * ex2(fminf(xt.x, 0.f)), r4.y * ex2(fminf(xt.y, 0.f)),
+                                       r4.z * ex2(fminf(xt.z, 0.f)), r4.w * ex2(fminf(xt.w, 0.f))));
+      st4(kp + t * FS + i, make_float4(k4.x * ex2(fminf(cl.x - ct.x, 0.f)),
+                                       k4.y * ex2(fminf(cl.y - ct.y, 0.f)),
+                                       k4.z * ex2(fminf(cl.z - ct.z, 0.f)),
+                                       k4.w * ex2(fminf(cl.w - ct.w, 0.f))));
+    }
+    for (int e = tid; e < C * COLS / 4; e += THREADS) st4(vf + e * 4, ld4(rv + e * 4));
+    for (int e = tid; e < HD; e += THREADS) dc[e] = ex2(fminf(cw[(C - 1) * FS + e], 0.f));
     __syncthreads();
 
-    // 4. Decay r and k in place: r_t * exp(cum_{t-1}), k_s * exp(A - cum_s).
-    for (int e = tid; e < HD * C; e += THREADS) {
-      const int i = e / C, t = e % C;
-      rT[i * CP + t] *= exp2f(xT[i * CP + t]);
-    }
-    for (int e = tid; e < C * HD; e += THREADS) {
-      const int s = e / HD, i = e % HD;
-      kS[s * HP + i] *= exp2f(fminf(cS[(C - 1) * HP + i] - cS[s * HP + i], 0.f));
-    }
-    __syncthreads();
-
-    // 5. out[t][j] = sum_i r'[t][i] St[i][j] + sum_{s <= t} P[s][t] v[s][j].
-    for (int tile = tid; tile < (C / 4) * JT; tile += THREADS) {
-      const int tl = (tile / JT) * 4, j0 = (tile % JT) * 4;
-      float o[4][4];
+    // 4. Two warps form out[t][j] = sum_i r'[t][i] St[i][j] + sum_{s <= t}
+    //    P[t][s] v[s][j] over 4x4 tiles (token quad, column quad), reading P's
+    //    rows from their owners; the other two, at the same time, the next
+    //    state St'[i][j] = exp2(c_last_i) St[i][j] + sum_s k'[s][i] v[s][j]
+    //    over 4x4 tiles (channel quad, column quad) into the other buffer,
+    //    after issuing the next chunk's copies.
+    if (tid < 64) {
+      if (G > 1) cluster_wait();  // every block's rows of P are written
+      const int ta = (tid / 4) * 4, jq = (tid % 4) * 4;
+      if (ta < n) {
+        float o[4][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) o[a][c] = 0.f;
+          for (int c = 0; c < 4; ++c) o[a][c] = 0.f;
+        auto mac = [&](const float4 (&x)[4], int row, const float* m) {
+          // o[a][:] += sum_w x[a].w-th * m[(row + w) * COLS + jq .. + 3]
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const float4 m4 = ld4(m + (row + w) * COLS + jq);
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              const float xa = w == 0 ? x[a].x : w == 1 ? x[a].y : w == 2 ? x[a].z : x[a].w;
+              o[a][0] = fmaf(xa, m4.x, o[a][0]);
+              o[a][1] = fmaf(xa, m4.y, o[a][1]);
+              o[a][2] = fmaf(xa, m4.z, o[a][2]);
+              o[a][3] = fmaf(xa, m4.w, o[a][3]);
+            }
+          }
+        };
+#pragma unroll 2
+        for (int i = 0; i < HD; i += 4) {
+          float4 x[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) x[a] = ld4(rp + (ta + a) * FS + i);
+          mac(x, i, st);
+        }
+        const int q = ta / L;
+        const float* prow = pw + ((q / G) * L + ta % L) * PS;
+        if constexpr (G > 1) prow = cg::this_cluster().map_shared_rank(prow, q % G);
+#pragma unroll 2
+        for (int s = 0; s < ta + 4; s += 4) {  // P is zero above the diagonal
+          float4 x[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) x[a] = ld4(prow + a * PS + s);
+          mac(x, s, vf);
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          if (ta + a < n)
+            st4(O + base + (long long)(t0 + ta + a) * tok + j0g + jq,
+                make_float4(o[a][0], o[a][1], o[a][2], o[a][3]));
+      }
+      if (G > 1) cluster_arrive();  // this block's reads of other blocks' rows are done
+    } else {
+      // The staging buffers are free: the next chunk's copies land during 4.
+      if (t0 + C < S) stage(t0 + C, tid - 64, THREADS - 64);
+      const int i0 = ((tid - 64) / 4) * 4, jq = (tid % 4) * 4;
+      if (i0 < HD) {
+        float a4[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float4 s4 = ld4(st + (i0 + a) * COLS + jq);
+          const float d = dc[i0 + a];
+          a4[a][0] = s4.x * d;
+          a4[a][1] = s4.y * d;
+          a4[a][2] = s4.z * d;
+          a4[a][3] = s4.w * d;
+        }
 #pragma unroll 4
-      for (int i = 0; i < HD; ++i) {
-        const float4 r4 = *reinterpret_cast<const float4*>(&rT[i * CP + tl]);
-        const float4 s4 = *reinterpret_cast<const float4*>(&St[i * HP + j0]);
-        const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+        for (int q = 0; q < n; ++q) {
+          const float4 k4 = ld4(kp + q * FS + i0), v4 = ld4(vf + q * COLS + jq);
+          const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            a4[a][0] = fmaf(kv[a], v4.x, a4[a][0]);
+            a4[a][1] = fmaf(kv[a], v4.y, a4[a][1]);
+            a4[a][2] = fmaf(kv[a], v4.z, a4[a][2]);
+            a4[a][3] = fmaf(kv[a], v4.w, a4[a][3]);
+          }
+        }
 #pragma unroll
         for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) o[a][c] = fmaf(rv[a], sv[c], o[a][c]);
+          st4(sn + (i0 + a) * COLS + jq, make_float4(a4[a][0], a4[a][1], a4[a][2], a4[a][3]));
       }
-      const int s_hi = min(tl + 3, n - 1);
-      for (int s = 0; s <= s_hi; ++s) {
-        const float4 p4 = *reinterpret_cast<const float4*>(&P[s * CP + tl]);
-        const float4 v4 = *reinterpret_cast<const float4*>(&vS[s * HP + j0]);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) o[a][c] = fmaf(pv[a], vv[c], o[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        if (tl + a >= n) continue;
-        T* dst = O + base + (long long)(t0 + tl + a) * tok + j0;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dst[c] = from_f32<T>(o[a][c]);
+      if (G > 1) {  // this block reads no other block's rows
+        cluster_wait();
+        cluster_arrive();
       }
     }
-    __syncthreads();  // St is read before it is updated
-
-    // 6. St[i][j] <- exp(A_i) St[i][j] + sum_s k'[s][i] v[s][j].
-    for (int tile = tid; tile < JT * JT; tile += THREADS) {
-      const int i0 = (tile / JT) * 4, j0 = (tile % JT) * 4;
-      float s[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float decay = exp2f(cS[(C - 1) * HP + i0 + a]);
-        const float4 s4 = *reinterpret_cast<const float4*>(&St[(i0 + a) * HP + j0]);
-        s[a][0] = s4.x * decay;
-        s[a][1] = s4.y * decay;
-        s[a][2] = s4.z * decay;
-        s[a][3] = s4.w * decay;
-      }
-      for (int q = 0; q < n; ++q) {
-        const float4 k4 = *reinterpret_cast<const float4*>(&kS[q * HP + i0]);
-        const float4 v4 = *reinterpret_cast<const float4*>(&vS[q * HP + j0]);
-        const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[a][c] = fmaf(kv[a], vv[c], s[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        *reinterpret_cast<float4*>(&St[(i0 + a) * HP + j0]) =
-            make_float4(s[a][0], s[a][1], s[a][2], s[a][3]);
+    pending_b = G > 1;
+    __syncthreads();  // the next state is written; this chunk's is no longer read
+    {
+      float* tmp = st;
+      st = sn;
+      sn = tmp;
     }
-    __syncthreads();  // the next chunk overwrites kS, vS, cS
   }
+  if (G > 1 && pending_b) cluster_wait();  // no block leaves while its P is read
+  __syncthreads();
 
-  for (int e = tid; e < HD * HD; e += THREADS)
-    SOUT[(long long)bh * HD * HD + e] = St[(e / HD) * HP + e % HD];
+  for (int e = tid; e < HD * COLS; e += THREADS) {
+    const int i = e / COLS, j = e % COLS;
+    SOUT[((long long)bh * HD + i) * HD + j0g + j] = st[e];
+  }
 }
 
 template <typename T, int HD>
 int launch(const void* r, const void* k, const void* v, const void* lw, const void* u,
            const void* s0, void* o, void* sout, int B, int S, int H, void* stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(wkv_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  using Ly = Layout<T, HD>;
+  auto kern = wkv_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Ly::bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * H;
+  const long long blocks = (long long)B * H * Ly::G;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  wkv_kernel<T, HD><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)r, (const T*)k, (const T*)v, (const float*)lw, (const float*)u,
-      (const float*)s0, (T*)o, (float*)sout, S, H);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = Ly::bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Ly::G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, (const T*)r, (const T*)k, (const T*)v, (const float*)lw,
+                           (const float*)u, (const float*)s0, (T*)o, (float*)sout, S, H);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int info(int* cluster, int* smem, int* active) {
+  using Ly = Layout<T, HD>;
+  auto kern = wkv_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Ly::bytes);
+  if (err != cudaSuccess) return (int)err;
+  *cluster = Ly::G;
+  *smem = (int)Ly::bytes;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Ly::G * 1024);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = Ly::bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Ly::G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(active, kern, &cfg);
 }
 
 template <typename T>
@@ -290,13 +522,23 @@ int dispatch(const void* r, const void* k, const void* v, const void* lw, const 
   }
 }
 
+template <typename T>
+int dispatch_info(int HD, int* cluster, int* smem, int* active) {
+  switch (HD) {
+    case 16: return info<T, 16>(cluster, smem, active);
+    case 32: return info<T, 32>(cluster, smem, active);
+    case 64: return info<T, 64>(cluster, smem, active);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype (of r, k, v, out): 0 = float32, 1 = bfloat16.  r, k, v, logw, out:
-// (B, S, H, HD) contiguous; u: (H, HD); state0 (or NULL for zeros) and
-// state_out: (B, H, HD, HD); logw, u and the states f32.  HD in {16, 32, 64}.
-// S may be 0: state_out is then state0.  Returns the cudaError_t of the
-// launch.
+// (B, S, H, HD) contiguous and 16-byte aligned; u: (H, HD); state0 (or NULL
+// for zeros) and state_out: (B, H, HD, HD); logw, u and the states f32.
+// HD in {16, 32, 64}.  S may be 0: state_out is then state0.  Returns the
+// cudaError_t of the launch.
 extern "C" int repro_wkv(const void* r, const void* k, const void* v, const void* logw,
                          const void* u, const void* state0, void* out, void* state_out,
                          int dtype, int B, int S, int H, int HD, void* stream) {
@@ -305,5 +547,14 @@ extern "C" int repro_wkv(const void* r, const void* k, const void* v, const void
                                          stream);
   if (dtype == 1) return dispatch<__nv_bfloat16>(r, k, v, logw, u, state0, out, state_out, B, S,
                                                  H, HD, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch of repro_wkv at (dtype, HD): blocks per cluster, dynamic shared
+// memory per block, and how many such clusters the card can hold at once
+// (cudaOccupancyMaxActiveClusters).  Returns a cudaError_t.
+extern "C" int repro_wkv_info(int dtype, int HD, int* cluster, int* smem, int* active) {
+  if (dtype == 0) return dispatch_info<float>(HD, cluster, smem, active);
+  if (dtype == 1) return dispatch_info<__nv_bfloat16>(HD, cluster, smem, active);
   return (int)cudaErrorInvalidValue;
 }

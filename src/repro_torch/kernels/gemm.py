@@ -12,11 +12,14 @@ shape and alignment:
   numbers are the reference's.  Bound: 2*M*N*K / 989 TFLOP/s per member on
   an H100 SXM.
 - ``cuda_core``, ``csrc/gemm.cu``: f32, and the bf16 shapes TMA cannot
-  address.  One thread block per 128x128 output tile, a K loop inside the
-  block through shared memory (in place of the TPU's sequential K grid axis
-  and VMEM accumulator), an 8x8 f32 register tile per thread.  It is bound
-  by FP32 FMAs on the CUDA cores, since the reference multiplies in f32
-  (TF32 would change the numbers): 2*M*N*K / 67 TFLOP/s per member.
+  address.  One 256-thread block per output tile (128x128 or 64x64, by
+  :func:`gemm_plan`), a K loop inside the block (in place of the TPU's
+  sequential K grid axis and VMEM accumulator) through two shared-memory
+  buffers with a register-staged prefetch of the next 16-deep tile, one
+  barrier per K step, and an 8x8 (or 4x4) f32 register tile per thread.
+  It is bound by FP32 FMAs on the CUDA cores, since the reference
+  multiplies in f32 (TF32 would round the operands): 2*M*N*K / 67 TFLOP/s
+  per member.
 
 Both add ``C_in`` in f32 in the epilogue and mask ragged M, N, K, so the
 TPU's divisibility assert is not kept; ``bm/bn/bk`` are accepted for the
@@ -27,6 +30,7 @@ all (the counterpart of ``vmap(gemm)``).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -51,6 +55,33 @@ def gemm_route(dtype, K: int, N: int, ptrs=()) -> str:
             and all(p % 16 == 0 for p in ptrs)):
         return "tensor_core"
     return "cuda_core"
+
+
+def gemm_plan(batch: int, M: int, N: int, K: int, sm_count: int, ptrs=(),
+              dtype=torch.float32) -> tuple[int, bool]:
+    """The CUDA-core kernel's launch plan: (tile, vector).
+
+    ``tile`` is 128 (128x128 output tiles) when ``batch * ceil(M/128) *
+    ceil(N/128)`` gives at least one block per SM (``sm_count``), else 64,
+    so that a small or ragged call (1000x777: 56 blocks of 128) spreads
+    over more SMs.  ``vector`` (16-byte loads of A and B, float4 stores) is
+    taken for float32 when K % 4 == 0, N % 4 == 0 and every address in
+    ``ptrs`` (the operands' and the output's ``data_ptr()``) is a multiple
+    of 16; otherwise the same kernel template loads scalars (K = 333,
+    N = 777, and bf16 on this route).  Both choose among instantiations
+    of one kernel: neither is a fallback.
+    """
+    tiles128 = batch * math.ceil(M / 128) * math.ceil(N / 128)
+    tile = 128 if tiles128 >= sm_count else 64
+    vector = (dtype == torch.float32 and K % 4 == 0 and N % 4 == 0
+              and all(p % 16 == 0 for p in ptrs))
+    return tile, vector
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
@@ -103,9 +134,10 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
             rc = _build.library().repro_gemm_wgmma(
                 a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), nb, M, N, K, stream)
         else:
+            tile, vector = gemm_plan(nb, M, N, K, sm_count(a.device.index), ptrs, a.dtype)
             rc = _build.library().repro_gemm(
                 a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), DTYPES[a.dtype], nb, M, N, K,
-                M * K, K * N, M * N, M * N, stream)
+                M * K, K * N, M * N, M * N, tile, int(vector), stream)
     _build.check(rc, f"gemm ({route})")
     gemm.launches += 1
     gemm.route_launches[route] += 1

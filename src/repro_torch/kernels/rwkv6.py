@@ -1,25 +1,34 @@
 """The RWKV-6 WKV: linear attention with a data-dependent decay.
 
 Replaces ``src/repro/kernels/rwkv6.py:wkv`` (``_wkv_kernel``).  The kernel
-is ``csrc/wkv.cu``: one block of 256 threads per (batch row, head) loops
-over chunks of 64 tokens (in place of the TPU's sequential chunk axis and
-its VMEM state), with the (hd x hd) f32 state in shared memory; per chunk
-it forms the masked (64 x 64) intra-chunk matrix with the bonus on its
-diagonal, the ``r . state`` term and the state update.  It is bound by
-operations on the f32 CUDA cores (the decays are f32): per chunk of n
-tokens, 4 * hd flops per live (query, key) pair and 4 * hd^2 per token.
+is ``csrc/wkv.cu``.  The value columns are independent, so a block of 128
+threads owns (batch row, head, 16 value columns) and its (hd x 16) slice of
+the f32 state; the hd / 16 blocks of one (batch row, head) run as a
+thread-block cluster.  They loop over chunks of 64 tokens (in place of the
+TPU's sequential chunk axis and its VMEM state), staging each chunk with
+``cp.async`` while the previous one computes.  Per chunk each block forms
+the rows of the masked (64 x 64) intra-chunk matrix P for the 16-token
+sub-chunks it owns, and reads the others' rows through distributed shared
+memory, so P's flops are those of one P per (batch row, head); the
+off-diagonal sub-blocks of P are plain products of r and k decayed to a
+sub-chunk's start, and only the diagonal ones take one exponential per
+(query, key, channel).  It is bound by operations on the f32 CUDA cores
+(the decays are f32): per chunk of n tokens, 4 * hd flops per live
+(query, key) pair and 4 * hd^2 per token.
 
 It reads the model's (B, S, H, hd) layout in place: no transpose around
 it.  Numbers: every product in f32, out cast to r's dtype, the final state
 f32.  Where the reference forms ``k * exp(-cum)``, which overflows f32
 inside the model's decay range (``logw`` down to ``-e^2``; ROADMAP.md queue
 3), the kernel takes every decay as ``exp`` of a difference of cumulative
-log-decays that is <= 0, so it stays finite and equal to the sequential
+log-decays clamped to <= 0, so it stays finite and equal to the sequential
 recurrence there.  The last chunk may be ragged: the reference's
 ``S % chunk == 0`` assert is not kept.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -62,6 +71,9 @@ def wkv(r, k, v, logw, u, state0=None):
         raise ValueError(f"wkv: head dim {hd} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in (r,) + operands):
         raise ValueError("wkv: operands must be contiguous")
+    # The kernel stages its operands by 16-byte copies: an operand that is a
+    # view at an unaligned offset is copied to a fresh (aligned) tensor.
+    r, k, v, logw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, logw))
     u32 = u.float().contiguous()
     out = torch.empty_like(r)
     state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
@@ -76,3 +88,14 @@ def wkv(r, k, v, logw, u, state0=None):
 
 
 wkv.launches = 0
+
+
+def wkv_launch_info(dtype, hd: int) -> dict:
+    """The kernel's launch at (dtype, hd) on the current card: blocks per
+    cluster, dynamic shared memory per block, and the clusters the card can
+    hold at once (``cudaOccupancyMaxActiveClusters``)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = _build.library().repro_wkv_info(DTYPES[dtype], hd,
+                                         *(ctypes.addressof(x) for x in vals))
+    _build.check(rc, "wkv launch info")
+    return dict(zip(("cluster", "smem_bytes", "max_active_clusters"), (x.value for x in vals)))

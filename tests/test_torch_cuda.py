@@ -64,6 +64,42 @@ def test_gemm_kernel_matches_plain_on_card(card, shape, dt, accumulate):
     assert (out.float() - ref.float()).abs().max().item() <= tol * scale
 
 
+# (B, M, K, N) f32 on each launch plan of the CUDA-core kernel: 128 tiles
+# (the SUMMA step; K = 333 with scalar loads), 64 tiles (ragged; N = 777
+# and K = 333 load scalars, 332 x 776 vectors), and an operand at an
+# address that is not 16-byte aligned.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,plan", [((16, 1024, 1024, 2752), (128, True)),
+                                        ((16, 1024, 333, 2752), (128, False)),
+                                        ((1, 1000, 332, 776), (64, True)),
+                                        ((1, 1000, 333, 777), (64, False)),
+                                        ((3, 200, 77, 130), (64, False))])
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gemm_f32_plans_match_plain_on_card(card, shape, plan, accumulate, aligned):
+    from repro_torch.kernels.gemm import gemm_plan, sm_count
+
+    B, M, K, N = shape
+    gen = torch.Generator(device=card).manual_seed(8)
+
+    def operand(*s):
+        x = torch.randn(*s, generator=gen, device=card)
+        if aligned:
+            return x
+        buf = torch.empty(x.numel() + 1, device=card)  # one float in: 4-byte aligned
+        return buf[1:].view(*s).copy_(x)
+
+    a, b, c = operand(B, M, K), operand(B, K, N), operand(B, M, N)
+    ptrs = [t.data_ptr() for t in (a, b, c)]
+    want = plan if aligned else (plan[0], False)
+    assert gemm_plan(B, M, N, K, sm_count(card.index or 0), ptrs) == want
+    out = gemm(a, b, c, accumulate=accumulate)
+    torch.cuda.synchronize()
+    ref = tref.gemm_ref(a, b, c, accumulate=accumulate)
+    scale = max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op,dtype", [("add", torch.float32), ("add", torch.bfloat16),
                                       ("add", torch.int32), ("max", torch.float32),
@@ -243,6 +279,59 @@ def test_wkv_kernel_matches_plain_on_card(card, shape, dt, with_state):
     assert (out.float() - ref.float()).abs().max().item() <= tol * scale
     sscale = max(1.0, ref_state.abs().max().item())
     assert (state - ref_state).abs().max().item() <= 1e-4 * sscale
+
+
+# Clusters of hd / 16 blocks: (b, h) counts that are not multiples of the
+# 132 SMs (135, 80, 35), ragged S, with and without state0.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(3, 300, 45, 64), (2, 1000, 40, 32), (5, 77, 7, 16)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv_clusters_match_plain_on_card(card, shape, dt, with_state):
+    B, S, H, hd = shape
+    r, k, v, lw, u = _wkv_inputs(card, B, S, H, hd, dt, seed=9)
+    s0 = (torch.randn(B, H, hd, hd, generator=torch.Generator(device=card).manual_seed(10),
+                      device=card) if with_state else None)
+    out, state = wkv(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    ref, ref_state = tref.wkv_ref(r, k, v, lw, u, s0)
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(state).all())
+    if dt == "f32":  # another summation order, relative to max(1, max|ref|)
+        scale = max(1.0, ref.abs().max().item())
+        assert (out - ref).abs().max().item() <= 1e-4 * scale
+    else:  # the same f32 result rounded once: one bf16 ulp, element by element
+        assert bool(((out.float() - ref.float()).abs()
+                     <= 2.0 ** -7 * ref.float().abs() + 1e-3).all())
+    sscale = max(1.0, ref_state.abs().max().item())
+    assert (state - ref_state).abs().max().item() <= 1e-4 * sscale
+
+
+@pytest.mark.cuda
+def test_wkv_unaligned_views_on_card(card):
+    """Operands at an offset that is not a multiple of 16 bytes are copied
+    to aligned tensors for the kernel's 16-byte staging: same numbers."""
+    B, S, H, hd = 2, 130, 3, 32
+    r, k, v, lw, u = _wkv_inputs(card, B, S, H, hd, "f32", seed=11)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=card)
+        return buf[1:].view(x.shape).copy_(x)
+
+    out, state = wkv(shifted(r), shifted(k), shifted(v), shifted(lw), u)
+    ref, ref_state = wkv(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(state, ref_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,cluster", [(16, 1), (32, 2), (64, 4)])
+def test_wkv_launch_info_on_card(card, hd, cluster):
+    from repro_torch.kernels.rwkv6 import wkv_launch_info
+
+    for dtype in (torch.float32, torch.bfloat16):
+        info = wkv_launch_info(dtype, hd)
+        assert info["cluster"] == cluster and info["max_active_clusters"] >= 1
+        assert info["smem_bytes"] <= 113 * 1024  # two blocks an SM
 
 
 @pytest.mark.cuda
