@@ -8,17 +8,19 @@ Phases, each of which raises on failure:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc``, print the build time and ptxas's
-   registers and spills (and a summary for the CUDA-core ``gemm`` and
-   ``wkv`` kernels, which should not spill), and count the HGMMA
-   instructions of the two tensor-core kernels in the library's SASS (none
-   fails);
+   registers and spills (and a summary for the CUDA-core ``gemm``, ``wkv``,
+   ``mma.sync`` flash and ``rglru_scan`` kernels; a spill in either of the
+   last two fails), and count the HGMMA instructions of the two wgmma
+   kernels and the HMMA instructions of the ``mma.sync`` flash kernel in
+   the library's SASS (none fails);
 2. hold every kernel against its plain PyTorch version on the card, at
    the shapes of the main paths, with times, a library call as yardstick,
    and the card's least time for the same work (``bound_ms``).  ``gemm``
-   and ``flash_attention`` have two routes each (tensor-core for bf16,
-   CUDA-core for the rest): every case names the route it must take, and
-   the 4096^3 bf16 gemm and the yi-6b bf16 flash wave also run through the
-   CUDA-core route, so that the speed-up is read on one card.  Each
+   has two routes (tensor-core for bf16, CUDA-core for the rest), and
+   ``flash_attention`` two (wgmma for bf16 at d 64-256, ``mma_sync`` for
+   the rest): every case names the route it must take, and the 4096^3
+   bf16 gemm and the yi-6b bf16 flash wave also run through the other
+   route, so that the speed-up is read on one card.  Each
    CUDA-core ``gemm`` case names its launch plan (``gemm_plan``: tile 128
    or 64, vector or scalar loads); ``wkv`` prints its cluster size, shared
    memory and resident clusters at head sizes 64 and 32;
@@ -35,7 +37,7 @@ Phases, each of which raises on failure:
    in bf16, ``Server.serve`` of 8 requests (prompts of 1536-2048 tokens, 4
    slots, 32 new tokens), twice, which must give in-vocab, equal tokens,
    with ``flash_attention`` launched 32 times per prefill, all on its
-   tensor-core route (the f32 checks take the CUDA-core route);
+   tensor-core route (the f32 checks take the ``mma_sync`` route);
 5. serve recurrentgemma-2b at full width and depth (26 layers) in the same
    way: f32 prefill logits through ``rglru_scan`` and ``flash_attention``
    against their plain versions, decode at 2600 after a prefill of 2600
@@ -72,6 +74,7 @@ import torch  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32 = 67e12        # FLOP/s, CUDA cores
+PEAK_TF32 = 494.7e12    # FLOP/s, tensor cores, TF32
 PEAK_BF16 = 989e12      # FLOP/s, tensor cores
 PEAK_BYTES = 3.35e12    # HBM bytes/s
 
@@ -157,6 +160,17 @@ def rel_err(out, ref) -> tuple[float, float]:
     return err, err / scale
 
 
+def product_bounds(ops: float, dtype, nbytes: float) -> dict:
+    """``bound`` of a product: bf16 at the bf16 tensor-core rate; f32, at f32
+    accuracy, at the least of the CUDA-core time and the 3xTF32 time (three
+    TF32 products each at the tensor-core rate), with the CUDA-core figure
+    beside it as ``bound_cuda_core``."""
+    if dtype == torch.bfloat16:
+        return {"bound": bound(ops, PEAK_BF16, nbytes)}
+    return {"bound": bound(ops, max(PEAK_F32, PEAK_TF32 / 3), nbytes),
+            "bound_cuda_core": bound(ops, PEAK_F32, nbytes)[0]}
+
+
 def gemm_cases(gen):
     from repro_torch.kernels.gemm import gemm_plan, gemm_route, sm_count
     from repro_torch.kernels.ref import gemm_ref
@@ -184,8 +198,7 @@ def gemm_cases(gen):
         return dict(name=f"{name} [{tag}]", route=taken, wrapper=gemm,
                     kernel=lambda: gemm(a, b, c, accumulate=accumulate, _route=route),
                     plain=lambda: gemm_ref(a, b, c, accumulate=accumulate), library=lib,
-                    rtol=rtol, atol=atol, iters=iters,
-                    bound=bound(ops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32, nbytes))
+                    rtol=rtol, atol=atol, iters=iters, **product_bounds(ops, dtype, nbytes))
 
     from repro_torch.kernels.ops import gemm
     f32, bf16 = torch.float32, torch.bfloat16
@@ -229,14 +242,19 @@ def reduce_cases(gen):
     xf = torch.randn(8, m, generator=gen, device=DEVICE)
     xb = torch.randn(8, m, generator=gen, device=DEVICE).to(torch.bfloat16)
     bits = (torch.rand(16, 1 << 20, generator=gen, device=DEVICE) < 0.95).to(torch.int32)
+    ints = torch.randint(-2 ** 31, 2 ** 31 - 1, (16, 1 << 20), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
     # f32 add: 8 terms, rounding ~8 * 2^-24; bf16 add: the f32 sums round to
-    # bf16, held element by element (BF16_RTOL); max and and are exact.
+    # bf16, held element by element (BF16_RTOL); max and and are exact (int32
+    # max over the whole int32 range: bit-exact, where an f32 running value
+    # would round every value above 2^24).
     return [
         case(f"add (8, {D_MODEL}*{TOKENS}) f32", xf, "add", 1e-5, lambda: torch.sum(xf, 0)),
         case(f"add (8, {D_MODEL}*{TOKENS}) bf16", xb, "add", BF16_RTOL,
              lambda: torch.sum(xb, 0), atol=1e-5),
         case(f"max (8, {D_MODEL}*{TOKENS}) f32", xf, "max", 0.0, lambda: torch.amax(xf, 0)),
         case("and (16, 2^20) int32", bits, "and", 0.0, None),
+        case("max (16, 2^20) int32", ints, "max", 0.0, lambda: torch.amax(ints, 0)),
     ]
 
 
@@ -272,23 +290,23 @@ def flash_cases(gen):
         return dict(name=name, route=taken, wrapper=flash_attention,
                     kernel=lambda: flash_attention(q, k, v, window=window, _route=route),
                     plain=lambda: flash_attention_ref(q, k, v, window=window), library=lib,
-                    rtol=rtol, atol=atol, iters=iters,
-                    bound=bound(ops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32,
-                                nbytes))
+                    rtol=rtol, atol=atol, iters=iters, **product_bounds(ops, dtype, nbytes))
 
     f32, bf16 = torch.float32, torch.bfloat16
     bh = 4 * N_HEADS  # one wave of yi-6b: 4 sequences x 32 heads
     # f32: sums over keys and head dims in another order than the plain
-    # version's, with the online softmax's rescaling, ~1e-6 relative to
-    # max(1, max|ref|); bf16: element by element (BF16_RTOL).  Row i's output
-    # has a spread of ~sqrt(e / (i + 1)), ~0.04 at S = 2048, so dropping one
+    # version's, with the online softmax's rescaling, and 3xTF32 products
+    # (~2^-21 relative each), ~1e-6 relative to max(1, max|ref|); bf16:
+    # element by element (BF16_RTOL).  Row i's output has a spread of
+    # ~sqrt(e / (i + 1)), ~0.04 at S = 2048, so dropping one
     # 64-key tile, or starting the window a tile late, moves it by ~0.01: far
     # above either limit.  The gemma3 local layer runs in both types, so that
     # the window's tile skip at d = 256 is held at the f32 limit too.
     return [
         case(bh, WAVE, HEAD_DIM, 0, bf16, BF16_RTOL, 20, atol=1e-5),
-        case(bh, WAVE, HEAD_DIM, 0, bf16, BF16_RTOL, 5, atol=1e-5, route="cuda_core"),
-        case(bh, WAVE, HEAD_DIM, 0, f32, 1e-4, 5),
+        case(bh, WAVE, HEAD_DIM, 0, f32, 1e-4, 5),  # phases 4-5's f32 checks: mma_sync's first
+        case(bh, WAVE, HEAD_DIM, 0, bf16, BF16_RTOL, 5, atol=1e-5, route="mma_sync"),
+        case(bh, WAVE, 32, 0, bf16, BF16_RTOL, 10, atol=1e-5),
         case(*HYBRID_WAVE, bf16, BF16_RTOL, 20, atol=1e-5),
         case(*GEMMA_LOCAL, bf16, BF16_RTOL, 10, atol=1e-5),
         case(*GEMMA_LOCAL, f32, 1e-4, 3),
@@ -311,11 +329,11 @@ def rglru_cases(gen):
                     bound=bound(2.0 * n, PEAK_F32, 3 * n * a.element_size()))
 
     f32, bf16 = torch.float32, torch.bfloat16
-    # f32: the same products and sums associated otherwise (segments of 8
-    # steps folded together), ~1e-6 relative to max(1, max|ref|); bf16: the
-    # f32 result rounded once, element by element (BF16_RTOL), the atol above
-    # that f32 difference near zero.  A dropped or misplaced carry between
-    # chunks moves a long-memory channel by O(1).
+    # f32: the same products and sums associated otherwise (runs of 8 steps
+    # and segments of 128 composed by the look-back), ~1e-6 relative to
+    # max(1, max|ref|); bf16: the f32 result rounded once, element by element
+    # (BF16_RTOL), the atol above that f32 difference near zero.  A dropped
+    # or misplaced carry between segments moves a long-memory channel by O(1).
     return [
         case(RGLRU_WAVE, f32, 1e-4, 20),
         case(RGLRU_WAVE, bf16, BF16_RTOL, 20, atol=1e-4),
@@ -412,6 +430,8 @@ def run_case(cs) -> dict:
                plain_ms=time_ms(cs["plain"], cs["iters"]),
                library_ms=time_ms(cs["library"], cs["iters"]) if cs["library"] else None,
                bound_ms=bound_ms, bound_by=bound_by)
+    if "bound_cuda_core" in cs:  # an f32 product: its CUDA-core bound beside
+        row["bound_cuda_core_ms"] = cs["bound_cuda_core"]
     print(f"  {row['case']}: max_abs_err {err:.3e} ({ratio:.3f} of {limit}) "
           f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} library "
           f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
@@ -448,14 +468,17 @@ def print_ptxas(report: str):
             print(f"    {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def cuda_core_spills(report: str) -> dict:
+SPILL_CHECKED = ("gemm_kernel", "wkv_kernel", "flash_mma_kernel", "rglru_kernel")
+
+
+def kernel_spills(report: str) -> dict:
     """Registers and spill bytes (stores + loads) of each instantiation of
-    the CUDA-core ``gemm`` and ``wkv`` kernels, from ptxas's report."""
+    the kernels in ``SPILL_CHECKED``, from ptxas's report."""
     out, name = {}, None
     for line in report.splitlines():
         if "Function properties for" in line:
             mangled = line.split("for ", 1)[1].strip()
-            name = next((k for k in ("gemm_kernel", "wkv_kernel") if k + "I" in mangled), None)
+            name = next((k for k in SPILL_CHECKED if k + "I" in mangled), None)
             if name:  # the kernel's name and its template arguments as mangled
                 args = mangled.split(name, 1)[1]
                 name += f"[{args[1:args.find('EE') + 1]}]"
@@ -468,33 +491,38 @@ def cuda_core_spills(report: str) -> dict:
 
 
 def tensor_core_sass(lib) -> dict:
-    """HGMMA instructions in the SASS of each tensor-core kernel of ``lib``."""
+    """Tensor-core instructions in the SASS of ``lib``: HGMMA (wgmma) in the
+    two wgmma kernels, HMMA (mma.sync) in the mma.sync flash kernel, summed
+    over each kernel's instantiations."""
     from repro_torch.kernels import _build
 
     exe = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(exe), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    counts = {"gemm_wgmma_kernel": 0, "flash_wgmma_kernel": 0}
+    ops = {"gemm_wgmma_kernel": "HGMMA", "flash_wgmma_kernel": "HGMMA",
+           "flash_mma_kernel": "HMMA"}
+    counts = dict.fromkeys(ops, 0)
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
             current = next((k for k in counts if k in line), None)
-        elif current and "HGMMA" in line:
+        elif current and ops[current] in line:
             counts[current] += 1
     return counts
 
 
 def speedups(gemm_rows, flash_rows):
-    """The tensor-core routes against the CUDA-core ones and the library,
-    at the shapes both routes ran in this run."""
+    """The tensor-core routes against the other ones and the library, at
+    the shapes both routes ran in this run."""
     for kind, rows in (("gemm", gemm_rows), ("flash_attention", flash_rows)):
         by_shape = {}
         for r in rows:
             by_shape.setdefault(r["case"].rsplit(" [", 1)[0], {})[r["route"]] = r
         for shape, pair in by_shape.items():
             if len(pair) == 2:
-                tc, cc = pair["tensor_core"], pair["cuda_core"]
-                print(f"  {kind} {shape}: tensor-core {tc['ms']:.4f} ms, CUDA-core "
+                tc = pair.pop("tensor_core")
+                (other, cc), = pair.items()
+                print(f"  {kind} {shape}: tensor-core {tc['ms']:.4f} ms, {other} "
                       f"{cc['ms']:.4f} ms ({cc['ms'] / tc['ms']:.2f}x faster), library "
                       f"{tc['library_ms']:.4f} ms ({tc['ms'] / tc['library_ms']:.2f}x its time)")
 
@@ -676,9 +704,9 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
               f"(ratio {err / scale:.3e} <= {SERVE_RTOL})", flush=True)
         out[key] = {"max_abs_err": err, "max_abs": scale}
 
-    # A kernel with two routes takes its CUDA-core one in f32 (these checks)
-    # and its tensor-core one in bf16 (the serve): each route's count is
-    # read after the part that drives it.
+    # flash_attention, the kernel with two routes, takes its mma_sync one in
+    # f32 (these checks) and its tensor-core one in bf16 (the serve): each
+    # route's count is read after the part that drives it.
     routed = {name: wrappers[name] for name in kernels
               if hasattr(wrappers[name], "route_launches")}
 
@@ -711,8 +739,8 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
     del model32, logits, dec, full
     f32_routes = {name: dict(w.route_launches) for name, w in routed.items()}
     for name, counts in f32_routes.items():
-        if counts["tensor_core"] or not counts["cuda_core"]:
-            fail(f"f32 checks launched {name} by route {counts}: f32 takes the CUDA-core route")
+        if counts["tensor_core"] or not counts["mma_sync"]:
+            fail(f"f32 checks launched {name} by route {counts}: f32 takes the mma_sync route")
     torch.cuda.empty_cache()
 
     # bf16 serving: 8 requests, two waves of ragged length, run twice.
@@ -773,7 +801,7 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
                  f"not {per} per prefill")
     serve_routes = {name: dict(w.route_launches) for name, w in routed.items()}
     for name, counts in serve_routes.items():
-        if counts != {"cuda_core": 0, "tensor_core": kernels[name] * n_prefills}:
+        if counts != {"mma_sync": 0, "tensor_core": kernels[name] * n_prefills}:
             fail(f"bf16 serve launched {name} by route {counts}, not "
                  f"{kernels[name]} tensor-core launches per prefill")
     print(f"  served twice, same tokens; launches {launches} ({n_prefills} prefills x "
@@ -850,14 +878,18 @@ def main(argv=None) -> int:
     path, secs, report = _build.build()
     print(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s")
     print_ptxas(report)
-    spills = cuda_core_spills(report)
-    print(f"  CUDA-core gemm and wkv kernels (registers, spill bytes; 0 spills expected): "
-          f"{spills}")
+    spills = kernel_spills(report)
+    print(f"  gemm, wkv, mma.sync flash and rglru_scan kernels (registers, spill bytes; "
+          f"0 spills expected): {spills}")
+    spilled = {k: v for k, v in spills.items() if k.startswith(("flash_mma", "rglru"))
+               and v.get("spill_bytes")}
+    if spilled:
+        fail(f"the flash or rglru_scan kernel spills: {spilled}")
     _build.library()
-    hgmma = tensor_core_sass(path)
-    print(f"  HGMMA instructions in the SASS: {hgmma}")
-    if not all(hgmma.values()):
-        fail(f"a tensor-core kernel issues no HGMMA: {hgmma}")
+    mma = tensor_core_sass(path)
+    print(f"  tensor-core instructions in the SASS (HGMMA, HMMA for flash_mma_kernel): {mma}")
+    if not all(mma.values()):
+        fail(f"a tensor-core kernel issues no HGMMA / HMMA: {mma}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
 
@@ -895,7 +927,7 @@ def main(argv=None) -> int:
 
     # 4-6. Serving yi-6b, recurrentgemma-2b and rwkv6-3b; only each one's
     # served requests' launches count, and each kernel's entry takes them from
-    # the first model that serves through it.  flash_attention's CUDA-core
+    # the first model that serves through it.  flash_attention's mma_sync
     # route counts the f32 checks of that phase, its tensor-core route the
     # bf16 serve.
     serving = {}
@@ -905,7 +937,7 @@ def main(argv=None) -> int:
             if name in served["route_launches"]:
                 f32_counts, bf16_counts = (served["f32_route_launches"][name],
                                            served["route_launches"][name])
-                launches.setdefault(name, f32_counts["cuda_core"])
+                launches.setdefault(name, f32_counts["mma_sync"])
                 launches.setdefault(name + "_wgmma", bf16_counts["tensor_core"])
             else:
                 launches.setdefault(name, n)
@@ -920,6 +952,7 @@ def main(argv=None) -> int:
                 "launches": launches[name], "max_abs_err": main_row["max_abs_err"],
                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                "bound_cuda_core_ms": main_row.get("bound_cuda_core_ms"),
                 "library_ms": main_row["library_ms"], "case": main_row["case"],
                 "cases": rows}
 
@@ -932,7 +965,7 @@ def main(argv=None) -> int:
         entry("reduce_nway", "src/repro_torch/kernels/csrc/reduce_nway.cu",
               "src/repro/kernels/reduce_nway.py:38", reduce_rows),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:67", flash_rows, "cuda_core"),
+              "src/repro/kernels/flash_attention.py:67", flash_rows, "mma_sync"),
         entry("flash_attention_wgmma", "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
               "src/repro/kernels/flash_attention.py:67", flash_rows, "tensor_core"),
         entry("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",

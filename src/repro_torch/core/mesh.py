@@ -14,7 +14,8 @@ enclosing ``with mesh:`` block:
   :func:`lift` broadcasts such a per-member value against a stacked tensor);
 * ``ppermute`` (an ``index_select`` along the axis' dim);
 * ``psum`` and ``psum_scatter`` (the ``reduce_nway`` kernel over the axis'
-  dim), ``all_gather``;
+  dim for float32 and bfloat16; other dtypes as ``jax.lax.psum`` sums
+  them, see :func:`axis_sum`), ``all_gather``;
 * ``take`` and ``put``: a per-member index into a local dim, in place of
   ``jnp.take`` / ``dynamic_slice`` / ``dynamic_update_slice`` with a
   traced index.
@@ -128,11 +129,31 @@ def ppermute(x: torch.Tensor, name: str, perm) -> torch.Tensor:
     return x.index_select(mesh.dim(name), index)
 
 
+def axis_sum(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x`` summed over its dim ``d`` as ``jax.lax.psum`` sums a mesh axis.
+
+    float32 and bfloat16 go through the ``reduce_nway`` kernel (the
+    reduction router), which sums in f32.  Integers are summed exactly in
+    an int64 accumulator and cast back, which wraps as psum's int32 adds
+    do.  float16 and float64 are added member by member in their own type,
+    in member order, as the reference's psum adds them.
+    """
+    if x.dtype in (torch.float32, torch.bfloat16):
+        return reduce_nway(x.contiguous(), op="add", dim=d)
+    if x.dtype in (torch.float16, torch.float64):
+        total = x.select(d, 0)
+        for i in range(1, x.shape[d]):
+            total = total + x.select(d, i)
+        return total
+    if x.dtype in (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64):
+        return x.sum(d, dtype=torch.int64).to(x.dtype)
+    raise TypeError(f"psum: unsupported dtype {x.dtype}")
+
+
 def psum(x: torch.Tensor, name: str) -> torch.Tensor:
-    """Sum over the axis (``reduce_nway`` add), replicated to every member."""
+    """Sum over the axis (:func:`axis_sum`), replicated to every member."""
     d = current().dim(name)
-    total = reduce_nway(x.contiguous(), op="add", dim=d)
-    return total.unsqueeze(d).expand(x.shape)
+    return axis_sum(x, d).unsqueeze(d).expand(x.shape)
 
 
 def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
@@ -142,7 +163,7 @@ def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor
     rows = x.shape[k]
     if rows % n:
         raise ValueError(f"psum_scatter: dim of size {rows} not divisible by {n}")
-    total = reduce_nway(x.contiguous(), op="add", dim=d)  # member dim 0 is now k-1
+    total = axis_sum(x, d)  # member dim 0 is now k-1
     parts = total.unflatten(k - 1, (n, rows // n)).movedim(k - 1, d)
     if tiled:
         return parts

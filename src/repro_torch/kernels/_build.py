@@ -32,17 +32,20 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libreprokernels.so"
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C signature of every exported function: (argtypes, restype is int = cudaError_t).
+# C signature of every exported function: argtypes; the restype is int (a
+# cudaError_t) unless RESTYPES names another.
 SIGNATURES = {
     "repro_gemm": (P, P, P, P, I, I, I, I, I, L, L, L, L, I, I, P),
     "repro_gemm_wgmma": (P, P, P, P, I, I, I, I, P),
     "repro_reduce_nway": (P, P, I, I, L, I, L, P),
     "repro_flash_attention": (P, P, P, P, I, I, I, I, I, P),
     "repro_flash_attention_wgmma": (P, P, P, P, I, I, I, I, P),
-    "repro_rglru_scan": (P, P, P, I, I, I, I, P),
+    "repro_rglru_scan": (P, P, P, I, I, I, I, P, L, ctypes.c_uint, P),
+    "repro_rglru_scan_scratch": (I, I, I, I),
     "repro_wkv": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
     "repro_wkv_info": (I, I, P, P, P),
 }
+RESTYPES = {"repro_rglru_scan_scratch": L}
 
 
 def nvcc() -> str:
@@ -121,7 +124,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -4,7 +4,8 @@
 // Replaces src/repro/kernels/reduce_nway.py:_reduce_kernel (the parallel
 // reduction router).  Ops, as in the reference:
 //   add  sums in f32 and casts back (f32, bf16 and int32 inputs);
-//   max  elementwise maximum, NaN-propagating (f32, bf16);
+//   max  elementwise maximum, NaN-propagating (f32, bf16); exact on int32,
+//        whose running value stays an int32 (f32 would round above 2^24);
 //   and  bitwise AND over int32 rows (the LsbAnd barrier).
 //
 // Bound: device-memory bytes, (n + 1) * outer * inner * itemsize.  Design:
@@ -18,6 +19,8 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -40,19 +43,23 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ int from_f32<int>(float x) { return __float2int_rz(x); }
 
-// The running value: f32 for add and max, the integer itself for and.
+// The running value: f32 for add and for float max, the integer itself for
+// and and for int32 max.
 template <typename T, int OP> struct Acc { using type = float; };
 template <> struct Acc<int, AND> { using type = int; };
+template <> struct Acc<int, MAX> { using type = int; };
 
 template <typename T, int OP>
 __device__ __forceinline__ typename Acc<T, OP>::type load_acc(T x) {
-  if constexpr (OP == AND) return x; else return to_f32(x);
+  if constexpr (std::is_same_v<typename Acc<T, OP>::type, T>) return x; else return to_f32(x);
 }
 
 template <typename T, int OP>
 __device__ __forceinline__ void combine(typename Acc<T, OP>::type& acc, T x) {
   if constexpr (OP == ADD) {
     acc += to_f32(x);
+  } else if constexpr (OP == MAX && std::is_same_v<T, int>) {
+    acc = max(acc, x);
   } else if constexpr (OP == MAX) {
     const float v = to_f32(x);
     acc = (v > acc || v != v) ? v : acc;
@@ -86,7 +93,8 @@ reduce_kernel(const T* __restrict__ x, T* __restrict__ out, long long outer,
     V r;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      if constexpr (OP == AND) r.v[j] = acc[j]; else r.v[j] = from_f32<T>(acc[j]);
+      if constexpr (std::is_same_v<typename Acc<T, OP>::type, T>) r.v[j] = acc[j];
+      else r.v[j] = from_f32<T>(acc[j]);
     }
     *reinterpret_cast<V*>(out + o * inner + e) = r;
   }
@@ -126,6 +134,7 @@ extern "C" int repro_reduce_nway(const void* x, void* out, int dtype, int op,
   if (dtype == 1 && op == ADD) return launch<__nv_bfloat16, ADD>(x, out, outer, n, inner, s);
   if (dtype == 1 && op == MAX) return launch<__nv_bfloat16, MAX>(x, out, outer, n, inner, s);
   if (dtype == 2 && op == ADD) return launch<int, ADD>(x, out, outer, n, inner, s);
+  if (dtype == 2 && op == MAX) return launch<int, MAX>(x, out, outer, n, inner, s);
   if (dtype == 2 && op == AND) return launch<int, AND>(x, out, outer, n, inner, s);
   return (int)cudaErrorInvalidValue;
 }

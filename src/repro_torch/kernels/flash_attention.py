@@ -13,14 +13,18 @@ chooses between them by dtype and head dim:
   P V as ``bf16(P) + bf16(P - bf16(P))``, two products that keep it at
   f32 accuracy.  Bound: 4 * d flops per live (query, key) pair at the
   bf16 tensor-core rate.
-- ``cuda_core``, ``csrc/flash_attention.cu``: f32, and bf16 at d in {16,
-  32}.  One block of 256 threads per tile of 64 queries loops over the
-  64-key tiles inside the block (in place of the TPU's sequential kv grid
-  axis and its VMEM scratch), with K and V tiles in shared memory and the
-  online softmax's f32 m / l / accumulator in registers.  Bound: 4 * d f32
-  multiply-adds per live pair on the CUDA cores, since the reference
-  multiplies in f32 (on an H100 SXM, 2 * d * BH * S * (S + 1) / 67 TFLOP/s
-  for a causal call).
+- ``mma_sync``, ``csrc/flash_attention.cu``: f32, and bf16 at d in {16,
+  32}, on warp-level tensor cores at f32 accuracy.  A block of 8 warps (4
+  at d = 256) owns 16 queries a warp and loops over 64-key tiles (32 at
+  d = 256) inside the block, in place of the TPU's sequential kv grid axis
+  and its VMEM scratch; K and V tiles arrive in their own buffers of a
+  two-stage ``cp.async`` ring.  S = Q K^T and O += P V are
+  ``mma.sync.m16n8k8`` TF32 products in f32 accumulators, each f32 operand
+  split into ``hi`` (x with its low 13 bits cleared) and ``lo = x - hi``
+  and each product taken as hi*hi + hi*lo + lo*hi (3xTF32); bf16 operands
+  are exact in TF32, so Q K^T is one product and P V two.  Bound: 4 * d
+  flops per live pair, the least of that at the f32 CUDA-core rate and
+  three times it at the TF32 tensor-core rate.
 
 Both visit only the kv tiles that hold a live key for some query of the
 block, so a sliding-window layer costs O(S * window).  The numbers are the
@@ -42,7 +46,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TENSOR_CORE_DIMS = (64, 128, 256)
-ROUTES = ("cuda_core", "tensor_core")
+ROUTES = ("mma_sync", "tensor_core")
 
 
 def flash_route(dtype, d: int, ptrs=()) -> str:
@@ -50,22 +54,24 @@ def flash_route(dtype, d: int, ptrs=()) -> str:
 
     ``tensor_core`` for bfloat16 at d in (64, 128, 256) when every address
     in ``ptrs`` (the operands' ``data_ptr()``) is a multiple of 16, as TMA
-    needs; ``cuda_core`` for float32 and for bfloat16 at d in (16, 32).
+    needs; ``mma_sync`` for float32 and for bfloat16 at d in (16, 32).
     """
     if dtype == torch.bfloat16 and d in TENSOR_CORE_DIMS and all(p % 16 == 0 for p in ptrs):
         return "tensor_core"
-    return "cuda_core"
+    return "mma_sync"
 
 
 def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
                     _route: str | None = None):
-    """Causal self-attention over (BH, S, d) q, k, v of one dtype.
+    """Causal self-attention over (BH, S, d) q, k, v; the output in q's dtype.
 
     ``window > 0`` keeps, for query i, only keys j with i - window < j <= i.
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    that :func:`flash_route` names, or raises.  ``_route`` forces one
-    route, for timing the two against each other on the card; a call
-    outside the forced route's rule raises.
+    Operands of mixed float dtypes are cast to float32 (exact from
+    bfloat16) and take the float32 route, as the reference casts each block
+    to f32 on load.  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel that :func:`flash_route` names, or raises.
+    ``_route`` forces one route, for timing the two against each other on
+    the card; a call outside the forced route's rule raises.
     """
     del bq, bkv  # the TPU's block shape; the CUDA kernel tiles itself
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -73,9 +79,12 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
                          f"v {tuple(v.shape)}; need three equal (BH, S, d)")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: operands lie on different devices")
-    if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in DTYPES:
+    if any(t.dtype not in DTYPES for t in (q, k, v)):
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
-                        "need one of float32, bfloat16 for all three")
+                        "need float32 or bfloat16 for all three")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        return flash_attention(q.float(), k.float(), v.float(), window=window,
+                               _route=_route).to(q.dtype)
     window = int(window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window)
@@ -86,6 +95,9 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: operands must be contiguous")
+    # Both kernels copy by 16 bytes: an operand that is a view at an
+    # unaligned offset is copied to a fresh (aligned) tensor.
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
     route = flash_route(q.dtype, d, ptrs)

@@ -88,10 +88,12 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
          accumulate: bool = False, _route: str | None = None):
     """C = A @ B (+ C_in if accumulate), over any equal leading batch dims.
 
-    a: (..., M, K), b: (..., K, N), c: (..., M, N), all of one dtype
-    (float32 or bfloat16).  Products and sums are f32; the result has
-    a's dtype.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel that :func:`gemm_route` names, or raises.
+    a: (..., M, K), b: (..., K, N), c: (..., M, N), each float32 or
+    bfloat16.  Products and sums are f32; the result has a's dtype.  Operands of mixed float dtypes are cast to float32 (exact
+    from bfloat16) and take the float32 route, as the reference casts each
+    block to f32 on load; the result is cast to a's dtype.  A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel that
+    :func:`gemm_route` names, or raises.
     ``_route`` forces one route, for timing the two against each other on
     the card; a shape outside the forced route's rule raises.
     """
@@ -109,9 +111,12 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
     tensors = (a, b) if c is None else (a, b, c)
     if any(t.device != a.device for t in tensors):
         raise ValueError("gemm: operands lie on different devices")
-    if any(t.dtype != a.dtype for t in tensors) or a.dtype not in DTYPES:
+    if any(t.dtype not in DTYPES for t in tensors):
         raise TypeError(f"gemm: dtypes {[t.dtype for t in tensors]}; "
-                        "need one of float32, bfloat16 for all operands")
+                        "need float32 or bfloat16 for every operand")
+    if any(t.dtype != a.dtype for t in tensors):
+        return gemm(*(t.float() for t in tensors), accumulate=c is not None,
+                    _route=_route).to(a.dtype)
     if a.device.type == "cpu":
         return gemm_ref(a, b, c, accumulate=c is not None)
     if a.device.type != "cuda":

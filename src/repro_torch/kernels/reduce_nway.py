@@ -7,8 +7,11 @@ which on an H100 SXM is that many bytes over 3.35 TB/s.  Each thread keeps
 16 bytes of the output in registers and streams the N inputs through them
 with coalesced 16-byte loads, so no byte is read twice.
 
-Ops follow the reference: ``add`` sums in f32 and casts back, ``max`` is
-elementwise, ``and`` is a bitwise AND over int32 rows (the LsbAnd barrier).
+Ops follow the reference: ``add`` sums in f32 and casts back (int32 too,
+as the Pallas kernel does), ``max`` is elementwise (exact on int32: the
+kernel keeps an int32 running value, not an f32 one), ``and`` is a bitwise
+AND over int32 rows (the LsbAnd barrier); bool rows are cast to int32,
+which is exact, and the result back to bool.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ from repro_torch.kernels.ref import reduce_nway_ref
 OPS = ("add", "max", "and")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 SUPPORTED = {"add": (torch.float32, torch.bfloat16, torch.int32),
-             "max": (torch.float32, torch.bfloat16),
-             "and": (torch.int32,)}
+             "max": (torch.float32, torch.bfloat16, torch.int32),
+             "and": (torch.int32, torch.bool)}
 
 
 def reduce_nway(x, *, op: str = "add", bs: int = 512, dim: int = 0):
@@ -44,6 +47,8 @@ def reduce_nway(x, *, op: str = "add", bs: int = 512, dim: int = 0):
     if x.ndim == 0 or x.shape[dim] == 0:
         raise ValueError(f"reduce_nway: nothing to reduce over dim {dim} of {tuple(x.shape)}")
     dim = dim % x.ndim
+    if x.dtype == torch.bool:
+        return reduce_nway(x.to(torch.int32), op=op, dim=dim).to(torch.bool)
     if x.device.type == "cpu":
         return reduce_nway_ref(x, op, dim)
     if x.device.type != "cuda":

@@ -1,13 +1,20 @@
 """The RG-LRU linear recurrence ``h_t = a_t h_{t-1} + b_t``.
 
 Replaces ``src/repro/kernels/rglru.py:rglru_scan`` (``_rglru_kernel``).  The
-kernel is ``csrc/rglru_scan.cu``: a block of 32 x 16 threads owns 32
-neighbouring channels of one batch row and loops over chunks of 128 steps
-(in place of the TPU's sequential chunk axis and its VMEM carry); each of
-its 16 rows scans 8 steps from registers, the rows' (prod a, h) pairs are
-combined in shared memory, and the chunk's end state is carried to the next
-chunk in f32.  It is bound by device-memory bytes: a and b read once and h
-written once (on an H100 SXM, 3 * B * S * W * itemsize over 3.35 TB/s).
+kernel is ``csrc/rglru_scan.cu``, a single-pass scan with decoupled
+look-back: every (batch row, tile of 8 channel vectors of 16 bytes,
+segment of 128 steps) is a block of its own, in place of the TPU's
+sequential chunk axis and its VMEM carry.  A block scans its segment,
+publishes the segment's (prod a, h) pair with a flag, walks back over the
+earlier segments' pairs until one has published its inclusive state, which
+gives its incoming state, publishes its own, and writes h.  It is bound by
+device-memory bytes: a and b read once and h written once (on an H100 SXM,
+3 * B * S * W * itemsize over 3.35 TB/s).
+
+The look-back's flags, pairs and ticket counters live in a scratch tensor
+kept per (card, stream) between calls (:func:`_scratch`): each call takes
+a new epoch, which its flags carry, so no flag is cleared per call, and
+the kernel's last block sets the counters back to 0.
 
 The numbers are the reference kernel's: the recurrence in f32 from
 ``h_{-1} = 0``, the output cast to ``a``'s dtype.  Steps past S are masked,
@@ -24,13 +31,32 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rglru_scan_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (card index, stream) -> [scratch tensor, last epoch].  Shared by every
+# caller on a stream: the stream orders their calls, and each call's epoch
+# keeps the flags of the others apart.
+_SCRATCH = {}
+
+
+def _scratch(device, stream: int, words: int):
+    """The look-back scratch for a call on ``stream``: (tensor, epoch).
+
+    The tensor is zeroed once, when it is made or grown; each call takes
+    the next epoch in [1, 2^30).
+    """
+    key = (device.index, stream)
+    st = _SCRATCH.get(key)
+    if st is None or st[0].numel() < words:
+        st = _SCRATCH[key] = [torch.zeros(words, dtype=torch.int32, device=device), 0]
+    st[1] = st[1] % ((1 << 30) - 1) + 1
+    return st[0], st[1]
 
 
 def rglru_scan(a, b, *, chunk: int = 128):
-    """(B, S, W) a and b of one dtype -> h (B, S, W) in that dtype.
+    """(B, S, W) a and b -> h (B, S, W) in a's dtype.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    a and b of mixed float dtypes are cast to float32 (exact from
+    bfloat16), as the reference casts both to f32 on load.  A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel or raises.
     """
     del chunk  # the TPU's chunk; the CUDA kernel tiles itself
     if a.ndim != 3 or b.shape != a.shape:
@@ -38,9 +64,11 @@ def rglru_scan(a, b, *, chunk: int = 128):
                          "need two equal (B, S, W)")
     if b.device != a.device:
         raise ValueError("rglru_scan: operands lie on different devices")
-    if b.dtype != a.dtype or a.dtype not in DTYPES:
+    if a.dtype not in DTYPES or b.dtype not in DTYPES:
         raise TypeError(f"rglru_scan: dtypes {a.dtype}, {b.dtype}; "
-                        "need one of float32, bfloat16 for both")
+                        "need float32 or bfloat16 for both")
+    if b.dtype != a.dtype:
+        return rglru_scan(a.float(), b.float()).to(a.dtype)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":
@@ -49,10 +77,13 @@ def rglru_scan(a, b, *, chunk: int = 128):
         raise ValueError("rglru_scan: operands must be contiguous")
     B, S, W = a.shape
     out = torch.empty_like(a)
+    dtype = DTYPES[a.dtype]
     with torch.cuda.device(a.device):
-        rc = _build.library().repro_rglru_scan(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), DTYPES[a.dtype], B, S, W,
-            torch.cuda.current_stream().cuda_stream)
+        lib = _build.library()
+        stream = torch.cuda.current_stream().cuda_stream
+        buf, epoch = _scratch(a.device, stream, lib.repro_rglru_scan_scratch(dtype, B, S, W))
+        rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(), out.data_ptr(), dtype, B, S, W,
+                                  buf.data_ptr(), buf.numel(), epoch, stream)
     _build.check(rc, "rglru_scan")
     rglru_scan.launches += 1
     return out

@@ -92,6 +92,60 @@ def test_barrier(schedule):
     np.testing.assert_array_equal(out.numpy(), np.full(N, N))
 
 
+def _native_input(kind, shape):
+    if kind == "int32_above_2^24":  # an f32 sum would round: 8 x (2^24 + 1) is not an f32
+        return np.full(shape, 2 ** 24 + 1, np.int32) + np.arange(
+            np.prod(shape), dtype=np.int32).reshape(shape) % 5
+    return (_randn(7, shape) * 100).astype(np.float16)  # each f16 add rounds
+
+
+@pytest.mark.parametrize("kind", ["int32_above_2^24", "float16"])
+@pytest.mark.parametrize("fn", ["all_reduce", "reduce_scatter"])
+def test_native_sums_other_dtypes_as_jax(fn, kind):
+    """psum sums int32 exactly (wrapping as int32 adds) and float16 member by
+    member in float16; the native schedules follow it bit for bit."""
+    x = _native_input(kind, (N, N * 2, 5))
+    out = _torch(lambda t: getattr(tsched, fn)(t, "x", schedule="native"), x)
+    ref = _jax(lambda v: getattr(jsched, fn)(v, "x", schedule="native"), x)
+    assert out.dtype == ref.dtype == x.dtype
+    np.testing.assert_array_equal(out, ref)
+    if kind != "float16":
+        total = x.astype(np.int64).sum(0)
+        want = np.broadcast_to(total, (N,) + total.shape) if fn == "all_reduce" \
+            else total.reshape(N, 2, 5)
+        np.testing.assert_array_equal(out, want)
+
+
+def test_native_all_reduce_of_2_24_plus_1_over_8():
+    x = np.full((N, 3), 2 ** 24 + 1, np.int32)
+    out = _torch(lambda t: tsched.all_reduce(t, "x"), x)
+    np.testing.assert_array_equal(out, np.full((N, 3), 134217736))
+    np.testing.assert_array_equal(out, _jax(lambda v: jsched.all_reduce(v, "x"), x))
+
+
+@pytest.mark.parametrize("n", [2, 8, 16])
+def test_native_barrier_counts_in_int32_as_jax(n):
+    with M.Mesh((n,), ("x",), device="cpu"):
+        out = tsched.barrier("x")
+        tree = tsched.barrier("x", schedule="tree")
+    ref = _jax(lambda _: jsched.barrier("x"), np.ones(n, np.float32))
+    assert out.dtype == torch.int32 and ref.dtype == np.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(tree.numpy(), ref)
+
+
+def test_native_all_reduce_float64_adds_in_order():
+    """float64 (which JAX without x64 does not hold) is added member by member
+    in float64, as psum adds float16."""
+    x = _randn(8, (N, 4, 3)).astype(np.float64) * 1e8 + _randn(9, (N, 4, 3))
+    out = _torch(lambda t: tsched.all_reduce(t, "x"), x)
+    want = x[0].copy()
+    for i in range(1, N):
+        want = want + x[i]
+    assert out.dtype == np.float64
+    np.testing.assert_array_equal(out, np.broadcast_to(want, x.shape))
+
+
 def test_collectives_on_one_axis_of_a_2d_mesh():
     """An axis other than the first: each column reduces on its own."""
     x = _randn(3, (2, 4, 3, 5))

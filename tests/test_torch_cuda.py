@@ -103,11 +103,17 @@ def test_gemm_f32_plans_match_plain_on_card(card, shape, plan, accumulate, align
 @pytest.mark.cuda
 @pytest.mark.parametrize("op,dtype", [("add", torch.float32), ("add", torch.bfloat16),
                                       ("add", torch.int32), ("max", torch.float32),
-                                      ("max", torch.bfloat16), ("and", torch.int32)])
+                                      ("max", torch.bfloat16), ("and", torch.int32),
+                                      ("max", torch.int32), ("and", torch.bool)])
 @pytest.mark.parametrize("shape,dim", [((5, 4096), 0), ((8, 1001), 0), ((3, 6, 7, 40), 1)])
 def test_reduce_kernel_matches_plain_on_card(card, op, dtype, shape, dim):
     gen = torch.Generator(device=card).manual_seed(1)
-    if dtype == torch.int32:
+    if dtype == torch.bool:
+        x = torch.rand(shape, generator=gen, device=card) < 0.8
+    elif op == "max" and dtype == torch.int32:  # the whole range: exact above 2^24
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen, device=card,
+                          dtype=torch.int32)
+    elif dtype == torch.int32:
         x = torch.randint(0, 2 if op == "and" else 100, shape, generator=gen,
                           device=card, dtype=torch.int32)
     else:
@@ -117,6 +123,10 @@ def test_reduce_kernel_matches_plain_on_card(card, op, dtype, shape, dim):
     torch.cuda.synchronize()
     assert reduce_nway.launches == before + 1 and out.is_cuda
     ref = tref.reduce_nway_ref(x, op, dim)
+    assert out.dtype == x.dtype
+    if dtype in (torch.int32, torch.bool) and op != "add":
+        assert torch.equal(out, ref)
+        return
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
@@ -152,7 +162,7 @@ def test_kernels_reject_non_contiguous_on_card(card):
 
 
 # bf16 at d in (64, 128, 256) takes the tensor-core route, f32 and d = 16
-# the CUDA-core one.
+# the mma_sync one.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
@@ -161,7 +171,7 @@ def test_kernels_reject_non_contiguous_on_card(card):
 def test_flash_kernel_matches_plain_on_card(card, d, S, window, dt):
     gen = torch.Generator(device=card).manual_seed(2)
     q, k, v = (torch.randn(3, S, d, generator=gen, device=card).to(TDT[dt]) for _ in range(3))
-    route = "tensor_core" if dt == "bf16" and d in (64, 128, 256) else "cuda_core"
+    route = "tensor_core" if dt == "bf16" and d in (64, 128, 256) else "mma_sync"
     before, routes = flash_attention.launches, dict(flash_attention.route_launches)
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
@@ -183,14 +193,72 @@ def test_flash_routes_agree_on_card(card, d, S, window):
                for _ in range(3))
     routes = dict(flash_attention.route_launches)
     fast = flash_attention(q, k, v, window=window)
-    slow = flash_attention(q, k, v, window=window, _route="cuda_core")
+    slow = flash_attention(q, k, v, window=window, _route="mma_sync")
     torch.cuda.synchronize()
-    assert _route_moved(flash_attention, routes) == {"cuda_core": 1, "tensor_core": 1}
+    assert _route_moved(flash_attention, routes) == {"mma_sync": 1, "tensor_core": 1}
     ref = tref.flash_attention_ref(q, k, v, window=window).float()
     for out in (fast, slow):
         assert bool(((out.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-5).all())
     with pytest.raises(ValueError):  # f32 is not the tensor-core route's
         flash_attention(q.float(), k.float(), v.float(), _route="tensor_core")
+
+
+# f32 at every head dim, held at the limit of chip_smoke.py (1e-4 of
+# max(1, max|ref|)): causal, windowed, ragged S, and operands at an address
+# that is not 16-byte aligned (copied for the kernel's 16-byte copies).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("S,window", [(1, 0), (130, 0), (300, 70), (1000, 0)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_flash_mma_f32_at_the_chip_limit_on_card(card, d, S, window, aligned):
+    gen = torch.Generator(device=card).manual_seed(12)
+
+    def operand():
+        x = torch.randn(2, S, d, generator=gen, device=card)
+        if aligned:
+            return x
+        buf = torch.empty(x.numel() + 1, device=card)
+        return buf[1:].view(x.shape).copy_(x)
+
+    q, k, v = operand(), operand(), operand()
+    out = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    ref = tref.flash_attention_ref(q, k, v, window=window)
+    scale = max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+# Mixed float dtypes take the f32 kernels and return the reference's dtype.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gemm", "flash_attention", "rglru_scan"])
+@pytest.mark.parametrize("first", ["f32", "bf16"])
+def test_mixed_dtype_wrappers_match_plain_on_card(card, kernel, first):
+    other = "bf16" if first == "f32" else "f32"
+    gen = torch.Generator(device=card).manual_seed(13)
+
+    def rand(*shape, dt):
+        return torch.randn(*shape, generator=gen, device=card).to(TDT[dt])
+
+    if kernel == "gemm":
+        a, b, c = rand(3, 200, 72, dt=first), rand(3, 72, 136, dt=first), rand(3, 200, 136,
+                                                                                dt=other)
+        out, ref = gemm(a, b, c, accumulate=True), tref.gemm_ref(a, b, c, accumulate=True)
+    elif kernel == "flash_attention":
+        q, k, v = rand(4, 300, 64, dt=first), rand(4, 300, 64, dt=other), rand(4, 300, 64,
+                                                                                dt=other)
+        out = flash_attention(q, k, v, window=100)
+        ref = tref.flash_attention_ref(q.float(), k.float(), v.float(), window=100)
+    else:
+        a = torch.sigmoid(2 * torch.randn(2, 257, 96, generator=gen, device=card)).to(TDT[first])
+        b = rand(2, 257, 96, dt=other)
+        out, ref = rglru_scan(a, b), tref.rglru_scan_ref(a.float(), b.float())
+    torch.cuda.synchronize()
+    assert out.dtype == TDT[first] and out.is_cuda
+    ref = ref.to(TDT[first]).float()
+    if first == "f32":  # another summation order, relative to max(1, max|ref|)
+        assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    else:  # the f32 result rounded once: one bf16 ulp, element by element
+        assert bool(((out.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-3).all())
 
 
 @pytest.mark.cuda
@@ -243,6 +311,22 @@ def test_rglru_kernel_matches_plain_on_card(card, shape, dt):
     tol = 1e-5 if dt == "f32" else 2e-2
     scale = max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_rglru_scratch_across_calls_on_card(card):
+    """The look-back's scratch is kept between calls (a new epoch each, the
+    counters back at 0 after each): shapes that grow and shrink, many calls
+    in a row and a long S (a deep look-back chain) give the plain numbers."""
+    gen = torch.Generator(device=card).manual_seed(14)
+    for shape in [(1, 300, 64), (4, 2048, 2560), (2, 130, 96), (1, 20000, 32)] * 2:
+        a = torch.sigmoid(4 + torch.randn(shape, generator=gen, device=card))
+        b = torch.randn(shape, generator=gen, device=card)
+        ref = tref.rglru_scan_ref(a, b)
+        for _ in range(3):
+            out = rglru_scan(a, b)
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
 
 
 def _wkv_inputs(card, B, S, H, hd, dt, logw=None, seed=4):

@@ -108,11 +108,25 @@ def test_gemm_ragged_shapes(mkn):
     np.testing.assert_allclose(out.numpy(), c + a @ b, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "inner", "batch", "c_shape", "int"])
+# Mixed float dtypes: the Pallas kernel casts every block to f32 on load and
+# returns a's dtype; the port casts to f32 and casts the result back.
+@pytest.mark.parametrize("dts", [("bf16", "bf16", "f32"), ("f32", "bf16", "bf16"),
+                                 ("bf16", "f32", "f32"), ("f32", "bf16", "f32")])
+def test_gemm_mixed_dtypes_match_pallas(dts):
+    (ja, ta), (jb, tb), (jc, tc) = (_both(_rand(70 + i, s), dt) for i, (s, dt) in
+                                    enumerate(zip(((32, 48), (48, 16), (32, 16)), dts)))
+    out = gemm(ta, tb, tc, accumulate=True)
+    pallas = jgemm(ja, jb, jc, bm=16, bn=16, bk=16, accumulate=True)
+    assert out.dtype == TDT[dts[0]] and pallas.dtype == JDT[dts[0]]
+    tol = TOL[dts[0]]
+    np.testing.assert_allclose(_np(out), _np(pallas), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bad", ["f16", "inner", "batch", "c_shape", "int"])
 def test_gemm_rejects_bad_operands(bad):
     a, b, c = torch.zeros(2, 4, 8), torch.zeros(2, 8, 3), torch.zeros(2, 4, 3)
-    if bad == "dtype":
-        b = b.to(torch.bfloat16)
+    if bad == "f16":
+        b = b.to(torch.float16)
     elif bad == "inner":
         b = torch.zeros(2, 7, 3)
     elif bad == "batch":
@@ -182,11 +196,38 @@ def test_reduce_nway_any_dim(op, dim):
     np.testing.assert_allclose(out.numpy(), expected, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("op,dtype", [("and", torch.float32), ("max", torch.int32),
-                                      ("add", torch.float64), ("mul", torch.float32)])
+@pytest.mark.parametrize("op,dtype", [("and", torch.float32), ("max", torch.int64),
+                                      ("add", torch.float64), ("mul", torch.float32),
+                                      ("add", torch.bool)])
 def test_reduce_nway_rejects_undefined_pairs(op, dtype):
     with pytest.raises((TypeError, ValueError)):
         reduce_nway(torch.zeros(4, 8, dtype=dtype), op=op)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_reduce_nway_int32_max_is_exact(dim):
+    """int32 max above 2^24, where an f32 running value would round: exact,
+    as the Pallas kernel's jnp.max is."""
+    x = np.array([[16777217, 16777219, -16777219, 7],
+                  [16777219, 16777217, -16777217, 2 ** 31 - 1],
+                  [3, 16777218, -2 ** 31, 5]], np.int32)
+    xt = np.ascontiguousarray(x if dim == 0 else x.T)
+    out = reduce_nway(torch.from_numpy(xt), op="max", dim=dim)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), [16777219, 16777219, -16777217, 2 ** 31 - 1])
+    if dim == 0:
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jreduce(jnp.asarray(x), op="max",
+                                                                      bs=4)))
+
+
+def test_reduce_nway_bool_and_matches_pallas():
+    x = np.random.default_rng(9).random((5, 256)) < 0.8
+    out = reduce_nway(torch.from_numpy(x), op="and")
+    assert out.dtype == torch.bool
+    ref = np.asarray(jreduce(jnp.asarray(x), op="and", bs=128))
+    assert ref.dtype == np.bool_
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(out.numpy(), x.all(0))
 
 
 def test_plain_oracles_match_jax_oracles():
@@ -252,11 +293,24 @@ def test_flash_attention_bf16_matches_jax_oracle():
                                rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "rank", "int"])
+@pytest.mark.parametrize("dts", [("f32", "bf16", "bf16"), ("bf16", "f32", "f32"),
+                                 ("f32", "f32", "bf16")])
+def test_flash_attention_mixed_dtypes_match_pallas(dts):
+    """The Pallas kernel casts q, k, v to f32 on load and returns q's dtype."""
+    (jq, tq), (jk, tk), (jv, tv) = (_both(t, dt) for t, dt in zip(_qkv_np(50, (2, 128, 32)),
+                                                                   dts))
+    out = flash_attention(tq, tk, tv, window=48)
+    pallas = jflash(jq, jk, jv, window=48, bq=64, bkv=64)
+    assert out.dtype == TDT[dts[0]] and pallas.dtype == JDT[dts[0]]
+    tol = 2e-4 if dts[0] == "f32" else 2e-2
+    np.testing.assert_allclose(_np(out), _np(pallas), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bad", ["f16", "shape", "rank", "int"])
 def test_flash_attention_rejects_bad_operands(bad):
     q = k = v = torch.zeros(2, 8, 16)
-    if bad == "dtype":
-        k = k.to(torch.bfloat16)
+    if bad == "f16":
+        k = k.to(torch.float16)
     elif bad == "shape":
         v = torch.zeros(2, 9, 16)
     elif bad == "rank":
@@ -319,11 +373,23 @@ def test_rglru_scan_bf16_matches_jax_oracle():
     np.testing.assert_allclose(_np(out), _np(jref.rglru_scan_ref(ja, jb)), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "rank", "int"])
+@pytest.mark.parametrize("dts", [("f32", "bf16"), ("bf16", "f32")])
+def test_rglru_scan_mixed_dtypes_match_pallas(dts):
+    """The Pallas kernel casts a and b to f32 on load and returns a's dtype."""
+    (ja, ta), (jb, tb) = _both(_decays(80, (2, 128, 16)), dts[0]), _both(_rand(81, (2, 128, 16)),
+                                                                        dts[1])
+    out = rglru_scan(ta, tb)
+    pallas = jrglru(ja, jb, chunk=64)
+    assert out.dtype == TDT[dts[0]] and pallas.dtype == JDT[dts[0]]
+    tol = 1e-4 if dts[0] == "f32" else 2e-2
+    np.testing.assert_allclose(_np(out), _np(pallas), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bad", ["f16", "shape", "rank", "int"])
 def test_rglru_scan_rejects_bad_operands(bad):
     a = b = torch.zeros(2, 8, 4)
-    if bad == "dtype":
-        b = b.to(torch.bfloat16)
+    if bad == "f16":
+        b = b.to(torch.float16)
     elif bad == "shape":
         b = torch.zeros(2, 9, 4)
     elif bad == "rank":

@@ -2,7 +2,8 @@
 
 ``gemm_route`` and ``flash_route`` are pure functions of dtype, shape and
 alignment that choose between the tensor-core kernels (``csrc/*_wgmma.cu``)
-and the CUDA-core ones; they are held here to their stated rules.
+and the others (the CUDA-core ``gemm.cu``, the ``mma.sync`` flash kernel);
+they are held here to their stated rules.
 
 The tensor-core flash kernel cannot run here, so its arithmetic is emulated
 in plain PyTorch (``wgmma_flash``): exact bf16 products summed in f32, the
@@ -52,13 +53,13 @@ def test_gemm_route(dtype, K, N, ptrs, route):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_route_by_dtype_and_head_dim(dtype, d):
-    want = "tensor_core" if dtype == torch.bfloat16 and d in (64, 128, 256) else "cuda_core"
+    want = "tensor_core" if dtype == torch.bfloat16 and d in (64, 128, 256) else "mma_sync"
     assert flash_route(dtype, d, (0, 16, 4096)) == want
 
 
 @pytest.mark.parametrize("ptrs", [(8, 0, 0, 0), (0, 0, 2, 0), (0, 0, 0, 24)])
 def test_flash_route_needs_16_byte_alignment(ptrs):
-    assert flash_route(torch.bfloat16, 128, ptrs) == "cuda_core"
+    assert flash_route(torch.bfloat16, 128, ptrs) == "mma_sync"
     assert flash_route(torch.bfloat16, 128, tuple(p * 16 for p in ptrs)) == "tensor_core"
 
 
