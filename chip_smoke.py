@@ -48,8 +48,23 @@ Phases, each of which raises on failure:
    f32 prefill logits through ``wkv`` against its plain version, decode at
    2048 against a prefill of 2049 (a ragged last chunk), then the bf16
    serve twice, with ``wkv`` launched 32 times per prefill;
-7. print the ``{"kernels": [...]}`` line, one entry per route of each
-   kernel, and, last, the ``{"ok": true, ...}`` line.
+7. train: each kernel's ``autograd.Function`` (``flash_attention`` in f32
+   on its ``mma_sync`` route and in bf16 on its wgmma route,
+   ``rglru_scan``, ``wkv``) against autograd through its plain version at
+   the training shapes, each output carrying a ``grad_fn`` and
+   ``rglru_scan``'s backward launching the kernel; the loss and every
+   parameter's gradient of qwen1.5-0.5b (2 layers), recurrentgemma-2b (3)
+   and rwkv6-3b (2) at full width in f32 through the kernels against the
+   plain versions; qwen1.5-0.5b at full width and depth (24 layers) in
+   bf16 through ``launch/train.py`` (12 steps of 4 x 2048 tokens: step
+   time, tokens/s, MFU, peak memory, the idle share of a profiled step,
+   ``flash_attention`` 48 launches a step on its wgmma route); a learning
+   gate (12 steps on one repeated batch lower the loss by a nat); exact
+   resume from a checkpoint (2 layers, f32); recurrentgemma-2b (6 layers)
+   and rwkv6-3b (4 layers) at full width in bf16, 6 steps each;
+8. print the ``{"training": ...}`` line, the ``{"kernels": [...]}`` line,
+   one entry per route of each kernel (with its gradient's method and
+   times where it has one), and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -62,6 +77,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -129,6 +145,38 @@ WKV_WAVE = (4, WAVE, 40, 64)
 WKV_RAGGED = (2, 1000, 40, 64)
 WKV_STRONG = (2, 1024, 40, 64)  # at the model's strongest decay, logw = -e^2
 WKV_HD32 = (4, WAVE, 80, 32)    # the same width in heads of 32 (clusters of 2)
+# Training (phase 7).  Kernel gradients at the training shapes: qwen1.5-0.5b's
+# attention over one batch (4 sequences x 16 heads of 64), the hybrid's scan
+# and rwkv6's wkv over 2 x 2048 tokens.  Tolerances: the reference tests'
+# (2e-4 flash f32, 2e-2 bf16, 1e-4 rglru, 2e-3 wkv) of max|g_plain|.
+GRAD_FLASH = (4 * 16, WAVE, 64)
+GRAD_RGLRU = (2, WAVE, 2560)
+GRAD_WKV = (2, WAVE, 40, 64)
+# Whole-model f32 gates at full width, depth cut: the loss and each gradient
+# leaf within TRAIN_RTOL of the plain versions' max|.| (the bound of the
+# serving f32 gates: a summation order per layer apart, a wrong block O(1)).
+GATE_TOKENS = (1, 1024)
+TRAIN_RTOL = 1e-3
+TRAIN_GATES = (("qwen1_5_0_5b", 2, ("flash_attention",)),
+               ("recurrentgemma_2b", 3, ("rglru_scan", "flash_attention")),
+               ("rwkv6_3b", 2, ("wkv",)))
+# qwen1.5-0.5b at full width and depth through launch/train.py in bf16; the
+# learning gate on one repeated batch; exact resume at 2 layers in f32.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, WAVE, 12
+LEARN_STEPS, LEARN_LR, LEARN_DROP = 12, 1e-3, 1.0
+RESUME_LAYERS, RESUME_TOKENS = 2, (2, 1024)
+# The recurrent families at full width, depth cut, in bf16, with each
+# kernel's launches a step: the hybrid's 6 layers are 4 recurrent (the scan
+# in the forward, the remat recompute and the backward) and 2 attention
+# (forward and recompute, wgmma route); rwkv6's 4 layers run wkv in the
+# forward and the recompute.
+RECURRENT_TOKENS, RECURRENT_STEPS = (2, WAVE), 6
+TRAIN_RECURRENT = (
+    dict(arch="recurrentgemma_2b", n_layers=6,
+         launches={"rglru_scan": 12, "rglru_scan[backward]": 4, "flash_attention": 4,
+                   "flash_attention[tensor_core]": 4}),
+    dict(arch="rwkv6_3b", n_layers=4, launches={"wkv": 8}),
+)
 
 
 def fail(msg: str):
@@ -353,8 +401,6 @@ def wkv_flops(B: int, S: int, H: int, hd: int) -> float:
 
 
 def wkv_cases(gen):
-    import math
-
     from repro_torch.kernels.ops import wkv
     from repro_torch.kernels.ref import wkv_ref
 
@@ -642,25 +688,23 @@ def main_path(gen) -> dict:
     return walls
 
 
-def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
-    """One model at full width and depth: the f32 checks, then the bf16
-    serve; returns its numbers.
+def model_kernels() -> dict:
+    """The kernel wrappers that the models call, by name."""
+    from repro_torch.kernels.ops import flash_attention, rglru_scan, wkv
 
-    ``kernels`` maps each kernel on the model's path to its launches per
-    prefill; ``gate`` is the decode gate's position.
-    """
+    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan, "wkv": wkv}
+
+
+@contextlib.contextmanager
+def plain_kernels(names):
+    """The models call the plain versions of the kernels ``names`` in place
+    of the kernels (differentiable, for the gradient gates too)."""
     from unittest import mock
 
-    import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ref as kref
-    from repro_torch.kernels.ops import flash_attention, rglru_scan, wkv
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import get_family
     from repro_torch.models import rglru as rglru_mod
     from repro_torch.models import rwkv6 as rwkv_mod
-    from repro_torch.runtime.server import Request, Server
-    from torch.profiler import ProfilerActivity, profile
 
     def plain_flash(q, k, v, *, window=0, **_):
         return kref.flash_attention_ref(q, k, v, window=window)
@@ -668,12 +712,29 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
     def plain_rglru(a, b, **_):
         return kref.rglru_scan_ref(a, b)
 
-    wrappers = {"flash_attention": flash_attention, "rglru_scan": rglru_scan, "wkv": wkv}
-    # where the models call each kernel, and its plain version for the f32 check
-    plains = {"flash_attention": (attn_mod, "flash_attention", plain_flash),
-              "rglru_scan": (rglru_mod, "rglru_scan", plain_rglru),
-              "wkv": (rwkv_mod, "wkv", kref.wkv_ref)}
+    where = {"flash_attention": (attn_mod, "flash_attention", plain_flash),
+             "rglru_scan": (rglru_mod, "rglru_scan", plain_rglru),
+             "wkv": (rwkv_mod, "wkv", kref.wkv_ref)}
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(mock.patch.object(*where[name]))
+        yield
 
+
+def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
+    """One model at full width and depth: the f32 checks, then the bf16
+    serve; returns its numbers.
+
+    ``kernels`` maps each kernel on the model's path to its launches per
+    prefill; ``gate`` is the decode gate's position.
+    """
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_family
+    from repro_torch.runtime.server import Request, Server
+    from torch.profiler import ProfilerActivity, profile
+
+    wrappers = model_kernels()
     cfg = get_config(arch)
     fam = get_family(cfg)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -722,9 +783,7 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
             if wrappers[name].launches - before[name] != per:
                 fail(f"f32 prefill launched {name} {wrappers[name].launches - before[name]} "
                      f"times, not {per}")
-        with contextlib.ExitStack() as stack:
-            for name in kernels:
-                stack.enter_context(mock.patch.object(*plains[name]))
+        with plain_kernels(kernels):
             plain_logits, _ = fam.prefill(model32, x[:, :WAVE], cfg32)
         check("prefill_f32", f"f32 prefill logits, {' + '.join(kernels)} vs plain, "
               f"{SLOTS} x {WAVE}", logits, plain_logits)
@@ -854,6 +913,430 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training
+# ---------------------------------------------------------------------------
+
+
+def grad_cases(gen):
+    """Each kernel's ``autograd.Function`` at the training shapes: name,
+    kernel, route, function, plain version, inputs, output gradients, tol
+    and how the backward computes."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.ops import flash_attention, rglru_scan, wkv
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    cases = []
+    for dtype, route, tol in ((torch.float32, "mma_sync", 2e-4),
+                              (torch.bfloat16, "tensor_core", 2e-2)):
+        qkv = [randn(*GRAD_FLASH, dtype=dtype) for _ in range(3)]
+        cases.append(dict(
+            name=f"flash_attention {GRAD_FLASH} {str(dtype).split('.')[-1]}",
+            kernel="flash_attention", route=route, fn=flash_attention,
+            plain=kref.flash_attention_ref, inputs=qkv,
+            grads=[randn(*GRAD_FLASH, dtype=dtype)], tol=tol,
+            grad="autograd through the plain version, slices of BH (kernels/flash_attention.py)"))
+    a = (torch.rand(GRAD_RGLRU, generator=gen, device=DEVICE) ** 0.1)
+    cases.append(dict(
+        name=f"rglru_scan {GRAD_RGLRU} f32", kernel="rglru_scan", route=None,
+        fn=rglru_scan, plain=kref.rglru_scan_ref, inputs=[a, randn(*GRAD_RGLRU)],
+        grads=[randn(*GRAD_RGLRU)], tol=1e-4,
+        grad="the kernel over reversed time (kernels/rglru.py)"))
+    B, S, H, hd = GRAD_WKV
+    # decay rates log-uniform over the model's whole range [-e^2, -e^-20]
+    logw = -torch.exp(torch.rand(GRAD_WKV, generator=gen, device=DEVICE) * 22 - 20)
+    logw = logw.clamp(min=-math.e ** 2)
+    cases.append(dict(
+        name=f"wkv {GRAD_WKV} f32, logw down to -e^2", kernel="wkv", route=None,
+        fn=wkv, plain=kref.wkv_ref,
+        inputs=[randn(*GRAD_WKV), randn(*GRAD_WKV), randn(*GRAD_WKV), logw,
+                0.5 * randn(H, hd), randn(B, H, hd, hd)],
+        grads=[randn(*GRAD_WKV), randn(B, H, hd, hd)], tol=2e-3,
+        grad="autograd through wkv_chunked_ref, 16-token chunks (kernels/ref.py)"))
+    return cases
+
+
+def launch_counts(wrappers) -> dict:
+    """Every launch counter of the kernels in ``wrappers``."""
+    out = {}
+    for name, w in wrappers.items():
+        out[name] = w.launches
+        for route, n in getattr(w, "route_launches", {}).items():
+            out[f"{name}[{route}]"] = n
+        if hasattr(w, "backward_launches"):
+            out[f"{name}[backward]"] = w.backward_launches
+    return out
+
+
+def zero_counts(wrappers):
+    """Set every launch counter of the kernels in ``wrappers`` to 0."""
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "route_launches"):
+            w.route_launches.update(dict.fromkeys(w.route_launches, 0))
+        if hasattr(w, "backward_launches"):
+            w.backward_launches = 0
+
+
+def moved(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def run_grad_case(cs) -> dict:
+    """The Function's gradients against autograd through the plain version:
+    max|g - g_plain| <= tol * max|g_plain| for every input."""
+    wrappers = model_kernels()
+    leaves = [t.detach().requires_grad_() for t in cs["inputs"]]
+    before = launch_counts(wrappers)
+    outs = cs["fn"](*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if any(o.grad_fn is None for o in outs):
+        fail(f"{cs['name']}: an output carries no grad_fn")
+    got = torch.autograd.grad(outs, leaves, cs["grads"], retain_graph=True)
+    torch.cuda.synchronize()
+    launched = moved(before, launch_counts(wrappers))
+    want_launches = {cs["kernel"]: 1}
+    if cs["route"]:
+        want_launches[f"{cs['kernel']}[{cs['route']}]"] = 1
+    if cs["kernel"] == "rglru_scan":  # the backward is the kernel once more
+        want_launches.update({"rglru_scan": 2, "rglru_scan[backward]": 1})
+    if launched != want_launches:
+        fail(f"{cs['name']}: forward and backward launched {launched}, not {want_launches}")
+    plain_leaves = [t.detach().requires_grad_() for t in cs["inputs"]]
+    plain_outs = cs["plain"](*plain_leaves)
+    plain_outs = plain_outs if isinstance(plain_outs, tuple) else (plain_outs,)
+    want = torch.autograd.grad(plain_outs, plain_leaves, cs["grads"], retain_graph=True)
+    ratios = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{cs['name']}: the gradient of input {i} is not finite")
+        err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+        ratios.append(err / (cs["tol"] * scale))
+        if not err <= cs["tol"] * scale:
+            fail(f"{cs['name']}: gradient of input {i} off by {err:.3e}, above "
+                 f"{cs['tol']} x max|g_plain| {scale:.3e}")
+    iters = 3 if cs["kernel"] != "flash_attention" else 5
+    row = dict(case=cs["name"], kernel=cs["kernel"], route=cs["route"], tol=cs["tol"],
+               grad=cs["grad"], max_ratio=max(ratios),
+               fwd_ms=time_ms(lambda: cs["fn"](*leaves), iters),
+               bwd_ms=time_ms(lambda: torch.autograd.grad(outs, leaves, cs["grads"],
+                                                          retain_graph=True), iters),
+               plain_fwd_ms=time_ms(lambda: cs["plain"](*plain_leaves), 1),
+               plain_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                   plain_outs, plain_leaves, cs["grads"], retain_graph=True), 1))
+    print(f"  {cs['name']}: gradients at {row['max_ratio']:.3f} of {cs['tol']} x max|g_plain|; "
+          f"forward {row['fwd_ms']:.3f} ms, backward {row['bwd_ms']:.3f} ms; plain forward "
+          f"{row['plain_fwd_ms']:.3f} ms, backward {row['plain_bwd_ms']:.3f} ms; "
+          f"launches {launched}", flush=True)
+    return row
+
+
+def model_grad_gate(seed: int, arch: str, depth: int, kernels) -> dict:
+    """One family at full width, ``depth`` layers, in f32: the loss and every
+    parameter's gradient through the kernels against the plain versions,
+    within TRAIN_RTOL of max|.| (of each leaf)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_family
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    fam = get_family(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = fam.init(gen, cfg, DEVICE, trainable=True)
+    tokens = torch.randint(0, cfg.vocab, (GATE_TOKENS[0], GATE_TOKENS[1] + 1), generator=gen,
+                           device=DEVICE)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    params = list(model.parameters())
+    wrappers = model_kernels()
+
+    def value_and_grads():
+        loss = fam.loss_fn(model, batch, cfg)
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    before = launch_counts(wrappers)
+    loss, grads = value_and_grads()
+    launched = moved(before, launch_counts(wrappers))
+    if not all(launched.get(k) for k in kernels):
+        fail(f"{arch} f32 gate: launches {launched}, not every one of {kernels}")
+    with plain_kernels(kernels):
+        plain_loss, plain_grads = value_and_grads()
+    if not abs(loss - plain_loss) <= TRAIN_RTOL * abs(plain_loss):
+        fail(f"{arch} f32 gate: loss {loss} against plain {plain_loss}")
+    worst = 0.0
+    for (name, _), g, w in zip(model.named_parameters(), grads, plain_grads):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        if not bool(torch.isfinite(g).all()) or not err <= TRAIN_RTOL * scale:
+            fail(f"{arch} f32 gate: gradient of {name} off by {err:.3e}, max|g_plain| {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"  {arch} ({depth} layers, f32, {GATE_TOKENS[0]} x {GATE_TOKENS[1]}): loss {loss:.6f} "
+          f"(plain {plain_loss:.6f}); worst gradient leaf at {worst:.3e} of its max|g_plain| "
+          f"(<= {TRAIN_RTOL}); launches {launched}", flush=True)
+    out = {"arch": arch, "n_layers": depth, "loss": loss, "plain_loss": plain_loss,
+           "worst_grad_rel": worst, "launches": launched}
+    del model, grads, plain_grads
+    return out
+
+
+def train_flops(model, cfg, B: int, S: int) -> float:
+    """Model FLOPs of one training step (forward and backward, 3 x the
+    forward; the remat recompute not counted): 2 per weight of every
+    product per token (the head included), and 4 * head_dim per live
+    causal (query, key) pair per head for attention."""
+    weights = sum(p.numel() for n, p in model.named_parameters() if p.ndim == 2 and n != "embed")
+    weights += model.head.numel()
+    attention = 4.0 * cfg.head_dim * cfg.n_heads * B * causal_pairs(S, 0) * cfg.n_layers
+    return 3.0 * (2.0 * B * S * weights + attention)
+
+
+def split_launches(fam, model, batch, cfg) -> dict:
+    """Launches of one loss and gradient, by kernel: in the forward, in the
+    backward's remat recompute, and by the backward itself."""
+    wrappers = model_kernels()
+    params = list(model.parameters())
+    c0 = launch_counts(wrappers)
+    loss = fam.loss_fn(model, batch, cfg)
+    c1 = launch_counts(wrappers)
+    torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    c2 = launch_counts(wrappers)
+    out = {}
+    for name in wrappers:
+        fwd, during = c1[name] - c0[name], c2[name] - c1[name]
+        bwd = c2.get(f"{name}[backward]", 0) - c1.get(f"{name}[backward]", 0)
+        if fwd or during:
+            out[name] = {"forward": fwd, "recompute": during - bwd, "backward": bwd}
+    return out
+
+
+def profiled_step(trainer, batch) -> dict:
+    """One warm optimizer step timed, then one profiled: device busy and idle
+    share against the warm wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, opt_state, err_state = trainer.state
+    walls = {}
+    for run in ("warm", "profiled"):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            if run == "profiled" else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        with prof:
+            t = time.perf_counter()
+            model, opt_state, err_state, _ = trainer._step_fn(model, opt_state, batch, err_state)
+            torch.cuda.synchronize()
+            walls[run] = (time.perf_counter() - t) * 1e3
+    trainer.state = (model, opt_state, err_state)
+    br = device_breakdown(prof)
+    return {"wall_ms": walls["warm"], "profiled_wall_ms": walls["profiled"],
+            "idle_share": 1 - br["device_ms"] / walls["warm"], **br}
+
+
+def train_entry(seed: int) -> dict:
+    """qwen1.5-0.5b at full width and depth through ``launch/train.py``, bf16."""
+    import statistics
+
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.launch import train as train_cli
+
+    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    wrappers = model_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    trainer = train_cli.main(["--arch", "qwen1_5_0_5b", "--scale", "full", "--batch", str(B),
+                              "--seq", str(S), "--steps", str(steps), "--seed", str(seed)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = launch_counts(wrappers)
+    cfg = trainer.model_cfg
+    model = trainer.state[0]
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    dts = [m["dt"] * 1e3 for m in trainer.metrics_log if "loss" in m]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"train: losses {losses}")
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention[tensor_core]": 2 * cfg.n_layers}
+    if per_step != want:
+        fail(f"train: launches per step {per_step}, not {want} (forward and remat recompute, "
+             "every one on the tensor-core route)")
+    step_ms = statistics.median(dts[2:])
+    flops = train_flops(model, cfg, B, S)
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed, branching=4)
+    batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in src.batch_at(steps).items()}
+    split = split_launches(trainer.family, model, batch, cfg)
+    prof = profiled_step(trainer, batch)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B, "seq": S, "steps": steps,
+           "n_params": sum(p.numel() for p in model.parameters()), "losses": losses,
+           "step_ms": dts, "warm_step_ms": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "mfu": flops / (step_ms / 1e3) / PEAK_BF16, "mfu_peak": "bf16 dense 989 TFLOP/s",
+           "peak_gib": peak, "wall_s": wall, "launches_per_step": per_step,
+           "launch_split": split, "profiled_step": prof}
+    top = ", ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in prof["top"][:5])
+    print(f"  train {cfg.name} full ({cfg.n_layers} layers, bf16, {B} x {S}): losses "
+          f"{[round(x, 4) for x in losses]}; warm step {step_ms:.1f} ms (median of steps 3-"
+          f"{steps}), {out['tokens_per_s']:.0f} tokens/s, {flops / 1e12:.2f} model TFLOP a step, "
+          f"MFU {out['mfu']:.2%} of bf16 989 TFLOP/s; peak {peak:.2f} GiB; launches per step "
+          f"{per_step}, split {split}; profiled step: wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']:.1f} ms (idle {prof['idle_share']:.1%}): {top}", flush=True)
+    del trainer, model
+    return out
+
+
+class _Repeat:
+    """A source that gives its first batch at every step."""
+
+    def __init__(self, source):
+        self.source = source
+
+    def batch_at(self, step):
+        return self.source.batch_at(0)
+
+
+def learning_gate(seed: int) -> dict:
+    """qwen1.5-0.5b, full width and depth, bf16: LEARN_STEPS steps on one
+    repeated batch must lower the loss by at least LEARN_DROP nats."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("qwen1_5_0_5b")
+    trainer = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=LEARN_LR), warmup=2,
+                                         total_steps=LEARN_STEPS), device=DEVICE)
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            seed=seed + 1, branching=4)
+    trainer.fit(_Repeat(src), steps=LEARN_STEPS, seed=seed)
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    if not losses[-1] <= losses[0] - LEARN_DROP:
+        fail(f"learning gate: loss {losses[0]:.4f} -> {losses[-1]:.4f}, not {LEARN_DROP} lower")
+    print(f"  learning gate ({LEARN_STEPS} steps on one batch, lr {LEARN_LR}): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (at least {LEARN_DROP} nats lower)", flush=True)
+    del trainer
+    return {"losses": losses, "lr": LEARN_LR}
+
+
+def resume_gate(seed: int) -> dict:
+    """qwen1.5-0.5b at full width, RESUME_LAYERS layers, f32: 4 steps, a
+    checkpoint, and a new Trainer resumed to 8 equal 8 straight steps."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("qwen1_5_0_5b"), n_layers=RESUME_LAYERS,
+                              param_dtype=torch.float32, compute_dtype=torch.float32)
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=RESUME_TOKENS[1],
+                            global_batch=RESUME_TOKENS[0], seed=seed + 2)
+    tcfg = TrainerConfig(adamw=AdamWConfig(lr=1e-3), total_steps=100, ckpt_every=4)
+    straight, _ = Trainer(cfg, tcfg, device=DEVICE).fit(src, steps=8, seed=seed, resume=False)
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        resumable = dataclasses.replace(tcfg, ckpt_dir=str(ck))
+        t0 = time.perf_counter()
+        Trainer(cfg, resumable, device=DEVICE).fit(src, steps=4, seed=seed, resume=False)
+        again = Trainer(cfg, resumable, device=DEVICE)
+        resumed, _ = again.fit(src, steps=8, seed=seed, resume=True)
+        wall = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if again.metrics_log[0]["step"] != 5:
+        fail(f"resume: the new trainer started at step {again.metrics_log[0]['step']}, not 5")
+    worst = 0.0
+    for (name, a), b in zip(resumed.named_parameters(), straight.parameters()):
+        over = ((a - b).abs() - (1e-5 + 1e-4 * b.abs())).max().item()
+        worst = max(worst, ((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max().item())
+        if over > 0:
+            fail(f"resume: {name} differs from the straight run beyond rtol 1e-4, atol 1e-5")
+    print(f"  exact resume ({cfg.n_layers} layers, f32, {RESUME_TOKENS[0]} x {RESUME_TOKENS[1]}): "
+          f"8 steps with a checkpoint at 4 equal 8 straight steps (worst at {worst:.3e} of "
+          f"rtol 1e-4 + atol 1e-5); checkpoints {ckpt_bytes / 2**30:.2f} GiB on disk, "
+          f"{wall:.1f} s for the two resumable runs", flush=True)
+    return {"n_layers": cfg.n_layers, "worst_ratio": worst, "ckpt_gib": ckpt_bytes / 2**30,
+            "resumable_wall_s": wall}
+
+
+def recurrent_training(seed: int, arch: str, n_layers: int, launches: dict) -> dict:
+    """A recurrent family at full width, ``n_layers`` layers, bf16:
+    RECURRENT_STEPS steps, each with the kernel ``launches`` given."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    B, S = RECURRENT_TOKENS
+    wrappers = model_kernels()
+    trainer = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=3e-4), warmup=2,
+                                         total_steps=RECURRENT_STEPS), device=DEVICE)
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed, branching=4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(wrappers)
+    trainer.fit(src, steps=RECURRENT_STEPS, seed=seed)
+    per_step = {k: v / RECURRENT_STEPS for k, v in launch_counts(wrappers).items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    dts = [m["dt"] * 1e3 for m in trainer.metrics_log if "loss" in m]
+    if not all(map(math.isfinite, losses)):
+        fail(f"{arch} training: losses {losses}")
+    if per_step != launches:
+        fail(f"{arch} training: launches per step {per_step}, not {launches}")
+    batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in src.batch_at(0).items()}
+    split = split_launches(trainer.family, trainer.state[0], batch, cfg)
+    step_ms = statistics.median(dts[2:])
+    print(f"  train {cfg.name} ({n_layers} layers, bf16, {B} x {S}): losses "
+          f"{[round(x, 4) for x in losses]}; warm step {step_ms:.1f} ms (median of steps 3-"
+          f"{RECURRENT_STEPS}); peak {peak:.2f} GiB; launches per step {per_step}, "
+          f"split {split}", flush=True)
+    out = {"arch": cfg.name, "n_layers": n_layers, "batch": B, "seq": S, "losses": losses,
+           "step_ms": dts, "warm_step_ms": step_ms, "peak_gib": peak,
+           "launches_per_step": per_step, "launch_split": split}
+    del trainer
+    return out
+
+
+def training_phase(seed: int, gen) -> dict:
+    """Phase 7; returns its numbers and the kernel gradients' rows."""
+    t0 = time.perf_counter()
+    print("[train] kernel gradients against autograd through the plain versions, f32 "
+          "(flash also bf16)")
+    grads = [run_grad_case(cs) for cs in grad_cases(gen)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] whole-model f32 gates, {GATE_TOKENS[0]} x {GATE_TOKENS[1]} tokens")
+    gates = [model_grad_gate(seed, arch, depth, kernels) for arch, depth, kernels in TRAIN_GATES]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[train] launch/train.py at full width and depth")
+    entry = train_entry(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    learn = learning_gate(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume = resume_gate(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent = [recurrent_training(seed, **spec) for spec in TRAIN_RECURRENT]
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"[train] phase 7 took {wall:.1f} s")
+    return {"kernel_grads": grads, "f32_gates": gates, "train": entry, "learning": learn,
+            "resume": resume, "recurrent": recurrent, "wall_s": wall}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -942,7 +1425,11 @@ def main(argv=None) -> int:
             else:
                 launches.setdefault(name, n)
 
-    # 7. Result lines.  Each route of a kernel is an entry of its own.
+    # 7. Training; its launches are gated inside the phase.
+    training = training_phase(args.seed, gen)
+    grad_rows = {(r["kernel"], r["route"]): r for r in training["kernel_grads"]}
+
+    # 8. Result lines.  Each route of a kernel is an entry of its own.
     def entry(name, source, replaces, rows, route=None):
         if route is not None:
             rows = [r for r in rows if r["route"] == route]
@@ -954,7 +1441,7 @@ def main(argv=None) -> int:
                 "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                 "bound_cuda_core_ms": main_row.get("bound_cuda_core_ms"),
                 "library_ms": main_row["library_ms"], "case": main_row["case"],
-                "cases": rows}
+                "grad": grad_rows.get((name.replace("_wgmma", ""), route)), "cases": rows}
 
     speedups(gemm_rows, flash_rows)
     kernels = [
@@ -975,6 +1462,7 @@ def main(argv=None) -> int:
     ]
     print(json.dumps({"main_path": walls}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

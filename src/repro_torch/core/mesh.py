@@ -15,7 +15,7 @@ enclosing ``with mesh:`` block:
 * ``ppermute`` (an ``index_select`` along the axis' dim);
 * ``psum`` and ``psum_scatter`` (the ``reduce_nway`` kernel over the axis'
   dim for float32 and bfloat16; other dtypes as ``jax.lax.psum`` sums
-  them, see :func:`axis_sum`), ``all_gather``;
+  them, see :func:`axis_sum`), ``pmax`` (its ``max``), ``all_gather``;
 * ``take`` and ``put``: a per-member index into a local dim, in place of
   ``jnp.take`` / ``dynamic_slice`` / ``dynamic_update_slice`` with a
   traced index.
@@ -154,6 +154,13 @@ def psum(x: torch.Tensor, name: str) -> torch.Tensor:
     """Sum over the axis (:func:`axis_sum`), replicated to every member."""
     d = current().dim(name)
     return axis_sum(x, d).unsqueeze(d).expand(x.shape)
+
+
+def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Maximum over the axis (the ``reduce_nway`` kernel's ``max`` over its
+    dim), replicated to every member, as ``jax.lax.pmax``."""
+    d = current().dim(name)
+    return reduce_nway(x.contiguous(), op="max", dim=d).unsqueeze(d).expand(x.shape)
 
 
 def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:

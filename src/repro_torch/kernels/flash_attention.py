@@ -34,6 +34,10 @@ to q's dtype; ``p`` stays at f32 accuracy through ``P @ V``.  The ragged
 last tiles are masked, so S need not divide by any tile: the reference's
 ``S % bq == 0`` assert is not kept, and ``bq`` / ``bkv`` are accepted for
 its signature without changing the result.
+
+Gradient: :class:`FlashAttention` runs the kernel forward and
+differentiates the plain version in the backward (the JAX package has no
+backward kernel either).
 """
 
 from __future__ import annotations
@@ -71,7 +75,8 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
     to f32 on load.  A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel that :func:`flash_route` names, or raises.
     ``_route`` forces one route, for timing the two against each other on
-    the card; a call outside the forced route's rule raises.
+    the card; a call outside the forced route's rule raises.  The output
+    carries a gradient (:class:`FlashAttention`).
     """
     del bq, bkv  # the TPU's block shape; the CUDA kernel tiles itself
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -85,16 +90,21 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         return flash_attention(q.float(), k.float(), v.float(), window=window,
                                _route=_route).to(q.dtype)
-    window = int(window)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.device.type == "cuda":
+        if q.shape[2] not in HEAD_DIMS:
+            raise ValueError(f"flash_attention: head dim {q.shape[2]} not in {HEAD_DIMS}")
+        if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+            raise ValueError("flash_attention: operands must be contiguous")
+    return FlashAttention.apply(q, k, v, int(window), _route)
+
+
+def _forward(q, k, v, window: int, _route):
+    """The plain version on the CPU; on the card, the kernel."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     BH, S, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: operands must be contiguous")
     # Both kernels copy by 16 bytes: an operand that is a view at an
     # unaligned offset is copied to a fresh (aligned) tensor.
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
@@ -117,6 +127,49 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
     return out
+
+
+# The backward's plain attention holds (slice, S, S) f32 scores and as many
+# probabilities: slices of BH are cut so that one holds at most 2^28 scores
+# (1 GiB in f32; 64 heads at S = 2048).
+GRAD_SCORES = 1 << 28
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward (:func:`_forward`) with the plain version's gradient.
+
+    The JAX package has no backward kernel (it trains through ``jnp``), so
+    the backward recomputes attention by the plain version and
+    differentiates it (:func:`flash_attention_grad`); it saves q, k and v.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, route):
+        ctx.save_for_backward(q, k, v)
+        ctx.window = window
+        return _forward(q, k, v, window, route)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_grad(q, k, v, g, window=ctx.window), None, None)
+
+
+def flash_attention_grad(q, k, v, g, *, window: int = 0):
+    """(dq, dk, dv) of ``flash_attention_ref(q, k, v, window)`` against the
+    output's gradient ``g``, by autograd through the plain version, over
+    slices of BH of at most ``GRAD_SCORES`` scores each."""
+    S = q.shape[1]
+    step = max(1, GRAD_SCORES // (S * S))
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    for i in range(0, q.shape[0], step):
+        part = slice(i, i + step)
+        with torch.enable_grad():
+            qs, ks, vs = (t[part].detach().requires_grad_() for t in (q, k, v))
+            out = flash_attention_ref(qs, ks, vs, window=window)
+            for whole, d in zip(grads, torch.autograd.grad(out, (qs, ks, vs), g[part])):
+                whole[part] = d
+    return grads
 
 
 flash_attention.launches = 0  # every launch

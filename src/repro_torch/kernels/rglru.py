@@ -21,6 +21,9 @@ The numbers are the reference kernel's: the recurrence in f32 from
 so S need not divide by any chunk: the reference's ``S % chunk == 0``
 assert is not kept (serving pads each wave to its longest prompt), and
 ``chunk`` is accepted for its signature without changing the result.
+
+Gradient: :class:`RglruScan`; its backward is the same kernel run over
+reversed time.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rglru_scan_ref
+from repro_torch.kernels.ref import rglru_scan_ref, wide
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (card index, stream) -> [scratch tensor, last epoch].  Shared by every
@@ -57,6 +60,7 @@ def rglru_scan(a, b, *, chunk: int = 128):
     a and b of mixed float dtypes are cast to float32 (exact from
     bfloat16), as the reference casts both to f32 on load.  A CPU tensor
     runs the plain version; a CUDA tensor launches the kernel or raises.
+    The output carries a gradient (:class:`RglruScan`).
     """
     del chunk  # the TPU's chunk; the CUDA kernel tiles itself
     if a.ndim != 3 or b.shape != a.shape:
@@ -69,12 +73,17 @@ def rglru_scan(a, b, *, chunk: int = 128):
                         "need float32 or bfloat16 for both")
     if b.dtype != a.dtype:
         return rglru_scan(a.float(), b.float()).to(a.dtype)
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    if a.device.type == "cuda" and not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("rglru_scan: operands must be contiguous")
+    return RglruScan.apply(a, b)
+
+
+def _scan(a, b):
+    """The plain version on the CPU; on the card, the kernel."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan: unsupported device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("rglru_scan: operands must be contiguous")
     B, S, W = a.shape
     out = torch.empty_like(a)
     dtype = DTYPES[a.dtype]
@@ -89,4 +98,38 @@ def rglru_scan(a, b, *, chunk: int = 128):
     return out
 
 
-rglru_scan.launches = 0
+class RglruScan(torch.autograd.Function):
+    """The scan with its adjoint, which is the same scan run backwards.
+
+    With g the gradient of h, g'_t = g_t + a_{t+1} g'_{t+1}, db_t = g'_t and
+    da_t = g'_t h_{t-1} (h_{-1} = 0): g' is the scan of (a shifted left by
+    one, 0 at the end; g) over reversed time, in f32, so the backward
+    launches the kernel once more on the card (:func:`rglru_scan_grad`).
+    It saves a and h; a and b share one dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        return rglru_scan_grad(a, h, g)
+
+
+def rglru_scan_grad(a, h, g):
+    """(da, db) of h = rglru_scan(a, b) against h's gradient ``g``, in a's dtype."""
+    a32 = wide(a)
+    a_next = torch.cat([a32[:, 1:], torch.zeros_like(a32[:, :1])], dim=1)
+    gp = _scan(a_next.flip(1), wide(g).flip(1)).flip(1)
+    if a.device.type == "cuda":
+        rglru_scan.backward_launches += 1
+    h_prev = torch.cat([torch.zeros_like(gp[:, :1]), wide(h)[:, :-1]], dim=1)
+    return (gp * h_prev).to(a.dtype), gp.to(a.dtype)
+
+
+rglru_scan.launches = 0           # every launch
+rglru_scan.backward_launches = 0  # those of the backward (:func:`rglru_scan_grad`)

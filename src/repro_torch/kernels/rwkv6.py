@@ -24,6 +24,9 @@ inside the model's decay range (``logw`` down to ``-e^2``; ROADMAP.md queue
 log-decays clamped to <= 0, so it stays finite and equal to the sequential
 recurrence there.  The last chunk may be ragged: the reference's
 ``S % chunk == 0`` assert is not kept.
+
+Gradient: :class:`Wkv` runs the kernel forward and differentiates a
+chunked plain form that stays finite over the whole decay range.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import wkv_ref
+from repro_torch.kernels.ref import wkv_chunked_ref, wkv_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
@@ -45,7 +48,7 @@ def wkv(r, k, v, logw, u, state0=None):
 
     Returns (out (B, S, H, hd) in r's dtype, final state (B, H, hd, hd)
     f32).  A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel or raises.
+    kernel or raises.  Both outputs carry gradients (:class:`Wkv`).
     """
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"wkv: r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
@@ -63,14 +66,21 @@ def wkv(r, k, v, logw, u, state0=None):
                         "need one of float32, bfloat16 for all three")
     if logw.dtype != torch.float32 or (state0 is not None and state0.dtype != torch.float32):
         raise TypeError("wkv: logw and state0 must be float32")
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wkv: unsupported device {r.device}")
+    if r.device.type == "cuda":
+        if hd not in HEAD_DIMS:
+            raise ValueError(f"wkv: head dim {hd} not in {HEAD_DIMS}")
+        if not all(t.is_contiguous() for t in (r,) + operands):
+            raise ValueError("wkv: operands must be contiguous")
+    return Wkv.apply(r, k, v, logw, u, state0)
+
+
+def _wkv(r, k, v, logw, u, state0):
+    """The plain version on the CPU; on the card, the kernel."""
     if r.device.type == "cpu":
         return wkv_ref(r, k, v, logw, u, state0)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv: unsupported device {r.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"wkv: head dim {hd} not in {HEAD_DIMS}")
-    if not all(t.is_contiguous() for t in (r,) + operands):
-        raise ValueError("wkv: operands must be contiguous")
+    B, S, H, hd = r.shape
     # The kernel stages its operands by 16-byte copies: an operand that is a
     # view at an unaligned offset is copied to a fresh (aligned) tensor.
     r, k, v, logw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, logw))
@@ -85,6 +95,47 @@ def wkv(r, k, v, logw, u, state0=None):
     _build.check(rc, "wkv")
     wkv.launches += 1
     return out, state
+
+
+class Wkv(torch.autograd.Function):
+    """The kernel forward with the gradient of a chunked plain form.
+
+    The JAX package has no backward kernel; it trains through
+    ``chunked_wkv``, whose ``k * exp(-cum)`` overflows inside the model's
+    decay range.  The backward recomputes the recurrence by
+    ``ref.wkv_chunked_ref`` (``WKV_CHUNK`` = 16-token chunks, every decay the ``exp`` of a
+    difference of cumulative log-decays <= 0) and differentiates it
+    (:func:`wkv_grad`).  It saves the inputs; the final state's gradient
+    may be absent.
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0):
+        ctx.save_for_backward(r, k, v, logw, u, state0)
+        ctx.set_materialize_grads(False)
+        return _wkv(r, k, v, logw, u, state0)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        return wkv_grad(*ctx.saved_tensors, g_out, g_state)
+
+
+def wkv_grad(r, k, v, logw, u, state0, g_out, g_state):
+    """Gradients of (out, final state) = wkv(r, k, v, logw, u, state0) for
+    r, k, v, logw, u and state0 (None where ``state0`` is None), against
+    ``g_out`` and ``g_state`` (either may be None), by autograd through
+    ``wkv_chunked_ref``."""
+    inputs = (r, k, v, logw, u, state0)
+    if g_out is None and g_state is None:
+        return (None,) * len(inputs)
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_() for t in inputs]
+        out, state = wkv_chunked_ref(*leaves)
+        pairs = [(o, g) for o, g in ((out, g_out), (state, g_state)) if g is not None]
+        wrt = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                         allow_unused=True))
+    return tuple(None if t is None else next(grads) for t in leaves)
 
 
 wkv.launches = 0

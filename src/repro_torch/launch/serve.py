@@ -7,13 +7,16 @@
 
 The counterpart of ``src/repro/launch/serve.py`` with the same flags and
 ``--device``.  Weights are random, drawn from a ``torch.Generator`` seeded
-with 0; the prompts from a numpy ``Generator`` seeded with 1.
+with 0, or restored from the latest valid trainer checkpoint in
+``--ckpt-dir`` (``launch/train.py --scale smoke --ckpt-dir ...``); the
+prompts come from a numpy ``Generator`` seeded with 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -22,6 +25,7 @@ from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.models import get_family
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime.server import Request, Server
+from repro_torch.runtime.trainer import restore_params
 
 
 def main(argv=None):
@@ -33,16 +37,19 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="restore params from checkpoint (not ported yet)")
+                    help="restore params from a trainer checkpoint")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir: the checkpoint manager is not ported yet (see ROADMAP.md)")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch)
     fam = get_family(cfg)
     model = fam.init(torch.Generator(device=device).manual_seed(0), cfg, device)
+    if args.ckpt_dir:
+        step = restore_params(model, args.ckpt_dir) if Path(args.ckpt_dir).is_dir() else None
+        if step is None:
+            ap.error(f"--ckpt-dir {args.ckpt_dir}: no valid checkpoint")
+        print(f"restored params from checkpoint @ step {step}")
     server = Server(cfg, model, max_len=args.prompt_len + args.max_new + 1,
                     temperature=args.temperature, device=device)
     rng = np.random.default_rng(1)

@@ -108,7 +108,8 @@ def _causal_flash(q, k, v, window: int):
     group = H // k.shape[2]
 
     def heads_first(t):  # (B, S, H, hd) -> contiguous (B * H, S, hd)
-        return t.transpose(1, 2).reshape(B * H, S, hd)
+        # reshape alone returns a strided view when B == 1
+        return t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
 
     out = flash_attention(heads_first(q),
                           heads_first(k.repeat_interleave(group, dim=2)),

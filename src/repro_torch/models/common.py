@@ -1,12 +1,14 @@
 """Shared building blocks: the model config, norms and initialisers.
 
 The port's counterpart of ``src/repro/models/common.py``.  ``ModelConfig``
-has the reference's fields, with torch dtypes.  The JAX-only knobs
-``scan_layers`` and ``remat`` are accepted and change nothing (the port runs
-its layers in a Python loop and trains nothing yet); ``attn_q_chunk`` only
-bounds memory in the reference, and the flash kernel already works in
-blocks, so it is ignored too.  ``attn_bf16_logits`` changes the numbers and
-is not ported: a model built with it raises ``NotImplementedError``.
+has the reference's fields, with torch dtypes.  ``remat`` recomputes each
+layer in the backward pass (:func:`maybe_remat`, ``torch.utils.checkpoint``
+in place of ``jax.checkpoint``); the JAX-only knob ``scan_layers`` is
+accepted and changes nothing (the port runs its layers in a Python loop);
+``attn_q_chunk`` only bounds memory in the reference, and the flash kernel
+already works in blocks, so it is ignored too.  ``attn_bf16_logits``
+changes the numbers and is not ported: a model built with it raises
+``NotImplementedError``.
 ``ShardingPolicy`` / ``constrain`` have no meaning on one card and wait for
 the ``torch.distributed`` backend.
 """
@@ -19,6 +21,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +68,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     # loss
     loss_chunk: int = 1024
-    remat: bool = True             # JAX-only; no effect
+    remat: bool = True             # recompute each layer in the backward pass
     scan_layers: bool = True       # JAX-only; no effect
 
     def __post_init__(self):
@@ -127,8 +130,10 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return out.to(dtype)
 
 
-def frozen_param(t: torch.Tensor) -> nn.Parameter:
-    """A parameter without gradients: nothing in the port trains yet."""
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter, frozen until its model is built with ``trainable=True``
+    (the families' ``init`` and ``convert.from_jax_params``), which calls
+    ``requires_grad_`` on the whole model: serving keeps frozen weights."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -153,3 +158,50 @@ def resolve_device(device) -> torch.device:
                                "versions on the host")
         device = "cuda"
     return torch.device(device)
+
+
+def chunked_cross_entropy(hidden, head, labels, cfg: ModelConfig):
+    """Mean next-token cross-entropy without the full (B, S, V) logits.
+
+    The counterpart of ``src/repro/models/common.py:chunked_cross_entropy``:
+    the sequence is cut into ``cfg.loss_chunk`` slabs (the last one ragged);
+    each slab's logits are ``hidden @ head^T`` in f32, its loss is
+    ``logsumexp - gold`` over labels ``>= 0`` (negative labels are ignored),
+    and the result is ``total / max(count, 1)``.  Each slab runs under
+    ``torch.utils.checkpoint``, so one (B, chunk, V) slab of logits is alive
+    at a time in the backward pass as in the forward.
+    """
+    S = hidden.shape[1]
+    chunk = min(cfg.loss_chunk, S)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, chunk):
+        h, y = hidden[:, s0:s0 + chunk], labels[:, s0:s0 + chunk]
+        if torch.is_grad_enabled():
+            loss, n = checkpoint(_chunk_loss, h, head, y, use_reentrant=False)
+        else:
+            loss, n = _chunk_loss(h, head, y)
+        total, count = total + loss, count + n
+    return total / torch.clamp(count, min=1.0)
+
+
+def _chunk_loss(h, head, y):
+    logits = h.float() @ head.float().T
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y.clamp(min=0)[..., None].long())[..., 0]
+    valid = (y >= 0).float()
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def maybe_remat(fn, enabled: bool):
+    """``fn`` recomputed in the backward pass when ``enabled`` and autograd
+    records (``jax.checkpoint`` in the reference); ``fn`` itself otherwise."""
+    if not enabled:
+        return fn
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return remat

@@ -29,9 +29,10 @@ from repro_torch.models.transformer import Block, Transformer
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def from_jax_params(params, cfg: ModelConfig, device=None):
+def from_jax_params(params, cfg: ModelConfig, device=None, trainable: bool = False):
     """The port's model with the reference's weights (``device=None`` means
-    CUDA, and raises without a card)."""
+    CUDA, and raises without a card), requiring gradients when
+    ``trainable``."""
     device = resolve_device(device)
 
     def tensor(a):
@@ -49,15 +50,15 @@ def from_jax_params(params, cfg: ModelConfig, device=None):
                         tensors(layers["attn"], i), tensors(layers["mlp"], i))
                   for i in range(cfg.n_layers)]
         lm_head = tensor(params["lm_head"]) if "lm_head" in params else None
-        return Transformer(cfg, embed, blocks, final_norm, lm_head)
+        return Transformer(cfg, embed, blocks, final_norm, lm_head, trainable)
     if cfg.family == "rwkv6":
         return rwkv6.Rwkv(cfg, embed, [tensors(layers, i) for i in range(cfg.n_layers)],
-                          final_norm, tensor(params["lm_head"]))
+                          final_norm, tensor(params["lm_head"]), trainable)
     if cfg.family == "rglru_hybrid":
         hybrid_layers = []
         for lp in layers:
             kind = "rec" if "rec" in lp else "attn"
             hybrid_layers.append(rglru.Layer(kind, tensor(lp["norm1"]), tensor(lp["norm2"]),
                                              tensors(lp[kind]), tensors(lp["mlp"])))
-        return rglru.Hybrid(cfg, embed, hybrid_layers, final_norm)
+        return rglru.Hybrid(cfg, embed, hybrid_layers, final_norm, trainable)
     raise KeyError(f"model family {cfg.family!r} is not ported yet (see ROADMAP.md)")

@@ -9,7 +9,10 @@ scan kernel (``kernels/rglru.py``; the reference uses an associative scan)
 and every attention layer's sliding-window self-attention through the
 flash kernel (``models/attention.self_attention``).  Decode is one plain
 step of the recurrence and grouped attention over a rolling window-sized
-KV cache.  ``loss_fn`` is training and waits (ROADMAP.md).
+KV cache.  ``loss_fn`` is ``forward`` and the chunked cross-entropy against
+the tied ``embed``; ``forward`` recomputes each block in the backward pass
+when ``cfg.remat`` (the reference's ``maybe_remat`` per block), and the
+scan's gradient is the same kernel run backwards (``kernels/rglru.py``).
 
 Numbers follow the reference: the gates' products and the recurrence in
 f32, the recurrent state f32, the conv state in the compute dtype,
@@ -40,9 +43,11 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (
     ModelConfig,
     check_supported,
+    chunked_cross_entropy,
     dense_init,
     embed_init,
-    frozen_param,
+    maybe_remat,
+    param,
     resolve_device,
     rms_norm,
 )
@@ -76,25 +81,27 @@ class Layer(nn.Module):
         if kind not in ("rec", "attn"):
             raise ValueError(f"layer kind {kind!r}")
         self.kind = kind
-        self.norm1 = frozen_param(norm1)
-        self.norm2 = frozen_param(norm2)
-        self.mixer = nn.ParameterDict({k: frozen_param(v) for k, v in mixer.items()})
-        self.mlp = nn.ParameterDict({k: frozen_param(v) for k, v in mlp.items()})
+        self.norm1 = param(norm1)
+        self.norm2 = param(norm2)
+        self.mixer = nn.ParameterDict({k: param(v) for k, v in mixer.items()})
+        self.mlp = nn.ParameterDict({k: param(v) for k, v in mlp.items()})
 
 
 class Hybrid(nn.Module):
     """The parameters of one model; the passes are the module functions below."""
 
-    def __init__(self, cfg: ModelConfig, embed, layers: list[Layer], final_norm):
+    def __init__(self, cfg: ModelConfig, embed, layers: list[Layer], final_norm,
+                 trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         if [layer.kind for layer in layers] != _kinds(cfg):
             raise ValueError(f"layer kinds {[layer.kind for layer in layers]} do not follow "
                              f"the pattern {_kinds(cfg)}")
         self.cfg = cfg
-        self.embed = frozen_param(embed)
+        self.embed = param(embed)
         self.layers = nn.ModuleList(layers)
-        self.final_norm = frozen_param(final_norm)
+        self.final_norm = param(final_norm)
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -122,9 +129,11 @@ def init_rec_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Hybrid:
+def init(gen: torch.Generator, cfg: ModelConfig, device=None,
+         trainable: bool = False) -> Hybrid:
     """Random weights drawn from ``gen`` on ``device`` (None means CUDA, and
-    raises without a card).  Norm scales start at zero, as in the reference."""
+    raises without a card), requiring gradients when ``trainable``.  Norm
+    scales start at zero, as in the reference."""
     device = resolve_device(device)
 
     def zeros():
@@ -137,7 +146,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Hybrid:
         layers.append(Layer(kind, zeros(), zeros(), mixer,
                             mlp_mod.init_mlp_params(gen, cfg, device)))
     embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
-    return Hybrid(cfg, embed, layers, zeros())
+    return Hybrid(cfg, embed, layers, zeros(), trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -220,22 +229,33 @@ def _logits(model: Hybrid, x, cfg: ModelConfig) -> torch.Tensor:
     return x.float() @ model.embed.float().T
 
 
+def _block(layer: Layer, x, positions, cfg: ModelConfig):
+    h = rms_norm(x, layer.norm1, cfg.norm_eps)
+    if layer.kind == "rec":
+        h = rec_block(layer.mixer, h, cfg)[0]
+    else:
+        h = attn_mod.attention(layer.mixer, h, positions, cfg, window=cfg.attn_window)
+    x = x + h
+    h = rms_norm(x, layer.norm2, cfg.norm_eps)
+    return x + mlp_mod.mlp(layer.mlp, h, cfg)
+
+
 def forward(model: Hybrid, tokens, cfg: ModelConfig):
     """tokens: (B, S) -> (hidden (B, S, d), aux loss)."""
     B, S = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
     positions = _positions(B, S, x.device)
+    block = maybe_remat(_block, cfg.remat)
     for layer in model.layers:
-        h = rms_norm(x, layer.norm1, cfg.norm_eps)
-        if layer.kind == "rec":
-            h = rec_block(layer.mixer, h, cfg)[0]
-        else:
-            h = attn_mod.attention(layer.mixer, h, positions, cfg, window=cfg.attn_window)
-        x = x + h
-        h = rms_norm(x, layer.norm2, cfg.norm_eps)
-        x = x + mlp_mod.mlp(layer.mlp, h, cfg)
+        x = block(layer, x, positions, cfg)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return x, torch.zeros((), device=x.device)
+
+
+def loss_fn(model: Hybrid, batch: dict, cfg: ModelConfig):
+    """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))."""
+    hidden, _ = forward(model, batch["tokens"], cfg)
+    return chunked_cross_entropy(hidden, model.embed, batch["labels"], cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> HybridCache:

@@ -9,7 +9,10 @@ reference's ``chunked_wkv``), which reads the (B, S, H, hd) layout in
 place, takes any S (``chunked_wkv`` asserts that its chunk divides S) and
 returns the final f32 state for decode.
 Decode stays the plain single-token recurrence, as in the reference.
-``loss_fn`` is training and waits (ROADMAP.md).
+``loss_fn`` is ``forward`` and the chunked cross-entropy against
+``lm_head``; ``forward`` recomputes each layer in the backward pass when
+``cfg.remat``, and ``wkv``'s gradient comes from a chunked plain form
+(``kernels/rwkv6.py``).
 
 Numbers follow the reference: r, k, v, g in the compute dtype, the decay's
 LoRA and ``logw = -exp(clip(w0 + dd, -20, 2))`` in f32, the state f32; the
@@ -31,9 +34,11 @@ from torch import nn
 from repro_torch.kernels.rwkv6 import wkv
 from repro_torch.models.common import (
     ModelConfig,
+    chunked_cross_entropy,
     dense_init,
     embed_init,
-    frozen_param,
+    maybe_remat,
+    param,
     resolve_device,
     rms_norm,
 )
@@ -54,18 +59,20 @@ def _heads(cfg: ModelConfig) -> tuple[int, int]:
 class Rwkv(nn.Module):
     """The parameters of one model; the passes are the module functions below."""
 
-    def __init__(self, cfg: ModelConfig, embed, layers: list[dict], final_norm, lm_head):
+    def __init__(self, cfg: ModelConfig, embed, layers: list[dict], final_norm, lm_head,
+                 trainable: bool = False):
         super().__init__()
         if cfg.family != "rwkv6":
             raise ValueError(f"an rwkv6 model from a {cfg.family!r} config")
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{len(layers)} layers for {cfg.n_layers}")
         self.cfg = cfg
-        self.embed = frozen_param(embed)
+        self.embed = param(embed)
         self.layers = nn.ModuleList(
-            nn.ParameterDict({k: frozen_param(v) for k, v in lp.items()}) for lp in layers)
-        self.final_norm = frozen_param(final_norm)
-        self.lm_head = frozen_param(lm_head)
+            nn.ParameterDict({k: param(v) for k, v in lp.items()}) for lp in layers)
+        self.final_norm = param(final_norm)
+        self.lm_head = param(lm_head)
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -111,15 +118,15 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Rwkv:
+def init(gen: torch.Generator, cfg: ModelConfig, device=None, trainable: bool = False) -> Rwkv:
     """Random weights drawn from ``gen`` on ``device`` (None means CUDA, and
-    raises without a card)."""
+    raises without a card), requiring gradients when ``trainable``."""
     device = resolve_device(device)
     layers = [init_layer(gen, cfg, device) for _ in range(cfg.n_layers)]
     embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
     lm_head = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
     final_norm = torch.zeros((cfg.d_model,), dtype=cfg.param_dtype, device=device)
-    return Rwkv(cfg, embed, layers, final_norm, lm_head)
+    return Rwkv(cfg, embed, layers, final_norm, lm_head, trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -188,27 +195,36 @@ def _logits(model: Rwkv, x, cfg: ModelConfig) -> torch.Tensor:
     return x.float() @ model.lm_head.float().T
 
 
-def _layers(model: Rwkv, x, cfg: ModelConfig):
-    """Every layer from a zero state; yields (x after the layer, state, shifts)."""
-    B = x.shape[0]
-    zeros_prev = torch.zeros((B, cfg.d_model), dtype=cfg.compute_dtype, device=x.device)
-    for lp in model.layers:
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        h, state, shift_t = time_mix(lp, h, zeros_prev, None, cfg)
-        x = x + h
-        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        h, shift_c = channel_mix(lp, h, zeros_prev, cfg)
-        x = x + h
-        yield x, state, torch.stack([shift_t, shift_c], dim=1)
+def _layer(lp, x, cfg: ModelConfig):
+    """One layer from a zero state: (x after the layer, state, shifts)."""
+    zeros_prev = torch.zeros((x.shape[0], cfg.d_model), dtype=cfg.compute_dtype,
+                             device=x.device)
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    h, state, shift_t = time_mix(lp, h, zeros_prev, None, cfg)
+    x = x + h
+    h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    h, shift_c = channel_mix(lp, h, zeros_prev, cfg)
+    return x + h, state, torch.stack([shift_t, shift_c], dim=1)
+
+
+def _layer_out(lp, x, cfg: ModelConfig):
+    return _layer(lp, x, cfg)[0]
 
 
 def forward(model: Rwkv, tokens, cfg: ModelConfig):
     """tokens: (B, S) -> (hidden (B, S, d), aux loss)."""
     x = model.embed[tokens].to(cfg.compute_dtype)
-    for x, _, _ in _layers(model, x, cfg):
-        pass
+    layer = maybe_remat(_layer_out, cfg.remat)
+    for lp in model.layers:
+        x = layer(lp, x, cfg)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return x, torch.zeros((), device=x.device)
+
+
+def loss_fn(model: Rwkv, batch: dict, cfg: ModelConfig):
+    """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))."""
+    hidden, _ = forward(model, batch["tokens"], cfg)
+    return chunked_cross_entropy(hidden, model.lm_head, batch["labels"], cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, device=None) -> RwkvCache:
@@ -225,9 +241,8 @@ def prefill(model: Rwkv, tokens, cfg: ModelConfig, max_len: int | None = None):
     B, _ = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
     cache = init_cache(cfg, B, device=x.device)
-    for i, (x, state, shifts) in enumerate(_layers(model, x, cfg)):
-        cache.state[i] = state
-        cache.shift[i] = shifts
+    for i, lp in enumerate(model.layers):
+        x, cache.state[i], cache.shift[i] = _layer(lp, x, cfg)
     return _logits(model, x, cfg), cache
 
 

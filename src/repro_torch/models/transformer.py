@@ -7,10 +7,12 @@ Python int from ``layer_windows_list`` (gemma3's local:global pattern).
 ``forward`` gives the hidden states, ``prefill`` the last token's logits
 and the KV cache, ``decode_step`` one token's logits with the cache
 written in place.  Causal self-attention runs through the flash kernel
-(``models/attention.py``).  ``loss_fn`` and the chunked cross-entropy are
-training and wait; so does the MoE (ROADMAP.md).
+(``models/attention.py``).  ``loss_fn`` is ``forward`` and the chunked
+cross-entropy against ``embed`` (tied) or ``lm_head``; ``forward``
+recomputes each layer in the backward pass when ``cfg.remat``.  The MoE
+waits (ROADMAP.md).
 
-Parameters are created without gradients: nothing here trains yet.
+Parameters require gradients only in a model built with ``trainable=True``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (
     ModelConfig,
     check_supported,
+    chunked_cross_entropy,
     embed_init,
-    frozen_param,
+    maybe_remat,
+    param,
     resolve_device,
     rms_norm,
 )
@@ -47,17 +51,17 @@ class Block(nn.Module):
 
     def __init__(self, norm1, norm2, attn: dict, mlp: dict):
         super().__init__()
-        self.norm1 = frozen_param(norm1)
-        self.norm2 = frozen_param(norm2)
-        self.attn = nn.ParameterDict({k: frozen_param(v) for k, v in attn.items()})
-        self.mlp = nn.ParameterDict({k: frozen_param(v) for k, v in mlp.items()})
+        self.norm1 = param(norm1)
+        self.norm2 = param(norm2)
+        self.attn = nn.ParameterDict({k: param(v) for k, v in attn.items()})
+        self.mlp = nn.ParameterDict({k: param(v) for k, v in mlp.items()})
 
 
 class Transformer(nn.Module):
     """The parameters of one model; the passes are the module functions below."""
 
     def __init__(self, cfg: ModelConfig, embed, blocks: list[Block], final_norm,
-                 lm_head=None):
+                 lm_head=None, trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         if cfg.n_experts:
@@ -67,10 +71,11 @@ class Transformer(nn.Module):
         if (lm_head is None) != cfg.tie_embeddings:
             raise ValueError("lm_head must be given iff the embeddings are not tied")
         self.cfg = cfg
-        self.embed = frozen_param(embed)
+        self.embed = param(embed)
         self.blocks = nn.ModuleList(blocks)
-        self.final_norm = frozen_param(final_norm)
-        self.lm_head = None if lm_head is None else frozen_param(lm_head)
+        self.final_norm = param(final_norm)
+        self.lm_head = None if lm_head is None else param(lm_head)
+        self.requires_grad_(trainable)
 
     @property
     def head(self) -> torch.Tensor:
@@ -89,10 +94,12 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Transformer:
+def init(gen: torch.Generator, cfg: ModelConfig, device=None,
+         trainable: bool = False) -> Transformer:
     """Random weights drawn from ``gen`` on ``device`` (None means CUDA,
-    and raises without a card).  Norm scales start at zero, as in the
-    reference (the norm scales by ``1 + scale``)."""
+    and raises without a card), requiring gradients when ``trainable``.
+    Norm scales start at zero, as in the reference (the norm scales by
+    ``1 + scale``)."""
     device = resolve_device(device)
 
     def zeros():
@@ -104,7 +111,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Transformer:
               for _ in range(cfg.n_layers)]
     lm_head = None if cfg.tie_embeddings else embed_init(
         gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
-    return Transformer(cfg, embed, blocks, zeros(), lm_head)
+    return Transformer(cfg, embed, blocks, zeros(), lm_head, trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -122,19 +129,31 @@ def _logits(model: Transformer, x, cfg: ModelConfig) -> torch.Tensor:
     return x.float() @ model.head.float().T
 
 
+def _layer(blk: Block, x, positions, window: int, cfg: ModelConfig):
+    h = rms_norm(x, blk.norm1, cfg.norm_eps)
+    x = x + attn_mod.attention(blk.attn, h, positions, cfg, window=window)
+    h = rms_norm(x, blk.norm2, cfg.norm_eps)
+    return x + mlp_mod.mlp(blk.mlp, h, cfg)
+
+
 def forward(model: Transformer, tokens, cfg: ModelConfig):
     """tokens: (B, S) -> (hidden (B, S, d), aux loss)."""
     B, S = tokens.shape
-    cd = cfg.compute_dtype
-    x = model.embed[tokens].to(cd)
+    x = model.embed[tokens].to(cfg.compute_dtype)
     positions = _positions(B, S, x.device)
+    layer = maybe_remat(_layer, cfg.remat)
     for blk, window in zip(model.blocks, layer_windows_list(cfg)):
-        h = rms_norm(x, blk.norm1, cfg.norm_eps)
-        x = x + attn_mod.attention(blk.attn, h, positions, cfg, window=window)
-        h = rms_norm(x, blk.norm2, cfg.norm_eps)
-        x = x + mlp_mod.mlp(blk.mlp, h, cfg)
+        x = layer(blk, x, positions, window, cfg)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return x, torch.zeros((), device=x.device)
+
+
+def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig):
+    """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))
+    plus 0.01 of the aux loss (zero without the MoE)."""
+    hidden, aux = forward(model, batch["tokens"], cfg)
+    loss = chunked_cross_entropy(hidden, model.head, batch["labels"], cfg)
+    return loss + 0.01 * aux
 
 
 def prefill(model: Transformer, tokens, cfg: ModelConfig, max_len: int | None = None):

@@ -1,1 +1,2 @@
-"""Serving runtime of the port (``runtime/server.py``)."""
+"""Runtimes of the port: serving (``runtime/server.py``) and training
+(``runtime/trainer.py``)."""

@@ -468,3 +468,55 @@ def test_recurrent_smoke_model_on_card_matches_the_host(card, arch):
     assert full.is_cuda and bool(torch.isfinite(dec).all())
     assert (full.cpu() - host_full).abs().max().item() <= 2e-4
     assert (dec - full).abs().max().item() <= 2e-4
+
+
+# Gradients: each kernel's autograd.Function against autograd through its
+# plain version, at the reference tests' tolerances of max|g_plain|.
+def _grads_vs_plain(fn, plain, inputs, grads_out, tol):
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.grad_fn is not None for o in outs)
+    got = torch.autograd.grad(outs, leaves, grads_out)
+    plain_leaves = [t.detach().requires_grad_() for t in inputs]
+    plain_outs = plain(*plain_leaves)
+    plain_outs = plain_outs if isinstance(plain_outs, tuple) else (plain_outs,)
+    want = torch.autograd.grad(plain_outs, plain_leaves, grads_out)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert (g.float() - w.float()).abs().max().item() <= tol * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [("f32", 2e-4), ("bf16", 2e-2)])
+@pytest.mark.parametrize("shape,window", [((8, 300, 64), 0), ((4, 257, 128), 100),
+                                          ((2, 130, 256), 0)])
+def test_flash_attention_gradients_on_card(card, shape, window, dt, tol):
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=card).to(TDT[dt]) for _ in range(4))
+    _grads_vs_plain(lambda *x: flash_attention(*x, window=window),
+                    lambda *x: tref.flash_attention_ref(*x, window=window), (q, k, v), (g,), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 64), (3, 1000, 2560)])
+def test_rglru_scan_gradients_on_card_run_the_kernel_backwards(card, shape):
+    gen = torch.Generator(device=card).manual_seed(2)
+    a = torch.rand(shape, generator=gen, device=card) ** 0.1
+    b, g = (torch.randn(shape, generator=gen, device=card) for _ in range(2))
+    launches, backward = rglru_scan.launches, rglru_scan.backward_launches
+    _grads_vs_plain(rglru_scan, tref.rglru_scan_ref, (a, b), (g,), 1e-4)
+    assert (rglru_scan.launches - launches, rglru_scan.backward_launches - backward) == (2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 100, 2, 64), (2, 130, 4, 32)])
+def test_wkv_gradients_on_card(card, shape):
+    B, S, H, hd = shape
+    gen = torch.Generator(device=card).manual_seed(3)
+    r, k, v, g = (torch.randn(shape, generator=gen, device=card) for _ in range(4))
+    logw = (-torch.exp(torch.rand(shape, generator=gen, device=card) * 22 - 20)).clamp(
+        min=-math.e ** 2)
+    u = 0.5 * torch.randn(H, hd, generator=gen, device=card)
+    s0, gs = (torch.randn(B, H, hd, hd, generator=gen, device=card) for _ in range(2))
+    _grads_vs_plain(wkv, tref.wkv_ref, (r, k, v, logw, u, s0), (g, gs), 2e-3)

@@ -41,7 +41,10 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.core.noc.model", "repro_torch.models.transformer",
             "repro_torch.models.rglru", "repro_torch.models.rwkv6",
             "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6",
-            "repro_torch.runtime.server"} <= set(mods)
+            "repro_torch.runtime.server", "repro_torch.runtime.trainer",
+            "repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.optim.schedule", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.manager", "repro_torch.launch.train"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
