@@ -62,9 +62,20 @@ Phases, each of which raises on failure:
    gate (12 steps on one repeated batch lower the loss by a nat); exact
    resume from a checkpoint (2 layers, f32); recurrentgemma-2b (6 layers)
    and rwkv6-3b (4 layers) at full width in bf16, 6 steps each;
-8. print the ``{"training": ...}`` line, the ``{"kernels": [...]}`` line,
-   one entry per route of each kernel (with its gradient's method and
-   times where it has one), and, last, the ``{"ok": true, ...}`` line.
+8. the fabric programs of the main path, on the host, through the port's
+   own copy of the NoC substrate (program IR, flit-level simulator):
+   reproduce the 21 golden fingerprints of the legacy emitters, traces and
+   replays; check every numeric claim of the paper (``all_claims``); emit
+   phase 3's schedules as programs at 32 KiB (SUMMA on 4x4, FCL's
+   all-reduce, ``ag_matmul`` and ``matmul_rs`` over a row of 8) and print
+   their simulated cycles and native-over-baseline speed-ups beside phase
+   3's measured warm-wall ratios (printed, held to nothing); the overlap
+   gate (the 8x8 SUMMA with modelled compute beats its barrier form and
+   stays at or above max(comm-only, compute-only)); all within 30 s;
+9. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
+   ``{"kernels": [...]}`` line, one entry per route of each kernel (with
+   its gradient's method and times where it has one), and, last, the
+   ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -177,6 +188,48 @@ TRAIN_RECURRENT = (
                    "flash_attention[tensor_core]": 4}),
     dict(arch="rwkv6_3b", n_layers=4, launches={"wkv": 8}),
 )
+# The fabric programs of the main path (phase 8), simulated on the host by
+# the port's flit-level NoC simulator with the paper's micro-benchmark
+# parameters (PAPER_MICRO); its cycles are the modelled fabric's, not the
+# card's.  The golden sha256 prefixes are those of the reference's
+# tests/test_program.py (legacy emitters, traces and replays), which
+# tests/test_torch_noc_copies.py holds equal to these.
+GOLDEN_EMITTERS = {
+    "broadcast_native": "9d845029befe936b",
+    "broadcast_chain": "1485a1d1386b160c",
+    "broadcast_pipelined": "87f2e6d2f0b462be",
+    "broadcast_tree": "30f0300af8005a90",
+    "all_reduce_native": "ca4737a2f9acc989",
+    "all_reduce_chain": "ff328f3c872e07aa",
+    "all_reduce_pipelined": "2544616bef2344db",
+    "all_reduce_tree": "092ab212d9f07daa",
+}
+GOLDEN_TRACES = {
+    "summa4_native": "6fe2d4a63785b259",
+    "summa4_tree": "4941198248634659",
+    "summa16_native": "268e6dc06073c22a",
+    "ag_ring": "12f987c989d01c17",
+    "rs_ring": "a9d580d7236c89be",
+    "summa_storm8": "ee76b3f5198e7f00",
+    "fcl_storm8": "b8146120406afcd8",
+    "mixed_storm8": "6b9c41a50739c6a9",
+    "collective_storm8": "a89a33ad6d48afbb",
+}
+GOLDEN_REPLAYS = {
+    "replay_summa4_barrier": "1e9ebca967b21cc4",
+    "replay_summa4_window": "4231c469be043f3c",
+    "replay_gap_barrier": "e52f958030774b90",
+    "replay_gap_window": "2f5e70d586315197",
+}
+# Phase 3's schedules as fabric programs at 32 KiB, the top of the paper's
+# 1-32 KiB range (simulation time grows with bytes, so not phase 3's 11 MiB
+# tiles): SUMMA on a 4x4 mesh, FCL's all-reduce and the two rings over a row
+# of 8 of an 8x8 mesh.  The overlap gate is bench_program's: the 8x8 SUMMA
+# with modelled compute, 8 iterations of 2 KiB tiles.
+FABRIC_BYTES = 32 * 1024
+FABRIC_SCHEDULES = ("native", "chain", "pipelined", "tree")
+OVERLAP_SIDE, OVERLAP_ITERS, OVERLAP_TILE = 8, 8, 2048
+FABRIC_BUDGET_S = 30.0
 
 
 def fail(msg: str):
@@ -1337,6 +1390,168 @@ def training_phase(seed: int, gen) -> dict:
             "resume": resume, "recurrent": recurrent, "wall_s": wall}
 
 
+def _sha16(text: str) -> str:
+    import hashlib
+
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def fabric_fingerprints() -> dict:
+    """The golden fingerprints, computed by the port as the reference's
+    tests/test_program.py computes them (the deprecated shims included)."""
+    import warnings
+
+    from repro_torch.core import schedules as sched
+    from repro_torch.core.noc.params import PAPER_MICRO
+    from repro_torch.core.noc.traffic import (Trace, TrafficEvent, collective_storm,
+                                              fcl_storm, mixed_storm, replay, summa_storm)
+    from repro_torch.core.overlap import ag_matmul_noc_trace, matmul_rs_noc_trace
+    from repro_torch.core.summa import summa_noc_trace, summa_program
+    from repro_torch.core.topology import Coord, Mesh2D
+
+    def events(evs):
+        return _sha16(json.dumps([e.to_dict() for e in evs], sort_keys=True))
+
+    def replayed(res):
+        return _sha16(json.dumps([res.makespan, [s.done_cycle for s in res.streams],
+                                  [round(s.inject_cycle, 6) for s in res.streams],
+                                  res.phase_end]))
+
+    row8 = [Coord(x, 0) for x in range(8)]
+    row4 = [Coord(x, 0) for x in range(4)]
+    mesh4, mesh8 = Mesh2D(4, 4), Mesh2D(8, 8)
+    got = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for s in FABRIC_SCHEDULES:
+            got[f"broadcast_{s}"] = events(sched.broadcast_noc_events(
+                row8, 2, 8192, schedule=s, chunks=4, params=PAPER_MICRO))
+            got[f"all_reduce_{s}"] = events(sched.all_reduce_noc_events(
+                row8, 8192, schedule=s, params=PAPER_MICRO))
+        got["summa4_native"] = _sha16(summa_noc_trace(mesh4, 2048, schedule="native").to_json())
+        got["summa4_tree"] = _sha16(summa_noc_trace(mesh4, 2048, schedule="tree").to_json())
+        got["summa16_native"] = _sha16(
+            summa_noc_trace(Mesh2D(16, 16), 2048, schedule="native").to_json())
+        got["ag_ring"] = _sha16(ag_matmul_noc_trace(mesh4, row4, 2048).to_json())
+        got["rs_ring"] = _sha16(matmul_rs_noc_trace(mesh4, row4, 2048).to_json())
+    got["summa_storm8"] = _sha16(summa_storm(mesh8, tile_bytes=2048, iters=2,
+                                             interval=3.0).to_json())
+    got["fcl_storm8"] = _sha16(fcl_storm(mesh8, tile_bytes=1024, phases=2).to_json())
+    got["mixed_storm8"] = _sha16(mixed_storm(mesh8, phases=2).to_json())
+    got["collective_storm8"] = _sha16(collective_storm(mesh8, tile_bytes=2048,
+                                                       phases=2).to_json())
+    gap = Trace(4, 4, [  # mixed kinds, sw + hw barriers, a phase-numbering gap
+        TrafficEvent("unicast", phase=0, nbytes=1024, src=(0, 0), dst=(3, 0)),
+        TrafficEvent("barrier", phase=0, dst=(0, 0), flavor="sw",
+                     sources=tuple((x, 0) for x in range(4))),
+        TrafficEvent("barrier", phase=1, dst=(0, 0), sources=tuple((x, 0) for x in range(4))),
+        TrafficEvent("multicast", phase=3, nbytes=2048, src=(1, 1), dst=(0, 0),
+                     x_mask=3, y_mask=3, start=2.5),
+        TrafficEvent("reduction", phase=3, nbytes=512, dst=(2, 2),
+                     sources=((0, 0), (1, 2), (3, 3))),
+    ])
+    summa4 = summa_program(mesh4, 2048, schedule="native").to_trace()
+    for name, trace in (("summa4", summa4), ("gap", gap)):
+        for mode in ("barrier", "window"):
+            got[f"replay_{name}_{mode}"] = replayed(replay(trace, params=PAPER_MICRO, mode=mode))
+    return got
+
+
+def fabric_phase(walls: dict) -> dict:
+    """Phase 8: the goldens, the paper's claims, phase 3's schedules as
+    fabric programs beside its measured walls, and the overlap gate."""
+    from repro_torch.core import schedules as sched
+    from repro_torch.core.noc import calibrate
+    from repro_torch.core.noc.params import PAPER_MICRO
+    from repro_torch.core.noc.program import ProgramBuilder, run_program
+    from repro_torch.core.overlap import ag_matmul_program, matmul_rs_program
+    from repro_torch.core.summa import summa_program
+    from repro_torch.core.topology import Coord, Mesh2D
+
+    t0 = time.perf_counter()
+    print("[fabric] the port's flit-level simulator on the host; cycles are the modelled "
+          "fabric's (PAPER_MICRO), not the card's")
+    want = {**GOLDEN_EMITTERS, **GOLDEN_TRACES, **GOLDEN_REPLAYS}
+    got = fabric_fingerprints()
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad or len(got) != len(want):
+        fail(f"fabric goldens differ (got, want): {bad}")
+    print(f"  {len(want)} golden fingerprints reproduced (emitters, traces, replays)")
+
+    claims = calibrate.all_claims()
+    for c in claims:
+        print(f"  claim {c.name}: paper {c.paper_value:g}, achieved {c.achieved:.4f}"
+              f" {'ok' if c.ok else 'FAIL'}")
+    failed = [c.name for c in claims if not c.ok]
+    if failed:
+        fail(f"paper claims not met: {failed}")
+
+    def makespan(prog):
+        return run_program(prog, PAPER_MICRO, mode="op").makespan
+
+    def beside(kind, cycles, suffix):
+        """Each schedule's simulated cycles and, for each baseline, the
+        simulated native speed-up beside phase 3's warm-wall ratio."""
+        card = {s: walls.get(f"{kind} {s} {suffix}", {}).get("ms") for s in cycles}
+        rows = {}
+        for s, cyc in cycles.items():
+            rows[s] = {"cycles": cyc, "card_warm_ms": card[s]}
+            line = f"  {kind} {s} {suffix}: {cyc:g} cycles"
+            if s != "native":
+                sim = cyc / cycles["native"]
+                ratio = card[s] / card["native"] if card[s] and card["native"] else None
+                rows[s].update(sim_speedup=sim, card_ratio=ratio)
+                shown = f"{ratio:.3f}x" if ratio is not None else "not measured"
+                line += f"; native {sim:.3f}x faster simulated, card warm wall {shown}"
+            print(line)
+        return rows
+
+    mesh4, mesh8 = Mesh2D(4, 4), Mesh2D(8, 8)
+    row8 = [Coord(x, 0) for x in range(8)]
+    summa = beside("summa", {s: makespan(summa_program(mesh4, FABRIC_BYTES, schedule=s))
+                             for s in FABRIC_SCHEDULES}, "4x4")
+    print("  summa ring: no fabric emitter (the reference has none); card only")
+
+    def all_reduce(s):
+        b = ProgramBuilder(mesh8)
+        sched.all_reduce_ops(b, row8, nbytes=FABRIC_BYTES, schedule=s)
+        return makespan(b.build())
+
+    fcl = beside("fcl", {s: all_reduce(s) for s in FABRIC_SCHEDULES}, "x8")
+    rings = {}
+    for name, prog in (("ag_matmul", ag_matmul_program(mesh8, row8, FABRIC_BYTES)),
+                       ("matmul_rs", matmul_rs_program(mesh8, row8, FABRIC_BYTES))):
+        rings[name] = {"cycles": makespan(prog), "card_warm_ms": walls.get(f"{name} x8", {}).get("ms")}
+        print(f"  {name} ring of 8: {rings[name]['cycles']:g} cycles")
+
+    prog = summa_program(Mesh2D(OVERLAP_SIDE, OVERLAP_SIDE), OVERLAP_TILE, iters=OVERLAP_ITERS,
+                         compute_cycles="model")
+    op = makespan(prog)
+    barrier = run_program(prog, PAPER_MICRO, mode="barrier").makespan
+    comm = makespan(prog.comm_only())
+    comp = makespan(prog.compute_only())
+    lower = max(comm, comp)
+    overlap = {"op": op, "barrier": barrier, "comm_only": comm, "compute_only": comp,
+               "overlap_ratio": barrier / op, "headroom_vs_lower_bound": op / lower}
+    print(f"  overlap, SUMMA {OVERLAP_SIDE}x{OVERLAP_SIDE}, {OVERLAP_ITERS} iterations of "
+          f"{OVERLAP_TILE} B with modelled compute: op {op:g} cycles, barrier {barrier:g} "
+          f"({barrier / op:.4f}x), lower bound {lower:g} (op at {op / lower:.4f}x)")
+    if not op < barrier:
+        fail(f"per-op execution ({op}) does not beat the barrier form ({barrier})")
+    if not op >= lower:
+        fail(f"per-op makespan {op} below max(comm-only, compute-only) = {lower}")
+
+    wall = time.perf_counter() - t0
+    print(f"[fabric] phase 8 took {wall:.2f} s (budget {FABRIC_BUDGET_S:g} s)")
+    if wall > FABRIC_BUDGET_S:
+        fail(f"phase 8 took {wall:.1f} s, over its budget of {FABRIC_BUDGET_S:g} s")
+    return {"units": "simulated cycles (PAPER_MICRO fabric), not card time",
+            "goldens": len(want), "claims": {c.name: [c.paper_value, c.achieved]
+                                              for c in claims},
+            "tile_bytes": FABRIC_BYTES, "summa_4x4": summa, "fcl_all_reduce_x8": fcl,
+            "rings_x8": rings, "overlap": overlap, "host_s": wall}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1429,7 +1644,10 @@ def main(argv=None) -> int:
     training = training_phase(args.seed, gen)
     grad_rows = {(r["kernel"], r["route"]): r for r in training["kernel_grads"]}
 
-    # 8. Result lines.  Each route of a kernel is an entry of its own.
+    # 8. The fabric programs of the main path, on the host.
+    fabric = fabric_phase(walls)
+
+    # 9. Result lines.  Each route of a kernel is an entry of its own.
     def entry(name, source, replaces, rows, route=None):
         if route is not None:
             rows = [r for r in rows if r["route"] == route]
@@ -1463,6 +1681,7 @@ def main(argv=None) -> int:
     print(json.dumps({"main_path": walls}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"fabric": fabric}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

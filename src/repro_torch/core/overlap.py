@@ -1,6 +1,6 @@
 """Beyond-paper: latency-hiding collective matmuls.
 
-Port of ``repro.core.overlap`` (the execution half).
+Port of ``repro.core.overlap``.
 
 * ``ag_matmul``: y = all_gather(x) @ W, computed as a bidirectional ring —
   each step multiplies the resident shard while the next shards stream in
@@ -10,7 +10,9 @@ Port of ``repro.core.overlap`` (the execution half).
   fused reduction epilogue.
 
 Every per-step product is one batched launch of the ``gemm`` kernel over
-all members of the stacked mesh.
+all members of the stacked mesh.  ``ag_matmul_program``,
+``matmul_rs_program`` and their deprecated ``*_noc_trace`` shims are the
+reference's, verbatim but for their imports: the rings as fabric programs.
 """
 
 from __future__ import annotations
@@ -86,6 +88,88 @@ def matmul_rs(x, w_shard, axis: str):
         carry = M.ppermute(carry, axis, perm)
         carry = carry + partial_block((idx - 2 - step) % n)
     return carry.to(x.dtype)  # fully-reduced block ``idx``
+
+
+# ---------------------------------------------------------------------------
+# NoC cost paths: the ring traffic the overlapped matmuls put on the mesh,
+# as declarative programs.  One phase per ring step, no barrier ops —
+# under window replay phases advance on fabric drain alone, and the wired
+# per-op deps (step s's send from tile i forwards the shard tile i
+# received at step s-1) give ``run_program(mode='op')`` the exact hop
+# pipeline these schedules are designed around.
+# ---------------------------------------------------------------------------
+
+
+def ag_matmul_program(mesh, members, shard_bytes: int):
+    """The NoC program of ``ag_matmul``: a bidirectional neighbour ring.
+
+    ``members`` is the ordered ring of ``Coord`` tiles (e.g. one mesh
+    row).  Step ``s`` ships every tile's forward shard one hop ahead and
+    (while the backward stream is live) its backward shard one hop back,
+    both directions sharing the fabric.
+    """
+    from repro_torch.core.noc.program import ProgramBuilder
+
+    n = len(members)
+    b = ProgramBuilder(mesh)
+    steps_f, steps_b = n // 2, (n - 1) // 2
+    prev_f: dict[int, int] = {}
+    prev_b: dict[int, int] = {}
+    for s in range(max(steps_f, steps_b)):
+        cur_f: dict[int, int] = {}
+        cur_b: dict[int, int] = {}
+        for i in range(n):
+            if s < steps_f:
+                cur_f[i] = b.unicast(
+                    members[i], members[(i + 1) % n], shard_bytes, phase=s,
+                    deps=prev_f.get((i - 1) % n))
+            if s < steps_b:
+                cur_b[i] = b.unicast(
+                    members[i], members[(i - 1) % n], shard_bytes, phase=s,
+                    deps=prev_b.get((i + 1) % n))
+        prev_f, prev_b = cur_f, cur_b
+    return b.build()
+
+
+def matmul_rs_program(mesh, members, block_bytes: int):
+    """The NoC program of ``matmul_rs``: a unidirectional accumulation
+    ring (tile ``i`` forwards at step ``s`` the partial sum it received
+    from ``i - 1`` at step ``s - 1``)."""
+    from repro_torch.core.noc.program import ProgramBuilder
+
+    n = len(members)
+    b = ProgramBuilder(mesh)
+    prev: dict[int, int] = {}
+    for s in range(n - 1):
+        cur: dict[int, int] = {}
+        for i in range(n):
+            cur[i] = b.unicast(
+                members[i], members[(i + 1) % n], block_bytes, phase=s,
+                deps=prev.get((i - 1) % n))
+        prev = cur
+    return b.build()
+
+
+def ag_matmul_noc_trace(mesh, members, shard_bytes: int):
+    """Deprecated shim: flat-trace form of :func:`ag_matmul_program`."""
+    import warnings
+
+    warnings.warn(
+        "ag_matmul_noc_trace is deprecated; build a program with "
+        "overlap.ag_matmul_program and run it with noc.program.run_program",
+        DeprecationWarning, stacklevel=2)
+    return ag_matmul_program(mesh, members, shard_bytes).to_trace()
+
+
+def matmul_rs_noc_trace(mesh, members, block_bytes: int):
+    """Deprecated shim: flat-trace form of :func:`matmul_rs_program`."""
+    import warnings
+
+    warnings.warn(
+        "matmul_rs_noc_trace is deprecated; build a program with "
+        "overlap.matmul_rs_program and run it with noc.program.run_program",
+        DeprecationWarning, stacklevel=2)
+    return matmul_rs_program(mesh, members, block_bytes).to_trace()
 
 
 def ag_matmul_sharded(x, w, mesh, axis: str = "model"):

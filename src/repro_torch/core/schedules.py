@@ -1,6 +1,6 @@
 """Collective schedules: the paper's SW baselines and HW path, on mesh axes.
 
-Port of ``repro.core.schedules`` (the collective half).  Each schedule is an
+Port of ``repro.core.schedules``.  Each schedule is an
 SPMD program over one named axis of the stacked mesh (``core.mesh``): a
 tensor's leading dims are the mesh members, and a member's dim 0 in the
 reference body is dim ``mesh.ndim`` here.  The taxonomy is the reference's:
@@ -24,6 +24,11 @@ as in the reference.
 
 All schedules assume a power-of-two axis size, matching the paper's
 (dst, mask) submesh constraint (Section 3.2.2) — enforced here.
+
+The fabric-program emitters at the end (``broadcast_ops``,
+``all_reduce_ops`` and their deprecated ``*_noc_events`` shims) are the
+reference's, verbatim but for their imports: they append a schedule's
+traffic to a ``noc.program.ProgramBuilder`` for the flit-level simulator.
 """
 
 from __future__ import annotations
@@ -253,3 +258,191 @@ def barrier(axis: str, schedule: str = "native"):
     if schedule == "native":
         return M.psum(token, axis)
     return all_reduce(token.unsqueeze(mesh.ndim), axis, schedule="tree")[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# NoC cost paths: map each schedule onto the fabric traffic it generates.
+#
+# These emitters mirror the taxonomy above one-to-one but append typed
+# ops to a ``noc.program.ProgramBuilder`` (src/dst streams with
+# model-derived start offsets), so a whole schedule becomes part of a
+# declarative ``Program`` that ``noc.program.run_program`` executes
+# *under shared-fabric contention* — composing end-to-end workload
+# estimates with interference, which summing the idle-network model
+# times of ``noc/model.py`` cannot do.  The start offsets within one
+# collective are the analytical per-stage terms (Eqs 1-6), so flattening
+# the ops back to a trace reproduces the historical ``*_noc_events``
+# output bit-for-bit (the native all-reduce needs ``pipeline="offsets"``
+# for that; its default wires a true reduction→multicast dep instead);
+# cross-collective sequencing is expressed through the ``deps`` argument
+# (per-op gating) or the ``phase`` stamp (barrier/window modes).
+# ---------------------------------------------------------------------------
+
+
+def broadcast_ops(builder, members, root: int = 0, nbytes: int = 0,
+                  schedule: str = "native", chunks: int = 1, deps=None,
+                  phase: int | None = None, params=None) -> list[int]:
+    """Append the fabric traffic of ``broadcast`` to ``builder``.
+
+    ``members`` is the ordered list of ``Coord`` tiles forming the axis
+    (a mesh row/column for the paper's collectives).  Every emitted op
+    carries ``deps`` (its release gate under per-op execution) and
+    ``phase``; stage start offsets follow the per-stage terms of the
+    analytical models (Eqs 1-4).  Returns the new op ids.
+    """
+    from repro_torch.core.noc.params import NoCParams
+    from repro_torch.core.topology import multi_address_for
+
+    p = params or NoCParams()
+    n = len(members)
+    _check_pow2(n, "broadcast_ops")
+    beats = p.beats(nbytes)
+    if schedule == "native":
+        ma = multi_address_for(members)
+        return [builder.multicast(members[root], ma, nbytes, deps=deps,
+                                  phase=phase)]
+    out = []
+    if schedule in ("chain", "pipelined"):
+        k = chunks if schedule == "pipelined" else 1
+        chunk_bytes = max(1, nbytes // k)
+        stage = p.alpha(1) + p.beats(chunk_bytes) * p.beta + p.delta
+        for i in range(n - 1):
+            src, dst = members[(root + i) % n], members[(root + i + 1) % n]
+            for j in range(k):
+                out.append(builder.unicast(src, dst, chunk_bytes,
+                                           start=(i + j) * stage, deps=deps,
+                                           phase=phase))
+        return out
+    if schedule == "tree":
+        t = 0.0
+        for s in range(n.bit_length() - 1):
+            dist = 1 << s
+            for i in range(dist):
+                src = members[(root + i) % n]
+                dst = members[(root + i + dist) % n]
+                out.append(builder.unicast(src, dst, nbytes, start=t,
+                                           deps=deps, phase=phase))
+            t += p.alpha(dist) + beats * p.beta + p.delta
+        return out
+    raise ValueError(f"unknown schedule {schedule!r}")
+
+
+def all_reduce_ops(builder, members, nbytes: int = 0, schedule: str = "native",
+                   root: int = 0, deps=None, phase: int | None = None,
+                   params=None, pipeline: str = "deps") -> list[int]:
+    """Append the fabric traffic of ``all_reduce`` to ``builder``.
+
+    The native path is the paper's AXI coupling: one wide in-network
+    reduction into ``members[root]`` followed by a multicast of the
+    result.  ``pipeline`` selects how that ordering is expressed:
+
+    * ``"deps"`` (default) — the multicast *depends on* the reduction op,
+      so per-op execution (``run_program(mode='op')``) is exactly causal
+      even when contention delays the reduction.  This form does not
+      flatten to the legacy trace (``to_trace`` drops deps, leaving the
+      pair concurrent under barrier/window replay).
+    * ``"offsets"`` — the multicast injects at the analytic reduction
+      model time (``model.reduction_hw``) with no dep edge: the
+      flat-trace emulation the deprecated ``all_reduce_noc_events`` shim
+      flattens bit-identically, correct under barrier/window modes but
+      optimistic under ``mode='op'`` if the simulated reduction runs
+      longer than the model.
+
+    Returns the new op ids.
+    """
+    from repro_torch.core.noc import model as m
+    from repro_torch.core.noc.params import NoCParams
+    from repro_torch.core.topology import multi_address_for
+
+    if pipeline not in ("deps", "offsets"):
+        raise ValueError(f"pipeline must be 'deps' or 'offsets', got {pipeline!r}")
+    p = params or NoCParams()
+    n = len(members)
+    _check_pow2(n, "all_reduce_ops")
+    beats = p.beats(nbytes)
+    if schedule == "native":
+        ma = multi_address_for(members)
+        red = builder.reduction(members, members[root], nbytes, deps=deps,
+                                phase=phase)
+        if pipeline == "deps":
+            mc = builder.multicast(members[root], ma, nbytes,
+                                   deps=[deps, red], phase=phase)
+        else:
+            t_red = m.reduction_hw(p, beats, n)
+            mc = builder.multicast(members[root], ma, nbytes, start=t_red,
+                                   deps=deps, phase=phase)
+        return [red, mc]
+    out = []
+    if schedule == "tree":
+        t = 0.0
+        stage = p.alpha(1) + beats * p.beta + max(beats * p.beta_c, 0.0) + p.delta
+        for s in range(n.bit_length() - 1):
+            dist = 1 << s
+            for i in range(n):
+                out.append(builder.unicast(members[i], members[i ^ dist],
+                                           nbytes, start=t, deps=deps,
+                                           phase=phase))
+            t += stage
+        return out
+    if schedule in ("chain", "pipelined"):
+        # ring reduce-scatter + all-gather; 'chain' moves whole tensors,
+        # 'pipelined' moves 1/n chunks (the software k = n limit).
+        chunk_bytes = max(1, nbytes // n) if schedule == "pipelined" else nbytes
+        stage = p.alpha(1) + p.beats(chunk_bytes) * p.beta + p.delta
+        steps = 2 * (n - 1) if schedule == "pipelined" else n - 1
+        for s in range(steps):
+            for i in range(n):
+                out.append(builder.unicast(members[i], members[(i + 1) % n],
+                                           chunk_bytes, start=s * stage,
+                                           deps=deps, phase=phase))
+        return out
+    raise ValueError(f"unknown schedule {schedule!r}")
+
+
+def _member_builder(members):
+    """A builder over the bounding mesh of ``members`` (shim helper: the
+    legacy event emitters never knew the mesh, only the axis tiles)."""
+    from repro_torch.core.noc.program import ProgramBuilder
+    from repro_torch.core.topology import Mesh2D
+
+    cols = max(x for x, _ in (tuple(c) for c in members)) + 1
+    rows = max(y for _, y in (tuple(c) for c in members)) + 1
+    return ProgramBuilder(Mesh2D(cols, rows))
+
+
+def broadcast_noc_events(members, root: int, nbytes: int, schedule: str = "native",
+                         chunks: int = 1, phase: int = 0, params=None):
+    """Deprecated shim: flat-event form of :func:`broadcast_ops`.
+
+    Returns the bit-identical ``TrafficEvent`` list the pre-program
+    emitter produced; migrate to ``broadcast_ops`` + ``ProgramBuilder``.
+    """
+    import warnings
+
+    warnings.warn(
+        "broadcast_noc_events is deprecated; emit through "
+        "noc.program.ProgramBuilder via schedules.broadcast_ops",
+        DeprecationWarning, stacklevel=2)
+    b = _member_builder(members)
+    broadcast_ops(b, members, root=root, nbytes=nbytes, schedule=schedule,
+                  chunks=chunks, phase=phase, params=params)
+    return b.build().to_events()
+
+
+def all_reduce_noc_events(members, nbytes: int, schedule: str = "native",
+                          root: int = 0, phase: int = 0, params=None):
+    """Deprecated shim: flat-event form of :func:`all_reduce_ops`.
+
+    Returns the bit-identical ``TrafficEvent`` list the pre-program
+    emitter produced; migrate to ``all_reduce_ops`` + ``ProgramBuilder``.
+    """
+    import warnings
+
+    warnings.warn(
+        "all_reduce_noc_events is deprecated; emit through "
+        "noc.program.ProgramBuilder via schedules.all_reduce_ops",
+        DeprecationWarning, stacklevel=2)
+    b = _member_builder(members)
+    all_reduce_ops(b, members, nbytes=nbytes, schedule=schedule, root=root,
+                   phase=phase, params=params, pipeline="offsets")
+    return b.build().to_events()

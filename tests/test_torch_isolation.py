@@ -44,7 +44,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.runtime.server", "repro_torch.runtime.trainer",
             "repro_torch.optim.adamw", "repro_torch.optim.compress",
             "repro_torch.optim.schedule", "repro_torch.data.pipeline",
-            "repro_torch.checkpoint.manager", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.checkpoint.manager", "repro_torch.launch.train",
+            "repro_torch.core.topology", "repro_torch.core.noc.netsim",
+            "repro_torch.core.noc.program", "repro_torch.core.noc.calibrate"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -69,6 +71,24 @@ def test_no_source_names_jax_or_repro(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
+
+
+def test_unported_noc_parts_raise_not_implemented():
+    """The shard engine and the service are later slices: the port says so
+    rather than fall back to another engine."""
+    from repro_torch.core.noc import fingerprint
+    from repro_torch.core.noc.netsim import NoCSim
+    from repro_torch.core.topology import Coord, Mesh2D
+
+    sim = NoCSim(Mesh2D(2, 2))
+    sim.add_unicast(Coord(0, 0), Coord(1, 1), 64)
+    for engine in ("shard", "shard:2x2:1"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            sim.run(engine=engine)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fingerprint.store_schema_doc()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fingerprint.store_schema_parts()
 
 
 def test_kernel_sources_are_in_the_package():
