@@ -71,7 +71,19 @@ Phases, each of which raises on failure:
    their simulated cycles and native-over-baseline speed-ups beside phase
    3's measured warm-wall ratios (printed, held to nothing); the overlap
    gate (the 8x8 SUMMA with modelled compute beats its barrier form and
-   stays at or above max(comm-only, compute-only)); all within 30 s;
+   stays at or above max(comm-only, compute-only)); then the simulator's
+   runtime half at the reference's largest documented sizes, each result
+   pinned to the reference's: the 64x64 collective storm on ``heap``,
+   ``shard:1x2:1`` and ``shard::W`` (W = min(4, CPUs)) and the 128x128
+   storm on ``shard::W`` and ``shard:1x2:1``, whose run pauses at half its
+   makespan to write a checkpoint that is restored and resumed on
+   ``shard::W`` to the uninterrupted run; a mid-run link fault on the
+   16x16 storm; a Collector on a 16x16 transpose, equal on ``heap`` and
+   ``shard:2x2:W``; and a sweep through a ``SimulationServer`` with 2 fork
+   workers, cold, warm (memo hits) and after a restart on its store (store
+   hits).  A shard run that asked for fork workers fails if it had fewer,
+   or respawned, retried or degraded one; all within ``FABRIC_BUDGET_S``
+   of host time;
 9. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
    ``{"kernels": [...]}`` line, one entry per route of each kernel (with
    its gradient's method and times where it has one), and, last, the
@@ -87,11 +99,16 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -229,7 +246,35 @@ GOLDEN_REPLAYS = {
 FABRIC_BYTES = 32 * 1024
 FABRIC_SCHEDULES = ("native", "chain", "pipelined", "tree")
 OVERLAP_SIDE, OVERLAP_ITERS, OVERLAP_TILE = 8, 8, 2048
-FABRIC_BUDGET_S = 30.0
+# The simulator's runtime half (phase 8) at the reference's largest documented
+# sizes: the collective storm of benchmarks/bench_engine.py (storm64, storm128:
+# one phase of 2 KiB tiles) on the heap and region-sharded engines, a 128x128
+# checkpoint and resume, bench_resilience.py's mid-run fault (16x16 storm, the
+# link (7,8)->(8,8) dies at a third of the pristine makespan), a Collector on
+# bench_telemetry.py's 16x16 transpose (xy, 2 VCs) and bench_service.py's grid
+# through a SimulationServer.  The pinned numbers are the reference's results,
+# which tests/test_torch_noc_copies.py recomputes with repro.
+STORM_TILE = 2048
+FABRIC_PINNED = {
+    "storm64_makespan": 147,
+    "storm128_makespan": 211,
+    "storm128_snapshot_sha256": "534e9ff1cf63f427",
+    "midrun_pristine": 99,
+    "midrun_static": 154,
+    "midrun_fault": 134,
+    "midrun_relowered": 1,
+    "midrun_dropped": 0,
+    "telemetry_peak_utilization": 0.8664,
+}
+TELEMETRY_CASE = {"pattern": "transpose", "rate": 0.18, "nbytes": 256, "packets_per_node": 8,
+                  "seed": 0}
+SERVICE_GRID = {"mesh": (8, 8), "pattern": "transpose",
+                "rates": [0.02, 0.04, 0.06, 0.08, 0.1, 0.12], "packets_per_node": 4, "seed": 7}
+# Phase 8 took 45.5-51.6 host s on an H100 machine's 8 CPUs; the budget is
+# twice the slowest, a bound that catches a hung server or fork worker
+# without failing on a noisy host.  A worker the supervisor finds wedged
+# (after its 60 s op deadline) fails the phase through the respawn check.
+FABRIC_BUDGET_S = 105.0
 
 
 def fail(msg: str):
@@ -1391,16 +1436,12 @@ def training_phase(seed: int, gen) -> dict:
 
 
 def _sha16(text: str) -> str:
-    import hashlib
-
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
 def fabric_fingerprints() -> dict:
     """The golden fingerprints, computed by the port as the reference's
     tests/test_program.py computes them (the deprecated shims included)."""
-    import warnings
-
     from repro_torch.core import schedules as sched
     from repro_torch.core.noc.params import PAPER_MICRO
     from repro_torch.core.noc.traffic import (Trace, TrafficEvent, collective_storm,
@@ -1457,9 +1498,297 @@ def fabric_fingerprints() -> dict:
     return got
 
 
+def storm_sim(side: int, faults=None):
+    """One phase of the collective storm on a ``side`` x ``side`` mesh, lowered
+    onto one sim as bench_engine.py's storm128 legs and bench_resilience.py
+    lower it (barriers and compute are not fabric traffic)."""
+    from repro_torch.core.noc.netsim import NoCSim
+    from repro_torch.core.noc.params import PAPER_MICRO
+    from repro_torch.core.noc.program import from_trace
+    from repro_torch.core.noc.program.lower import add_op, effective_params
+    from repro_torch.core.noc.program.ops import BarrierOp, ComputeOp
+    from repro_torch.core.noc.traffic import collective_storm
+    from repro_torch.core.topology import Mesh2D
+
+    prog = from_trace(collective_storm(Mesh2D(side, side), tile_bytes=STORM_TILE, phases=1))
+    p = effective_params(prog, PAPER_MICRO, None, None)
+    if faults is not None:
+        p = dataclasses.replace(p, faults=faults)
+    sim = NoCSim(prog.mesh, p)
+    for op in prog.ops:
+        if not isinstance(op, (BarrierOp, ComputeOp)):
+            add_op(sim, op, op.start, p)
+    return sim
+
+
+def sim_doc(sim) -> str:
+    """sha256 of a finished run: each stream's done cycle, VC and arrivals on
+    every edge, and the arbitration counter."""
+    doc = [[[st.done_cycle, st.vc, sorted([a.x, a.y, b.x, b.y, list(arr)]
+                                           for (a, b), arr in st.arrivals.items())]
+             for st in sim.streams], sim._rr]
+    return hashlib.sha256(json.dumps(doc).encode()).hexdigest()
+
+
+def shard_run(sim, engine: str, **kw):
+    """``sim.run`` on a shard engine, held to what its spec resolves to on
+    this mesh (``ShardConfig.resolve``), not to what the run reports: every
+    region of the grid, and one fork worker for each up to the number asked
+    for, with no respawn, retry or degradation to in-process execution (any of
+    which still gives the right cycles), and no warning from the engine.
+    Returns the profile, the host seconds and the worker counters."""
+    from repro_torch.core.noc.shard import parse_shard_engine
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        prof = sim.run(engine=engine, profile=True, **kw)
+        secs = time.perf_counter() - t0
+    (gx, gy), asked = parse_shard_engine(engine).resolve(sim.mesh)
+    want = min(asked, gx * gy) if asked > 1 and gx * gy > 1 else 0
+    workers = {k: getattr(prof, k) for k in ("workers", "worker_respawns", "worker_retries",
+                                             "worker_degradations")}
+    warned = [str(w.message) for w in caught if "shard engine" in str(w.message)]
+    if prof.regions != gx * gy:
+        fail(f"{engine}: {prof.regions} regions, not the {gx}x{gy} grid it resolves to")
+    if (workers["workers"] != want or workers["worker_respawns"] or workers["worker_retries"]
+            or workers["worker_degradations"] or warned):
+        fail(f"{engine}: not on the {want} fork workers it asked for: {workers} {warned}")
+    return prof, secs, workers
+
+
+def large_mesh_runs(workers: int, ckpt_path: Path) -> tuple[dict, dict, dict]:
+    """The 64x64 and 128x128 storms on the heap and shard engines: each
+    makespan is the pinned one and all engines give the same run.  The
+    serial shard run of the 128x128 storm pauses at half its makespan, writes
+    its snapshot to ``ckpt_path`` and runs on from there."""
+    from repro_torch.core.noc.resilience import checkpoint
+
+    rows, docs, ckpt = {}, {}, {}
+    for side, engines in ((64, ("heap", "shard:1x2:1", f"shard::{workers}")),
+                          (128, (f"shard::{workers}", "shard:1x2:1"))):
+        want = FABRIC_PINNED[f"storm{side}_makespan"]
+        for engine in engines:
+            t0 = time.perf_counter()
+            sim = storm_sim(side)
+            lower_s = time.perf_counter() - t0
+            if engine == "heap":
+                t0 = time.perf_counter()
+                prof = sim.run(engine=engine, profile=True)
+                secs, counts = time.perf_counter() - t0, {}
+            elif side == 128 and engine == "shard:1x2:1":
+                cut = want // 2
+                prof, pause_s, _ = shard_run(sim, engine, stop_at=cut)
+                if prof.makespan != cut:
+                    fail(f"the 128x128 storm paused at cycle {prof.makespan}, not {cut}")
+                t0 = time.perf_counter()
+                snap = checkpoint(sim, cut)
+                snap.save(ckpt_path)
+                ckpt = {"cut": cut, "snapshot_bytes": ckpt_path.stat().st_size,
+                        "fingerprint": snap.fingerprint, "save_s": time.perf_counter() - t0}
+                rest, rest_s, counts = shard_run(sim, engine, start_cycle=cut)
+                prof.absorb(rest)
+                secs = pause_s + rest_s
+            else:
+                prof, secs, counts = shard_run(sim, engine)
+            counters = prof.counters()
+            rows[f"{side}x{side} {engine}"] = {"makespan": prof.makespan, "streams": len(sim.streams),
+                                               "lower_s": lower_s, "run_s": secs,
+                                               "counters": counters}
+            print(f"  storm {side}x{side} on {engine}: {prof.makespan} cycles, "
+                  f"{len(sim.streams)} streams; host {lower_s:.2f} s lowering + {secs:.2f} s "
+                  f"run; epochs {counters['epochs']}, boundary reconciliations "
+                  f"{counters['boundary_reconciliations']}, regions {counters['regions']}, "
+                  f"heap pops {counters['heap_pops']}, workers {counts}")
+            if prof.makespan != want:
+                fail(f"storm {side}x{side} on {engine}: makespan {prof.makespan}, want {want}")
+            docs[(side, engine)] = sim_doc(sim)
+            del sim
+        if len({d for (s, _), d in docs.items() if s == side}) != 1:
+            fail(f"storm {side}x{side}: the engines' runs differ")
+    return rows, docs, ckpt
+
+
+def checkpoint_resume(workers: int, ckpt: dict, ckpt_path: Path, want_doc: str) -> dict:
+    """Load the 128x128 storm's snapshot, restore it and resume on the fork
+    workers: the same run as the uninterrupted one."""
+    from repro_torch.core.noc.resilience import Snapshot, restore
+
+    t0 = time.perf_counter()
+    loaded = Snapshot.load(ckpt_path)
+    resumed = restore(loaded)
+    load_s = time.perf_counter() - t0
+    prof, resume_s, counts = shard_run(resumed, f"shard::{workers}", start_cycle=ckpt["cut"])
+    row = {**ckpt, "makespan": prof.makespan, "load_restore_s": load_s, "resume_s": resume_s,
+           "workers": counts}
+    print(f"  checkpoint 128x128 at cycle {ckpt['cut']} of the serial shard run: "
+          f"{ckpt['snapshot_bytes']} snapshot bytes (sha256 {ckpt['fingerprint'][:16]}); host "
+          f"{ckpt['save_s']:.2f} s snapshot + write, {load_s:.2f} s load + restore, "
+          f"{resume_s:.2f} s resume on shard::{workers}: {prof.makespan} cycles")
+    if loaded.fingerprint != ckpt["fingerprint"]:
+        fail("the 128x128 snapshot read back with another fingerprint")
+    if ckpt["fingerprint"][:16] != FABRIC_PINNED["storm128_snapshot_sha256"]:
+        fail(f"the 128x128 snapshot's fingerprint {ckpt['fingerprint'][:16]} is not the "
+             f"reference's {FABRIC_PINNED['storm128_snapshot_sha256']}")
+    if prof.makespan != FABRIC_PINNED["storm128_makespan"] or sim_doc(resumed) != want_doc:
+        fail(f"the resumed 128x128 run ({prof.makespan} cycles) is not the uninterrupted one")
+    return row
+
+
+def midrun_fault(workers: int) -> dict:
+    """bench_resilience.py's mid-run case: pristine, static-fault and mid-run
+    fault makespans and the re-lowered streams are the pinned ones, and the
+    mid-run fault gives the same run on the shard engine as on heap."""
+    from repro_torch.core.noc.faults.model import FaultSet
+    from repro_torch.core.noc.resilience import FaultEvent, FaultTimeline, run_with_timeline
+    from repro_torch.core.topology import Coord
+
+    t0 = time.perf_counter()
+    dead = FaultSet(dead_links=frozenset({(Coord(7, 8), Coord(8, 8))}))
+    pristine = storm_sim(16).run(engine="heap")
+    static = storm_sim(16, faults=dead).run(engine="heap")
+    timeline = FaultTimeline([FaultEvent(pristine // 3, dead)])
+    docs, profs = {}, {}
+    for engine in ("heap", f"shard:2x2:{workers}"):
+        sim = storm_sim(16)
+        profs[engine] = run_with_timeline(sim, timeline, engine=engine, profile=True)
+        docs[engine] = sim_doc(sim)
+    prof = profs["heap"]
+    got = {"midrun_pristine": pristine, "midrun_static": static, "midrun_fault": prof.makespan,
+           "midrun_relowered": prof.relowered_streams, "midrun_dropped": prof.dropped_streams}
+    secs = time.perf_counter() - t0
+    print(f"  mid-run fault, 16x16 storm, link (7,8)->(8,8) dead at cycle {pristine // 3}: "
+          f"{got}; host {secs:.2f} s")
+    bad = {k: (v, FABRIC_PINNED[k]) for k, v in got.items() if v != FABRIC_PINNED[k]}
+    if bad:
+        fail(f"mid-run fault differs from the reference's (got, want): {bad}")
+    if len(set(docs.values())) != 1 or len({p.makespan for p in profs.values()}) != 1:
+        fail("the mid-run fault gives another run on the shard engine than on heap")
+    return {**got, "event_cycle": pristine // 3, "host_s": secs}
+
+
+def telemetry_run(workers: int) -> dict:
+    """A Collector on bench_telemetry.py's 16x16 transpose under xy with 2
+    VCs, on heap and on the fork workers: equal FabricStats, and the pinned
+    peak link utilisation."""
+    from repro_torch.core.noc.params import PAPER_MICRO
+    from repro_torch.core.noc.telemetry import Collector
+    from repro_torch.core.noc.traffic import SyntheticConfig, replay, synthetic_trace
+    from repro_torch.core.topology import Mesh2D
+
+    trace = synthetic_trace(Mesh2D(16, 16), SyntheticConfig(**TELEMETRY_CASE))
+    stats, secs = {}, {}
+    for engine in ("heap", f"shard:2x2:{workers}"):
+        col = Collector()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            replay(trace, params=PAPER_MICRO, routing="xy", num_vcs=2, engine=engine,
+                   telemetry=col)
+            secs[engine] = time.perf_counter() - t0
+        warned = [str(w.message) for w in caught if "shard engine" in str(w.message)]
+        if warned:
+            fail(f"telemetry run on {engine}: {warned}")
+        stats[engine] = col.stats()
+    base = stats["heap"]
+    if any(st != base for st in stats.values()):
+        fail("FabricStats differ between heap and the shard engine")
+    hot = base.link_table(4)
+    peak = hot[0]["utilization"]
+    print(f"  telemetry, 16x16 transpose (xy, 2 VCs): busy {base.total_busy_beats()} beats, "
+          f"peak link utilisation {peak}; host s {secs}; hottest links:")
+    for row in hot:
+        print(f"    {row}")
+    if peak != FABRIC_PINNED["telemetry_peak_utilization"]:
+        fail(f"peak link utilisation {peak}, want {FABRIC_PINNED['telemetry_peak_utilization']}")
+    return {"busy_beats": base.total_busy_beats(), "peak_link_utilization": peak,
+            "hot_links": hot, "host_s": secs}
+
+
+def drain(srv) -> bool:
+    """Drain ``srv``: True when every job it accepted finished.  The drain
+    closes the listening socket, which does not wake the server's thread
+    blocked in accept() on it (its close() would wait 5 s for that thread);
+    a connection made after the drain wakes it, and it exits."""
+    final = srv.drain(timeout=30)
+    with contextlib.suppress(OSError), socket.socket(socket.AF_UNIX) as wake:
+        wake.connect(srv.path)
+    return final["jobs"]["submitted"] == final["jobs"]["done"] and final["queue_depth"] == 0
+
+
+def service_run(tmp: Path) -> dict:
+    """bench_service.py's grid through a SimulationServer with 2 fork
+    workers, cold then warm (all memo hits), then a fresh server on the same
+    store (all store hits); every row equals a direct saturation_sweep."""
+    import multiprocessing
+
+    from repro_torch.core.noc.service import ServiceClient, SimulationServer
+    from repro_torch.core.noc.traffic.sweep import saturation_sweep
+    from repro_torch.core.topology import Mesh2D
+
+    n = len(SERVICE_GRID["rates"])
+    grid = {k: v for k, v in SERVICE_GRID.items() if k not in ("mesh", "pattern", "rates")}
+    t0 = time.perf_counter()
+    direct = saturation_sweep(Mesh2D(*SERVICE_GRID["mesh"]), SERVICE_GRID["pattern"],
+                              SERVICE_GRID["rates"], **grid)
+    out = {"direct_s": time.perf_counter() - t0}
+    store = str(tmp / "results.jsonl")
+    servers = []
+
+    def serve(**kw):
+        srv = SimulationServer(chunk_tokens=3, store=store, **kw)
+        servers.append(srv)
+        return srv
+
+    try:
+        srv = serve(workers=2)
+        with ServiceClient(srv.path) as cli:
+            for leg in ("cold", "warm"):
+                t0 = time.perf_counter()
+                pts = cli.submit_sweep(**SERVICE_GRID).sweep_points()
+                out[f"{leg}_s"] = time.perf_counter() - t0
+                if pts != direct:
+                    fail(f"the service's {leg} rows differ from the direct sweep")
+            first = cli.stats()
+        drain(srv)  # flushes the store that the restarted server reads
+        srv = serve(workers=0)
+        with ServiceClient(srv.path) as cli:
+            t0 = time.perf_counter()
+            pts = cli.submit_sweep(**SERVICE_GRID).sweep_points()
+            out["restart_s"] = time.perf_counter() - t0
+            second = cli.stats()
+        if pts != direct:
+            fail("the restarted service's rows differ from the direct sweep")
+    finally:
+        drained = [drain(srv) for srv in servers]
+        for srv in servers:
+            srv.close()
+    left = multiprocessing.active_children()
+    p1, p2 = first["points"], second["points"]
+    out.update(points=n, memo_hits=p1["memo_hits"], computed=p1["computed"],
+               workers=first["workers"], degraded=first["degraded"],
+               worker_respawns=first["worker_respawns"], chunk_retries=first["chunk_retries"],
+               store_hits=p2["store_hits"], restart_computed=p2["computed"])
+    print(f"  service, {SERVICE_GRID['mesh']} {SERVICE_GRID['pattern']} grid of {n} rates: "
+          f"cold {out['cold_s']:.3f} s, warm {out['warm_s']:.4f} s ({p1['memo_hits']} memo "
+          f"hits), restart {out['restart_s']:.4f} s ({p2['store_hits']} store hits), direct "
+          f"{out['direct_s']:.3f} s (host); workers {first['workers']}, degraded "
+          f"{first['degraded']}, respawns {first['worker_respawns']}, chunk retries "
+          f"{first['chunk_retries']}")
+    if not all(drained) or left:
+        fail(f"a server did not drain (drained {drained}, processes left {left})")
+    if (first["workers"] != 2 or first["degraded"] or first["worker_respawns"]
+            or first["chunk_retries"]):
+        fail(f"the service did not run on its 2 fork workers: {first}")
+    if (p1["computed"], p1["memo_hits"]) != (n, n) or (p2["store_hits"], p2["computed"]) != (n, 0):
+        fail(f"service accounting: first server {p1}, restarted {p2}")
+    return out
+
+
 def fabric_phase(walls: dict) -> dict:
     """Phase 8: the goldens, the paper's claims, phase 3's schedules as
-    fabric programs beside its measured walls, and the overlap gate."""
+    fabric programs beside its measured walls, the overlap gate, and the
+    simulator's runtime half at the reference's largest sizes."""
     from repro_torch.core import schedules as sched
     from repro_torch.core.noc import calibrate
     from repro_torch.core.noc.params import PAPER_MICRO
@@ -1541,6 +1870,28 @@ def fabric_phase(walls: dict) -> dict:
     if not op >= lower:
         fail(f"per-op makespan {op} below max(comm-only, compute-only) = {lower}")
 
+    # The runtime half: large meshes on the shard engine, checkpoint and
+    # resume, a mid-run fault, telemetry and the simulation service.
+    workers = min(4, os.cpu_count() or 1)
+    print(f"[fabric] runtime half on the host: {os.cpu_count()} CPUs, shard workers {workers}")
+    parts = {"paper_half": time.perf_counter() - t0}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fabric_") as tmp:
+        ckpt_path = Path(tmp) / "storm128.ckpt.json"
+        large, docs, ckpt = part("large_mesh", large_mesh_runs, workers, ckpt_path)
+        ckpt = part("checkpoint", checkpoint_resume, workers, ckpt, ckpt_path,
+                    docs[(128, f"shard::{workers}")])
+        midrun = part("midrun_fault", midrun_fault, workers)
+        telemetry = part("telemetry", telemetry_run, workers)
+        service = part("service", service_run, Path(tmp))
+    print("  host seconds of each part: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+
     wall = time.perf_counter() - t0
     print(f"[fabric] phase 8 took {wall:.2f} s (budget {FABRIC_BUDGET_S:g} s)")
     if wall > FABRIC_BUDGET_S:
@@ -1549,7 +1900,10 @@ def fabric_phase(walls: dict) -> dict:
             "goldens": len(want), "claims": {c.name: [c.paper_value, c.achieved]
                                               for c in claims},
             "tile_bytes": FABRIC_BYTES, "summa_4x4": summa, "fcl_all_reduce_x8": fcl,
-            "rings_x8": rings, "overlap": overlap, "host_s": wall}
+            "rings_x8": rings, "overlap": overlap, "cpu_count": os.cpu_count(),
+            "shard_workers": workers, "large_mesh": large, "checkpoint": ckpt,
+            "midrun_fault": midrun, "telemetry": telemetry, "service": service,
+            "part_host_s": parts, "host_s": wall}
 
 
 def main(argv=None) -> int:

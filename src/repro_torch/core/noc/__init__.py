@@ -1,10 +1,5 @@
 """Cycle-level substrate reproducing the paper's own evaluation.
 
-The copy of ``repro.core.noc`` in this package lacks ``shard``,
-``resilience``, ``telemetry`` and ``service``, which are not ported yet
-(ROADMAP.md, queue 1 item 2): ``NoCSim.run(engine='shard')`` and
-``fingerprint.store_schema_doc`` raise ``NotImplementedError``.
-
 ``params``    — hardware/runtime parameter sets (+ TPU-pod mapping)
 ``model``     — the paper's analytical runtime models, Eqs (1)-(6), (10)-(15)
 ``netsim``    — flit-level 2-D-mesh simulator (multicast fork / reduction

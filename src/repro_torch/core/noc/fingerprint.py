@@ -148,9 +148,7 @@ def store_schema_doc() -> dict:
     under a different document must be refused — its keys or rows are
     not comparable to what the running code would produce."""
     from repro_torch.core.noc.params import NoCParams
-    raise NotImplementedError(
-        "store_schema_doc needs service.jobs, which is not ported yet "
-        "(ROADMAP.md, queue 1 item 2: the next NoC slice)")
+    from repro_torch.core.noc.service.jobs import POINT_KEY_SCHEME
     from repro_torch.core.noc.traffic.sweep import SweepPoint
 
     return {

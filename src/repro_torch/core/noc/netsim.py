@@ -1039,9 +1039,11 @@ class NoCSim:
             makespan = run_event_driven(self, max_cycles,
                                         stop_at=stop_at, start=start_cycle)
         elif isinstance(engine, str) and engine.startswith("shard"):
-            raise NotImplementedError(
-                "engine='shard' is not ported yet (ROADMAP.md, queue 1 item 2: "
-                "the next NoC slice)")
+            from repro_torch.core.noc.shard import parse_shard_engine, run_shard
+
+            cfg = parse_shard_engine(engine)
+            makespan = run_shard(self, max_cycles, cfg, prof,
+                                 stop_at=stop_at, start=start_cycle)
         elif engine == "cycle":
             makespan = self._run_cycle(max_cycles, stop_at=stop_at,
                                        start=start_cycle)

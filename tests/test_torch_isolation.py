@@ -46,7 +46,10 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.optim.schedule", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.manager", "repro_torch.launch.train",
             "repro_torch.core.topology", "repro_torch.core.noc.netsim",
-            "repro_torch.core.noc.program", "repro_torch.core.noc.calibrate"} <= set(mods)
+            "repro_torch.core.noc.program", "repro_torch.core.noc.calibrate",
+            "repro_torch.core.noc.shard", "repro_torch.core.noc.resilience.checkpoint",
+            "repro_torch.core.noc.telemetry.collector",
+            "repro_torch.core.noc.service.server"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -74,21 +77,40 @@ def test_no_source_names_jax_or_repro(path):
 
 
 def test_unported_noc_parts_raise_not_implemented():
-    """The shard engine and the service are later slices: the port says so
-    rather than fall back to another engine."""
+    """Named for the two calls that raised ``NotImplementedError`` while the
+    shard engine and the service were unported; both now answer as the
+    reference does.  The shard engine runs (and falls back to no other
+    engine: its profile names it), and the result-store schema names the
+    point-key scheme of ``service.jobs``."""
     from repro_torch.core.noc import fingerprint
     from repro_torch.core.noc.netsim import NoCSim
     from repro_torch.core.topology import Coord, Mesh2D
 
-    sim = NoCSim(Mesh2D(2, 2))
-    sim.add_unicast(Coord(0, 0), Coord(1, 1), 64)
+    def run(engine):
+        sim = NoCSim(Mesh2D(2, 2))
+        sim.add_unicast(Coord(0, 0), Coord(1, 1), 64)
+        return sim.run(engine=engine, profile=True)
+
+    heap = run("heap").makespan
     for engine in ("shard", "shard:2x2:1"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            sim.run(engine=engine)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fingerprint.store_schema_doc()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fingerprint.store_schema_parts()
+        prof = run(engine)
+        assert (prof.engine, prof.makespan) == (engine, heap)
+    doc = fingerprint.store_schema_doc()
+    assert doc["point_key"] == "workload_fingerprint:json_token/v1"
+    assert set(fingerprint.store_schema_parts()) == set(doc)
+
+
+def test_noc_substrate_imports_no_torch():
+    """The shard engine's and the service's fork workers must hold no CUDA
+    state: nothing under ``core/noc`` imports torch."""
+    proc = _run(
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch.core.noc as noc\n"
+        "for i in pkgutil.walk_packages(noc.__path__, 'repro_torch.core.noc.'):\n"
+        "    importlib.import_module(i.name)\n"
+        "print('TORCH', 'torch' in sys.modules)\n")
+    assert proc.returncode == 0, proc.stderr
+    assert "TORCH False" in proc.stdout, proc.stdout
 
 
 def test_kernel_sources_are_in_the_package():

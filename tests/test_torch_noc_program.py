@@ -26,7 +26,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PKGS = ("repro", "repro_torch")
 SCHEDULES = ("native", "chain", "pipelined", "tree")
-ENGINES = ("cycle", "event", "heap")
+ENGINES = ("cycle", "event", "heap", "shard:2x2:1")
 MODES = ("op", "barrier", "window")
 STORMS = {
     "summa_storm": dict(tile_bytes=2048, iters=2, interval=3.0),
