@@ -48,6 +48,27 @@ Phases, each of which raises on failure:
    f32 prefill logits through ``wkv`` against its plain version, decode at
    2048 against a prefill of 2049 (a ragged last chunk), then the bf16
    serve twice, with ``wkv`` launched 32 times per prefill;
+6a. serve moonshot-v1-16b-a3b (the capacity-routed MoE: 64 experts,
+   top-6) in the same way, but for its f32 checks, which run at full
+   width and 4 layers on a model built apart and freed before the full
+   one (an f32 copy of all 48 layers would not fit the card): the count of
+   (layer, token) routing choices that differ between the kernel run and
+   the plain run is printed, and should a flip fail the logits gate, the
+   plain run is repeated with the kernel run's routing pinned; the decode
+   gate runs at ``capacity_factor=64`` (no drops), as the reference's own
+   gate.  Then the bf16 serve at full depth (48 layers, 52.3 GiB of
+   weights), twice, with ``flash_attention`` launched 48 times per prefill
+   on its tensor-core route;
+6b. phi3.5-moe at full width and 2 layers in f32: the same checks, no
+   serve (84 GB in bf16 at full depth);
+6c. whisper-base at full width and depth (6 encoder and 6 decoder layers
+   over 1500 frames, 4 sequences): f32 prefill logits through
+   ``flash_attention`` (the decoder's causal self-attention; the
+   bidirectional encoder and the cross-attention are plain) against plain
+   attention, decode at 447 against a prefill of 448 (whisper's text
+   context), then in bf16 two greedy generations through ``prefill`` and
+   ``decode_step`` (4 prompts of 416 tokens, 32 new), equal, with 6
+   tensor-core launches per prefill;
 7. train: each kernel's ``autograd.Function`` (``flash_attention`` in f32
    on its ``mma_sync`` route and in bf16 on its wgmma route,
    ``rglru_scan``, ``wkv``) against autograd through its plain version at
@@ -86,7 +107,8 @@ Phases, each of which raises on failure:
    of host time;
 9. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
    ``{"kernels": [...]}`` line, one entry per route of each kernel (with
-   its gradient's method and times where it has one), and, last, the
+   its gradient's method and times where it has one, and its launches in
+   each model's phase, ``launches_by_model``), and, last, the
    ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, when no CUDA card is present.
@@ -164,7 +186,20 @@ SERVES = (
     dict(arch="yi_6b", kernels={"flash_attention": 32}, gate=WAVE),
     dict(arch="recurrentgemma_2b", kernels={"rglru_scan": 18, "flash_attention": 8}, gate=2600),
     dict(arch="rwkv6_3b", kernels={"wkv": 32}, gate=2048),
+    # The MoE transformers (phases 6a-6b): moonshot's f32 checks at 4 of its
+    # 48 layers (an f32 copy of the full model, 112 GB, would not fit the
+    # card), then its bf16 serve at full depth (52.3 GiB of weights);
+    # phi3.5-moe (84 GB in bf16 at full depth) only its f32 checks at 2.
+    dict(arch="moonshot_v1_16b", kernels={"flash_attention": 48}, gate=WAVE, check_layers=4),
+    dict(arch="phi3_5_moe", kernels={"flash_attention": 32}, gate=WAVE, check_layers=2,
+         serve=False),
 )
+# whisper-base (phase 6c): 4 sequences over the encoder's 1500 frames, the
+# decode gate at the last position of its text context (n_text_ctx = 448,
+# arXiv:2212.04356), and generation of MAX_NEW tokens after prompts that
+# end MAX_NEW short of it.
+WHISPER_SEQS, WHISPER_TEXT_CTX = 4, 448
+WHISPER_PROMPT = WHISPER_TEXT_CTX - MAX_NEW
 # Recurrence kernel cases: the hybrid's wave (B, S, lru width), the rwkv6
 # wave (B, S, heads, head size), and ragged S.
 RGLRU_WAVE = (4, WAVE, 2560)
@@ -457,6 +492,12 @@ def flash_cases(gen):
         case(*GEMMA_LOCAL, bf16, BF16_RTOL, 10, atol=1e-5),
         case(*GEMMA_LOCAL, f32, 1e-4, 3),
         case(*RAGGED, 0, f32, 1e-4, 10),
+        # phase 6a's moonshot wave (4 sequences x 16 heads of 128), and
+        # phase 6c's whisper decoder (4 x 8 heads of 64; its bf16 prompts
+        # and f32 text context)
+        case(4 * 16, WAVE, 128, 0, bf16, BF16_RTOL, 20, atol=1e-5),
+        case(4 * 8, WHISPER_PROMPT, 64, 0, bf16, BF16_RTOL, 20, atol=1e-5),
+        case(4 * 8, WHISPER_TEXT_CTX, 64, 0, f32, 1e-4, 20),
     ]
 
 
@@ -819,49 +860,133 @@ def plain_kernels(names):
         yield
 
 
-def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
+def build_model(fam, cfg, gen, tag: str = "serve"):
+    """``fam.init`` on the card; prints the model's shape; returns (model, n_params)."""
+    t0 = time.perf_counter()
+    model = fam.init(gen, cfg, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.head_dim} (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}"
+          + (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts else "")
+          + (f", {cfg.encoder_layers} encoder layers over {cfg.encoder_len} frames"
+             if cfg.encoder_layers else "")
+          + f", vocab {cfg.vocab}; {n_params / 1e9:.3f} B parameters in "
+          f"{str(cfg.param_dtype).split('.')[-1]}, initialised in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return model, n_params
+
+
+def logits_check(out: dict, key: str, name: str, got, ref, gate: bool = True) -> bool:
+    """``got`` within SERVE_RTOL x max|ref| of ``ref``: records the numbers
+    in ``out[key]``; fails, or returns False when not ``gate``."""
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}, or not finite")
+    err = rel_err(got, ref)[0]
+    scale = ref.abs().max().item()
+    ok = err <= SERVE_RTOL * scale
+    if not ok and gate:
+        fail(f"{name}: max_abs_err {err:.3e} above {SERVE_RTOL} x max|logits| {scale:.3e}")
+    print(f"  {name}: max_abs_err {err:.3e}, max|logits| {scale:.3e} "
+          f"(ratio {err / scale:.3e} {'<=' if ok else 'above'} {SERVE_RTOL})", flush=True)
+    out[key] = {"max_abs_err": err, "max_abs": scale}
+    return ok
+
+
+@contextlib.contextmanager
+def routing(replay=None):
+    """Record each MoE layer's routing, ``(gate_vals, gate_idx, aux)`` in
+    call order, into the list yielded; with ``replay`` (such a list), hand
+    the router's callers those in place of its own."""
+    from unittest import mock
+
+    from repro_torch.models import mlp as mlp_mod
+
+    real, record = mlp_mod._route, []
+
+    def route(params, xf, cfg):
+        got = real(params, xf, cfg) if replay is None else replay[len(record)]
+        record.append(got)
+        return got
+
+    with mock.patch.object(mlp_mod, "_route", route):
+        yield record
+
+
+def routing_flips(a: list, b: list) -> int:
+    """(layer, token) routing choices that differ between two records."""
+    return sum(int((ra[1] != rb[1]).any(-1).sum()) for ra, rb in zip(a, b))
+
+
+def profile_calls(out: dict, calls: dict):
+    """A warm and a profiled run of each of ``calls`` (name -> fn, in order),
+    into ``out["profiled_<name>"]``: walls, peak memory, device busy time
+    and the idle share against the unprofiled warm wall (as in phase 3:
+    the profiler's own host overhead stretches the profiled wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        for name, fn in calls.items():
+            walls = {}
+            for run in ("warm", "profiled"):
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+                    if run == "profiled" else contextlib.nullcontext()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with prof:
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls[run] = (time.perf_counter() - t) * 1e3
+                if run == "warm":
+                    call_peak = torch.cuda.max_memory_allocated() / 2**30
+            br = device_breakdown(prof)
+            idle = 1 - br["device_ms"] / walls["warm"]
+            top = ", ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in br["top"])
+            print(f"  {name}: warm wall {walls['warm']:.2f} ms (profiled {walls['profiled']:.2f}), "
+                  f"peak device memory {call_peak:.2f} GiB, device busy {br['device_ms']:.2f} ms "
+                  f"(idle {idle:.1%}): {top}", flush=True)
+            out[f"profiled_{name}"] = {"wall_ms": walls["warm"], "idle_share": idle,
+                                       "profiled_wall_ms": walls["profiled"],
+                                       "peak_gib": call_peak, **br}
+
+
+def serve_phase(seed: int, arch: str, kernels: dict, gate: int, check_layers: int = 0,
+                serve: bool = True) -> dict:
     """One model at full width and depth: the f32 checks, then the bf16
     serve; returns its numbers.
 
     ``kernels`` maps each kernel on the model's path to its launches per
-    prefill; ``gate`` is the decode gate's position.
+    prefill; ``gate`` is the decode gate's position.  ``check_layers`` cuts
+    the f32 checks' model to that depth, built apart (and freed) before the
+    full bf16 one, where an f32 copy of the full model would not fit the
+    card; ``serve=False`` stops after the checks.  With experts, the
+    decode gate runs at ``capacity_factor=64`` (no drops), as the
+    reference's own gate does: capacity drops legitimately differ between
+    a prefill batch and a decode batch.
     """
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import get_family
     from repro_torch.runtime.server import Request, Server
-    from torch.profiler import ProfilerActivity, profile
 
     wrappers = model_kernels()
     cfg = get_config(arch)
     fam = get_family(cfg)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    t0 = time.perf_counter()
-    model = fam.init(gen, cfg, DEVICE)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"[serve] {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads x {cfg.head_dim} (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}; {n_params / 1e9:.3f} B parameters in "
-          f"{str(cfg.param_dtype).split('.')[-1]}, initialised in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "n_params": n_params}
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers}
 
     # f32 checks: the kernels against their plain versions, and the cache gate.
-    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
-    model32 = copy.deepcopy(model).to(torch.float32)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32,
+                                n_layers=check_layers or cfg.n_layers)
+    if check_layers:
+        model32, out["check_params"] = build_model(fam, cfg32, gen, "f32 checks")
+        out["check_layers"] = check_layers
+    else:
+        model, out["n_params"] = build_model(fam, cfg, gen)
+        model32 = copy.deepcopy(model).to(torch.float32)
+    per32 = {name: per * cfg32.n_layers // cfg.n_layers for name, per in kernels.items()}
     x = torch.randint(0, cfg.vocab, (SLOTS, max(WAVE, gate) + 1), generator=gen, device=DEVICE)
-
-    def check(key, name, got, ref):
-        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-            fail(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}, or not finite")
-        err = rel_err(got, ref)[0]
-        scale = ref.abs().max().item()
-        if not err <= SERVE_RTOL * scale:
-            fail(f"{name}: max_abs_err {err:.3e} above {SERVE_RTOL} x max|logits| {scale:.3e}")
-        print(f"  {name}: max_abs_err {err:.3e}, max|logits| {scale:.3e} "
-              f"(ratio {err / scale:.3e} <= {SERVE_RTOL})", flush=True)
-        out[key] = {"max_abs_err": err, "max_abs": scale}
 
     # flash_attention, the kernel with two routes, takes its mma_sync one in
     # f32 (these checks) and its tensor-core one in bf16 (the serve): each
@@ -876,29 +1001,55 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
     zero_routes()
     with torch.inference_mode():
         before = {name: wrappers[name].launches for name in kernels}
-        logits, cache = fam.prefill(model32, x[:, :WAVE], cfg32, max_len=MAX_LEN)
-        for name, per in kernels.items():
+        with routing() as routed_kernel:
+            logits, cache = fam.prefill(model32, x[:, :WAVE], cfg32, max_len=MAX_LEN)
+        for name, per in per32.items():
             if wrappers[name].launches - before[name] != per:
                 fail(f"f32 prefill launched {name} {wrappers[name].launches - before[name]} "
                      f"times, not {per}")
-        with plain_kernels(kernels):
+        with plain_kernels(kernels), routing() as routed_plain:
             plain_logits, _ = fam.prefill(model32, x[:, :WAVE], cfg32)
-        check("prefill_f32", f"f32 prefill logits, {' + '.join(kernels)} vs plain, "
-              f"{SLOTS} x {WAVE}", logits, plain_logits)
-        del plain_logits
-        if gate != WAVE:
+        name = (f"f32 prefill logits, {' + '.join(kernels)} vs plain, {SLOTS} x {WAVE}"
+                + (f", {cfg32.n_layers} of {cfg.n_layers} layers" if check_layers else ""))
+        # A kernel's f32 rounding (~1e-6 relative) can tip a near-tie in a
+        # router's top-k, and a changed pick shifts the capacity ranks.
+        flips = routing_flips(routed_kernel, routed_plain)
+        if cfg.n_experts:
+            out["routing_flips"] = flips
+            print(f"  routing: {flips} of {len(routed_kernel)} x {SLOTS * WAVE} (layer, token) "
+                  f"choices differ between the kernel and the plain run", flush=True)
+        if not logits_check(out, "prefill_f32", name, logits, plain_logits, gate=not flips):
+            # Pin the routing to the kernel run's, so that the check still
+            # isolates the kernels.
+            del plain_logits
+            with plain_kernels(kernels), routing(replay=routed_kernel):
+                plain_logits, _ = fam.prefill(model32, x[:, :WAVE], cfg32)
+            out["prefill_f32_unpinned"] = out.pop("prefill_f32")
+            logits_check(out, "prefill_f32", name + ", routing pinned to the kernel run's",
+                         logits, plain_logits)
+        del plain_logits, routed_kernel, routed_plain
+        # With experts, no capacity drops in the gate (the reference's own gate).
+        cfg_gate = dataclasses.replace(cfg32, capacity_factor=64.0) if cfg.n_experts else cfg32
+        if gate != WAVE or cfg_gate is not cfg32:
             del cache
-            _, cache = fam.prefill(model32, x[:, :gate], cfg32, max_len=gate + 1)
-        dec = fam.decode_step(model32, cache, x[:, gate:gate + 1], gate, cfg32)[0]
+            _, cache = fam.prefill(model32, x[:, :gate], cfg_gate, max_len=gate + 1)
+        dec = fam.decode_step(model32, cache, x[:, gate:gate + 1], gate, cfg_gate)[0]
         del cache
-        full = fam.prefill(model32, x[:, :gate + 1], cfg32, max_len=gate + 1)[0]
-        check("decode_gate_f32", f"f32 decode at {gate} vs prefill of {gate + 1}", dec, full)
+        full = fam.prefill(model32, x[:, :gate + 1], cfg_gate, max_len=gate + 1)[0]
+        logits_check(out, "decode_gate_f32", f"f32 decode at {gate} vs prefill of {gate + 1}"
+                     + (" (capacity_factor 64)" if cfg.n_experts else ""), dec, full)
     del model32, logits, dec, full
     f32_routes = {name: dict(w.route_launches) for name, w in routed.items()}
     for name, counts in f32_routes.items():
         if counts["tensor_core"] or not counts["mma_sync"]:
             fail(f"f32 checks launched {name} by route {counts}: f32 takes the mma_sync route")
+    gc.collect()
     torch.cuda.empty_cache()
+    if not serve:
+        out["f32_route_launches"] = f32_routes
+        return out
+    if check_layers:
+        model, out["n_params"] = build_model(fam, cfg, gen)
 
     # bf16 serving: 8 requests, two waves of ragged length, run twice.
     rng = np.random.default_rng(seed)
@@ -968,36 +1119,17 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
     # One profiled prefill and one profiled decode step of the first wave.
     wave = [[0] * (max(map(len, prompts[:SLOTS])) - len(p)) + p for p in prompts[:SLOTS]]
     tokens = torch.tensor(wave, dtype=torch.int64, device=DEVICE)
-    with torch.inference_mode():
-        for name in ("prefill", "decode"):
-            walls = {}
-            for run in ("warm", "profiled"):
-                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-                    if run == "profiled" else contextlib.nullcontext()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                with prof:
-                    t = time.perf_counter()
-                    if name == "prefill":
-                        logits, cache = fam.prefill(model, tokens, cfg, max_len=MAX_LEN)
-                    else:
-                        nxt = logits.argmax(-1)[:, None]
-                        fam.decode_step(model, cache, nxt, tokens.shape[1], cfg)
-                    torch.cuda.synchronize()
-                    walls[run] = (time.perf_counter() - t) * 1e3
-                if run == "warm":
-                    call_peak = torch.cuda.max_memory_allocated() / 2**30
-            # Idle share against the unprofiled warm wall, as in phase 3: the
-            # profiler's own host overhead stretches the profiled wall.
-            br = device_breakdown(prof)
-            idle = 1 - br["device_ms"] / walls["warm"]
-            top = ", ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in br["top"])
-            print(f"  {name}: warm wall {walls['warm']:.2f} ms (profiled {walls['profiled']:.2f}), "
-                  f"peak device memory {call_peak:.2f} GiB, device busy {br['device_ms']:.2f} ms "
-                  f"(idle {idle:.1%}): {top}", flush=True)
-            out[f"profiled_{name}"] = {"wall_ms": walls["warm"], "idle_share": idle,
-                                       "profiled_wall_ms": walls["profiled"],
-                                       "peak_gib": call_peak, **br}
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = fam.prefill(model, tokens, cfg, max_len=MAX_LEN)
+
+    def decode():
+        nxt = state["logits"].argmax(-1)[:, None]
+        fam.decode_step(model, state["cache"], nxt, tokens.shape[1], cfg)
+
+    profile_calls(out, {"prefill": prefill, "decode": decode})
+    del state
     for r in runs:
         del r["out"]
     out.update(runs=runs, launches=launches, route_launches=serve_routes,
@@ -1005,7 +1137,122 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int) -> dict:
                resident_gib=resident, prompt_lens=[int(n) for n in lens])
     # The timed wrappers hold the server's bound methods: a reference cycle
     # that keeps the model alive until the collector runs.
-    del model, server, cache, logits
+    del model, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_phase(seed: int) -> dict:
+    """whisper-base at full width and depth (phase 6c): the f32 checks, then
+    two bf16 greedy generations driven through ``prefill`` and
+    ``decode_step`` (the ``Server`` serves token prompts only); returns its
+    numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper as fam
+
+    flash = model_kernels()["flash_attention"]
+    cfg = get_config("whisper_base")
+    per = cfg.n_layers  # the decoder's causal self-attention; the rest is plain
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
+    model32, n_params = build_model(fam, cfg32, gen, "whisper")
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+           "n_params": n_params}
+    B, n_ctx, plen = WHISPER_SEQS, WHISPER_TEXT_CTX, WHISPER_PROMPT
+    frames = torch.randn(B, cfg.encoder_len, cfg.d_model, generator=gen, device=DEVICE) * 0.1
+    x = torch.randint(0, cfg.vocab, (B, n_ctx), generator=gen, device=DEVICE)
+
+    def batch(tokens):
+        return {"frames": frames, "tokens": tokens}
+
+    zero_counts({"flash_attention": flash})
+    with torch.inference_mode():
+        logits, _ = fam.prefill(model32, batch(x), cfg32)
+        if flash.launches != per:
+            fail(f"whisper f32 prefill launched flash_attention {flash.launches} times, not {per}")
+        with plain_kernels(["flash_attention"]):
+            plain, _ = fam.prefill(model32, batch(x), cfg32)
+        logits_check(out, "prefill_f32", f"f32 prefill logits, flash_attention vs plain, {B} x "
+                     f"{n_ctx} tokens over {cfg.encoder_len} frames", logits, plain)
+        gate = n_ctx - 1
+        _, cache = fam.prefill(model32, batch(x[:, :gate]), cfg32, max_len=n_ctx)
+        dec = fam.decode_step(model32, cache, x[:, gate:], gate, cfg32)[0]
+        logits_check(out, "decode_gate_f32", f"f32 decode at {gate} vs prefill of {n_ctx}",
+                     dec, logits)
+    f32_routes = dict(flash.route_launches)
+    if f32_routes != {"mma_sync": 2 * per, "tensor_core": 0}:
+        fail(f"whisper f32 checks launched flash_attention by route {f32_routes}, not "
+             f"{2 * per} on mma_sync")
+    del model32, logits, plain, cache, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16: greedy generation of MAX_NEW tokens after prompts of plen, twice.
+    model, _ = build_model(fam, cfg, gen, "whisper")
+    prompts = torch.randint(0, cfg.vocab, (B, plen), generator=gen, device=DEVICE)
+    times = {"prefill": [], "decode": []}
+
+    def timed(key, fn, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a)
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t) * 1e3)
+        return r
+
+    def generate():
+        logits, cache = timed("prefill", fam.prefill, model, batch(prompts), cfg, n_ctx)
+        toks = [logits[:, :cfg.vocab].argmax(-1)]
+        for step in range(1, MAX_NEW):
+            logits, cache = timed("decode", fam.decode_step, model, cache, toks[-1][:, None],
+                                  plen + step - 1, cfg)
+            toks.append(logits[:, :cfg.vocab].argmax(-1))
+        return torch.stack(toks, 1).tolist()
+
+    zero_counts({"flash_attention": flash})
+    torch.cuda.reset_peak_memory_stats()
+    runs, outs = [], []
+    with torch.inference_mode():
+        for run in ("cold", "warm"):
+            for key in times:
+                times[key] = []
+            t = time.perf_counter()
+            outs.append(generate())
+            wall = (time.perf_counter() - t) * 1e3
+            n_tok = B * MAX_NEW
+            runs.append({"run": run, "wall_ms": wall, "tokens": n_tok,
+                         "tokens_per_s": n_tok / wall * 1e3, "prefill_ms": times["prefill"][0],
+                         "decode_ms_per_step": sum(times["decode"]) / len(times["decode"]),
+                         "decode_steps": len(times["decode"])})
+            print(f"  generate ({run}): {B} x {plen} prompt tokens over {cfg.encoder_len} frames, "
+                  f"{n_tok} tokens in {wall:.1f} ms ({n_tok / wall * 1e3:.1f} tok/s); prefill "
+                  f"{times['prefill'][0]:.2f} ms, decode {runs[-1]['decode_ms_per_step']:.2f} ms "
+                  f"per step over {len(times['decode'])} steps", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if outs[0] != outs[1]:
+        fail("whisper: a second generation gave other tokens")
+    if not all(0 <= tok < cfg.vocab for o in outs[0] for tok in o):
+        fail("whisper: a token outside [0, vocab)")
+    launches, routes = flash.launches, dict(flash.route_launches)
+    if launches != 2 * per or routes != {"mma_sync": 0, "tensor_core": 2 * per}:
+        fail(f"whisper bf16 generation launched flash_attention {launches} times by route "
+             f"{routes}, not {per} tensor-core launches per prefill")
+    print(f"  generated twice, same tokens; flash_attention by route {routes} over 2 prefills "
+          f"(f32 checks: {f32_routes}); peak device memory {peak:.2f} GiB", flush=True)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = fam.prefill(model, batch(prompts), cfg, n_ctx)
+
+    def decode():
+        fam.decode_step(model, state["cache"], state["logits"].argmax(-1)[:, None], plen, cfg)
+
+    profile_calls(out, {"prefill": prefill, "decode": decode})
+    out.update(runs=runs, launches={"flash_attention": launches},
+               route_launches={"flash_attention": routes},
+               f32_route_launches={"flash_attention": f32_routes}, prefills=2, peak_gib=peak)
+    del model, state
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1977,22 +2224,24 @@ def main(argv=None) -> int:
             fail(f"{name} was never launched on the main path")
     torch.cuda.empty_cache()
 
-    # 4-6. Serving yi-6b, recurrentgemma-2b and rwkv6-3b; only each one's
-    # served requests' launches count, and each kernel's entry takes them from
-    # the first model that serves through it.  flash_attention's mma_sync
-    # route counts the f32 checks of that phase, its tensor-core route the
-    # bf16 serve.
-    serving = {}
+    # 4-6c. Serving yi-6b, recurrentgemma-2b, rwkv6-3b, moonshot-v1-16b-a3b,
+    # phi3.5-moe (f32 checks only) and whisper-base; each kernel's entry takes
+    # its launches from the first model that runs it, and keeps every
+    # model's in ``launches_by_model``.  flash_attention's mma_sync route
+    # counts the f32 checks of a phase, its tensor-core route the bf16 serve
+    # (or whisper's generation).
+    serving, by_model = {}, {}
     for spec in SERVES:
-        served = serving[spec["arch"]] = serve_phase(args.seed, **spec)
-        for name, n in served["launches"].items():
-            if name in served["route_launches"]:
-                f32_counts, bf16_counts = (served["f32_route_launches"][name],
-                                           served["route_launches"][name])
-                launches.setdefault(name, f32_counts["mma_sync"])
-                launches.setdefault(name + "_wgmma", bf16_counts["tensor_core"])
-            else:
-                launches.setdefault(name, n)
+        serving[spec["arch"]] = serve_phase(args.seed, **spec)
+    serving["whisper_base"] = whisper_phase(args.seed)
+    for arch, served in serving.items():
+        counts = {name: c["mma_sync"] for name, c in served["f32_route_launches"].items()}
+        for name, n in served.get("launches", {}).items():
+            routes = served["route_launches"].get(name)
+            counts[name + "_wgmma" if routes else name] = routes["tensor_core"] if routes else n
+        for name, n in counts.items():
+            launches.setdefault(name, n)
+            by_model.setdefault(name, {})[arch] = n
 
     # 7. Training; its launches are gated inside the phase.
     training = training_phase(args.seed, gen)
@@ -2013,6 +2262,7 @@ def main(argv=None) -> int:
                 "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                 "bound_cuda_core_ms": main_row.get("bound_cuda_core_ms"),
                 "library_ms": main_row["library_ms"], "case": main_row["case"],
+                "launches_by_model": by_model.get(name, {}),
                 "grad": grad_rows.get((name.replace("_wgmma", ""), route)), "cases": rows}
 
     speedups(gemm_rows, flash_rows)

@@ -1,10 +1,10 @@
-"""Architecture registry of the port: the dense transformers, recurrentgemma
-and rwkv6 so far.
+"""Architecture registry of the port: one module per architecture of the
+reference.
 
 The port's own records (``repro.configs`` loads JAX): ``get_config(arch_id)``
 returns the full configuration, ``get_smoke_config(arch_id)`` a reduced
-same-family one for CPU tests.  Ids and aliases are the reference's; the
-MoE and whisper ids raise ``KeyError`` until their families are ported.
+same-family one for CPU tests, ``all_configs()`` every full one.  Ids,
+their order and the aliases are the reference's.
 """
 
 from __future__ import annotations
@@ -12,17 +12,20 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = [
+    "phi3_5_moe",
+    "moonshot_v1_16b",
     "yi_6b",
     "qwen1_5_0_5b",
     "glm4_9b",
     "gemma3_12b",
     "chameleon_34b",
+    "whisper_base",
     "recurrentgemma_2b",
     "rwkv6_3b",
 ]
 
-# in the reference's registry, not ported yet
-WAITING = ["phi3_5_moe", "moonshot_v1_16b", "whisper_base"]
+# in the reference's registry, not ported yet: none
+WAITING: list[str] = []
 
 # canonical external names -> module ids
 ALIASES = {
@@ -41,8 +44,6 @@ ALIASES = {
 
 def _module(arch_id: str):
     arch_id = ALIASES.get(arch_id, arch_id)
-    if arch_id in WAITING:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (see ROADMAP.md); have {ARCH_IDS}")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
@@ -54,3 +55,7 @@ def get_config(arch_id: str):
 
 def get_smoke_config(arch_id: str):
     return _module(arch_id).smoke_config()
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

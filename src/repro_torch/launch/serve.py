@@ -4,12 +4,16 @@
       --requests 8 --max-new 16                  # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6_3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch moonshot_v1_16b
 
 The counterpart of ``src/repro/launch/serve.py`` with the same flags and
 ``--device``.  Weights are random, drawn from a ``torch.Generator`` seeded
 with 0, or restored from the latest valid trainer checkpoint in
 ``--ckpt-dir`` (``launch/train.py --scale smoke --ckpt-dir ...``); the
-prompts come from a numpy ``Generator`` seeded with 1.
+prompts come from a numpy ``Generator`` seeded with 1.  ``--arch
+whisper_base`` stops with an error before any weights are built: the
+``Server`` passes token arrays to ``prefill``, and whisper's takes audio
+frames too (the reference's serve CLI fails there as well).
 """
 
 from __future__ import annotations
@@ -40,9 +44,13 @@ def main(argv=None):
                     help="restore params from a trainer checkpoint")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    cfg = get_smoke_config(args.arch)
+    if cfg.family == "whisper":
+        ap.error(f"--arch {args.arch}: the server serves token prompts, and whisper's "
+                 "prefill takes audio frames too; drive models.whisper's prefill and "
+                 "decode_step directly")
 
     device = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch)
     fam = get_family(cfg)
     model = fam.init(torch.Generator(device=device).manual_seed(0), cfg, device)
     if args.ckpt_dir:

@@ -9,7 +9,11 @@ The counterpart of ``src/repro/launch/train.py`` with the same flags and
 one, ``smoke`` the reduced one of the CPU tests, ``100m`` a same-family
 reduction of about 100 M parameters in f32.  Weights are drawn from a
 ``torch.Generator`` seeded with ``--seed``; the data are the Markov chain
-of ``data.SyntheticLMSource`` (or the bytes of ``--data``).
+of ``data.SyntheticLMSource`` (or the bytes of ``--data``).  The MoE
+archs keep their experts and top-k at every scale.  ``--arch
+whisper_base`` stops with an error before any weights are built: the
+data sources give tokens only, and whisper's ``loss_fn`` takes audio
+frames too (the reference's train CLI fails there as well).
 """
 
 from __future__ import annotations
@@ -55,9 +59,12 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    cfg = scaled_config(args.arch, args.scale)
+    if cfg.family == "whisper":
+        ap.error(f"--arch {args.arch}: the data sources give tokens only, and whisper's "
+                 "loss_fn takes audio frames too")
 
     device = resolve_device(args.device)
-    cfg = scaled_config(args.arch, args.scale)
     if args.data:
         src = ByteFileSource(args.data, seq_len=args.seq, global_batch=args.batch,
                              seed=args.seed)

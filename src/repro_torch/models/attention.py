@@ -1,7 +1,6 @@
 """Grouped-query attention with causal / sliding-window masks and KV caches.
 
-The port's counterpart of ``src/repro/models/attention.py``, for the dense
-decoder-only transformers:
+The port's counterpart of ``src/repro/models/attention.py``:
 
 * causal self-attention over a full sequence (``attention``, and the
   prefill of ``models/transformer.py``) goes through the hand-written
@@ -10,8 +9,11 @@ decoder-only transformers:
 * one-token decode (``attention_decode``) stays plain PyTorch: the grouped
   einsum of the reference's ``_sdpa_block`` over the whole cache, under the
   mask of valid positions;
-* bidirectional self-attention (whisper's encoder) and ``cross_attention``
-  wait with whisper.
+* bidirectional self-attention (``attention(..., bidirectional=True)``,
+  whisper's encoder: no RoPE, an all-true mask) and ``cross_attention``
+  (whisper's decoder onto the encoder's memory) take the plain path of
+  the reference's ``_sdpa_flat``: the flash kernel is causal-only, as the
+  Pallas kernel is.
 
 GQA: the reference's flat path repeats K/V with ``jnp.repeat(k, group,
 axis=2)``, so query head h reads kv head ``h // group``: that is
@@ -118,6 +120,31 @@ def _causal_flash(q, k, v, window: int):
     return out.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)
 
 
+def _sdpa_flat(q, k, v, mask, cfg: ModelConfig):
+    """Repeat-KV attention with flat heads, plain (the bidirectional and
+    cross-attention path).  q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd);
+    mask: (B|1, 1, Sq, Sk) bool.  Returns (B, Sq, H * hd)."""
+    B, Sq, H, hd = q.shape
+    group = H // k.shape[2]
+    k = k.repeat_interleave(group, dim=2)
+    v = v.repeat_interleave(group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(hd)
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.compute_dtype), v)
+    return out.reshape(B, Sq, H * hd)
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig):
+    """Plain attention as the reference's ``_sdpa`` picks it: the grouped
+    path for one query, the flat path for more."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    if Sq == 1:
+        return _sdpa_block(q.reshape(B, Sq, Hkv, H // Hkv, hd), k, v, mask, cfg)
+    return _sdpa_flat(q, k, v, mask, cfg)
+
+
 def causal_window_mask(Sq: int, Sk: int, window: int, offset: int = 0, device=None):
     """(1, 1, Sq, Sk) bool; window 0 means unlimited."""
     qi = torch.arange(Sq, device=device)[:, None] + offset
@@ -141,10 +168,32 @@ def self_attention(params, x, positions, cfg: ModelConfig, *, window: int = 0):
     return _causal_flash(q, k, v, window), k, v
 
 
-def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0):
-    """Causal self-attention over a full sequence (training / prefill)."""
-    out = self_attention(params, x, positions, cfg, window=window)[0]
+def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0,
+              bidirectional: bool = False):
+    """Self-attention over a full sequence (training / prefill): causal
+    through the flash kernel, or bidirectional on the plain path."""
+    if bidirectional:
+        check_supported(cfg)
+        S = x.shape[1]
+        q, k, v = _qkv(params, x, cfg)
+        mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask, cfg)
+    else:
+        out = self_attention(params, x, positions, cfg, window=window)[0]
     return out @ params["wo"].to(cfg.compute_dtype)
+
+
+def cross_attention(params, x, memory, cfg: ModelConfig):
+    """Decoder cross-attention onto encoder memory (whisper), unmasked."""
+    check_supported(cfg)
+    B, Sq, _ = x.shape
+    Sk = memory.shape[1]
+    hd, cd = cfg.head_dim, cfg.compute_dtype
+    q = (x @ params["wq"].to(cd)).reshape(B, Sq, cfg.n_heads, hd)
+    k = (memory @ params["wk"].to(cd)).reshape(B, Sk, cfg.n_kv_heads, hd)
+    v = (memory @ params["wv"].to(cd)).reshape(B, Sk, cfg.n_kv_heads, hd)
+    mask = torch.ones((1, 1, Sq, Sk), dtype=torch.bool, device=x.device)
+    return _sdpa(q, k, v, mask, cfg) @ params["wo"].to(cd)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,

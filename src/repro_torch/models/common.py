@@ -109,6 +109,17 @@ class ModelConfig:
             total += self.encoder_layers * (2 * attn + 2 * d * f + d * f)
         return total
 
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k experts only)."""
+        if not self.n_experts:
+            return self.n_params
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        hd = self.head_dim
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+        mlp = self.top_k * 3 * d * f + d * self.n_experts
+        return L * (attn + mlp) + 2 * self.padded_vocab * d
+
     def _block_kind(self, i: int) -> str:
         if not self.block_pattern:
             return "attn"
@@ -127,6 +138,17 @@ def rms_norm(x, scale, eps: float = 1e-6):
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm in f32 (whisper): ``(x - mean) / sqrt(var + eps) * scale +
+    bias``, scaled by ``scale`` itself (the scales are initialised to one)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale + bias
     return out.to(dtype)
 
 

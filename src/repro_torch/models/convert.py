@@ -6,10 +6,14 @@ reference family's ``init`` returns, as a nested structure of numpy arrays
 ``cfg.family``:
 
 * ``transformer``: layers stacked on a leading L dim (``layers`` holds
-  ``norm1``, ``norm2`` and the ``attn`` and ``mlp`` dicts);
+  ``norm1``, ``norm2``, the ``attn`` dict and an ``mlp`` dict, or a
+  ``moe`` dict with its f32 ``router`` when ``cfg.n_experts``);
 * ``rwkv6``: layers stacked on L (the reference ``vmap``s its layer init);
 * ``rglru_hybrid``: a list of per-layer dicts, each with ``rec`` or
-  ``attn``.
+  ``attn``;
+* ``whisper``: ``enc_layers`` and ``dec_layers`` stacked on L (the
+  reference ``vmap``s their init), each a dict of dicts (norms, attention,
+  MLP), beside ``enc_pos``, ``dec_embed``, ``enc_norm`` and ``dec_norm``.
 
 Going through numpy keeps the port free of JAX.  Each leaf keeps its own
 dtype (rwkv6 and the hybrid hold f32 leaves beside ``param_dtype`` ones).
@@ -22,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import rglru, rwkv6
+from repro_torch.models import rglru, rwkv6, whisper
 from repro_torch.models.common import ModelConfig, resolve_device
 from repro_torch.models.transformer import Block, Transformer
 
@@ -43,11 +47,22 @@ def from_jax_params(params, cfg: ModelConfig, device=None, trainable: bool = Fal
     def tensors(tree, i=None):
         return {k: tensor(v if i is None else v[i]) for k, v in tree.items()}
 
+    def nested(tree, i):  # one layer of a dict of dicts stacked on L
+        return {k: tensors(v, i) for k, v in tree.items()}
+
+    if cfg.family == "whisper":
+        n_enc = cfg.encoder_layers or cfg.n_layers
+        return whisper.Whisper(
+            cfg, tensor(params["enc_pos"]), tensor(params["dec_embed"]),
+            [nested(params["enc_layers"], i) for i in range(n_enc)],
+            [nested(params["dec_layers"], i) for i in range(cfg.n_layers)],
+            tensors(params["enc_norm"]), tensors(params["dec_norm"]), trainable)
     embed, final_norm = tensor(params["embed"]), tensor(params["final_norm"])
     layers = params["layers"]
     if cfg.family == "transformer":
+        ffn = "moe" if "moe" in layers else "mlp"
         blocks = [Block(tensor(layers["norm1"][i]), tensor(layers["norm2"][i]),
-                        tensors(layers["attn"], i), tensors(layers["mlp"], i))
+                        tensors(layers["attn"], i), **{ffn: tensors(layers[ffn], i)})
                   for i in range(cfg.n_layers)]
         lm_head = tensor(params["lm_head"]) if "lm_head" in params else None
         return Transformer(cfg, embed, blocks, final_norm, lm_head, trainable)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM: the dense / GQA / local-global archs.
+"""Decoder-only transformer LM: the dense / GQA / local-global / MoE archs.
 
 The port's counterpart of ``src/repro/models/transformer.py``.  The model
 is an ``nn.Module`` of per-layer blocks, run by a Python loop where the
@@ -9,8 +9,11 @@ and the KV cache, ``decode_step`` one token's logits with the cache
 written in place.  Causal self-attention runs through the flash kernel
 (``models/attention.py``).  ``loss_fn`` is ``forward`` and the chunked
 cross-entropy against ``embed`` (tied) or ``lm_head``; ``forward``
-recomputes each layer in the backward pass when ``cfg.remat``.  The MoE
-waits (ROADMAP.md).
+recomputes each layer in the backward pass when ``cfg.remat``.  With
+``cfg.n_experts`` each layer's MLP is the capacity-routed MoE
+(``models/mlp.py:moe``): ``forward`` sums its load-balance aux loss over
+the layers, and ``prefill`` / ``decode_step`` drop it, as the reference
+does.
 
 Parameters require gradients only in a model built with ``trainable=True``.
 """
@@ -47,14 +50,27 @@ def layer_windows_list(cfg: ModelConfig) -> list[int]:
 
 
 class Block(nn.Module):
-    """One layer: pre-norm attention and pre-norm gated MLP, both residual."""
+    """One layer: pre-norm attention and a pre-norm gated MLP (``mlp``) or
+    MoE (``moe``), both residual."""
 
-    def __init__(self, norm1, norm2, attn: dict, mlp: dict):
+    def __init__(self, norm1, norm2, attn: dict, mlp: dict | None = None,
+                 moe: dict | None = None):
         super().__init__()
+        if (mlp is None) == (moe is None):
+            raise ValueError("a block holds either an mlp or a moe")
         self.norm1 = param(norm1)
         self.norm2 = param(norm2)
         self.attn = nn.ParameterDict({k: param(v) for k, v in attn.items()})
-        self.mlp = nn.ParameterDict({k: param(v) for k, v in mlp.items()})
+        self.mlp = None if mlp is None else nn.ParameterDict(
+            {k: param(v) for k, v in mlp.items()})
+        self.moe = None if moe is None else nn.ParameterDict(
+            {k: param(v) for k, v in moe.items()})
+
+    def ffn(self, h, cfg: ModelConfig):
+        """The MLP or MoE on the normed ``h``: (out, aux loss or None)."""
+        if self.moe is not None:
+            return mlp_mod.moe(self.moe, h, cfg)
+        return mlp_mod.mlp(self.mlp, h, cfg), None
 
 
 class Transformer(nn.Module):
@@ -64,8 +80,6 @@ class Transformer(nn.Module):
                  lm_head=None, trainable: bool = False):
         super().__init__()
         check_supported(cfg)
-        if cfg.n_experts:
-            raise NotImplementedError("the MoE transformer is not ported yet (see ROADMAP.md)")
         if len(blocks) != cfg.n_layers:
             raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
         if (lm_head is None) != cfg.tie_embeddings:
@@ -106,8 +120,13 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None,
         return torch.zeros((cfg.d_model,), dtype=cfg.param_dtype, device=device)
 
     embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
-    blocks = [Block(zeros(), zeros(), attn_mod.init_attn_params(gen, cfg, device),
-                    mlp_mod.init_mlp_params(gen, cfg, device))
+
+    def ffn():
+        if cfg.n_experts:
+            return {"moe": mlp_mod.init_moe_params(gen, cfg, device)}
+        return {"mlp": mlp_mod.init_mlp_params(gen, cfg, device)}
+
+    blocks = [Block(zeros(), zeros(), attn_mod.init_attn_params(gen, cfg, device), **ffn())
               for _ in range(cfg.n_layers)]
     lm_head = None if cfg.tie_embeddings else embed_init(
         gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
@@ -130,27 +149,31 @@ def _logits(model: Transformer, x, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _layer(blk: Block, x, positions, window: int, cfg: ModelConfig):
+    """One layer: (x, aux loss), the aux zero without the MoE."""
     h = rms_norm(x, blk.norm1, cfg.norm_eps)
     x = x + attn_mod.attention(blk.attn, h, positions, cfg, window=window)
     h = rms_norm(x, blk.norm2, cfg.norm_eps)
-    return x + mlp_mod.mlp(blk.mlp, h, cfg)
+    h, aux = blk.ffn(h, cfg)
+    return x + h, torch.zeros((), device=x.device) if aux is None else aux
 
 
 def forward(model: Transformer, tokens, cfg: ModelConfig):
-    """tokens: (B, S) -> (hidden (B, S, d), aux loss)."""
+    """tokens: (B, S) -> (hidden (B, S, d), aux loss summed over layers)."""
     B, S = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
     positions = _positions(B, S, x.device)
     layer = maybe_remat(_layer, cfg.remat)
+    aux = torch.zeros((), device=x.device)
     for blk, window in zip(model.blocks, layer_windows_list(cfg)):
-        x = layer(blk, x, positions, window, cfg)
+        x, a = layer(blk, x, positions, window, cfg)
+        aux = aux + a
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
 
 
 def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig):
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))
-    plus 0.01 of the aux loss (zero without the MoE)."""
+    plus 0.01 of the MoE's aux loss (zero without the MoE)."""
     hidden, aux = forward(model, batch["tokens"], cfg)
     loss = chunked_cross_entropy(hidden, model.head, batch["labels"], cfg)
     return loss + 0.01 * aux
@@ -175,7 +198,7 @@ def prefill(model: Transformer, tokens, cfg: ModelConfig, max_len: int | None = 
         o, kr, v = attn_mod.self_attention(blk.attn, h, positions, cfg, window=window)
         x = x + o @ blk.attn["wo"].to(cd)
         h = rms_norm(x, blk.norm2, cfg.norm_eps)
-        x = x + mlp_mod.mlp(blk.mlp, h, cfg)
+        x = x + blk.ffn(h, cfg)[0]
         cache.k[i, :, :S] = kr
         cache.v[i, :, :S] = v
     return _logits(model, x, cfg), cache
@@ -194,5 +217,5 @@ def decode_step(model: Transformer, cache: KVCache, tokens, pos: int, cfg: Model
                                          pos, cfg, window=window)
         x = x + o
         h = rms_norm(x, blk.norm2, cfg.norm_eps)
-        x = x + mlp_mod.mlp(blk.mlp, h, cfg)
+        x = x + blk.ffn(h, cfg)[0]
     return _logits(model, x, cfg), cache

@@ -274,14 +274,19 @@ def test_flash_kernel_rejects_bad_operands_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["yi_6b", "gemma3_12b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "gemma3_12b", "moonshot_v1_16b"])
 def test_smoke_model_prefill_and_decode_on_card(card, arch):
     """A smoke config's prefill runs through the kernel, and decode after it
-    matches a longer prefill (the KV-cache gate)."""
+    matches a longer prefill (the KV-cache gate; the MoE without capacity
+    drops, as the reference's gate)."""
+    import dataclasses
+
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as tt
 
     cfg = get_smoke_config(arch)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)
     model = tt.init(torch.Generator(device=card).manual_seed(0), cfg)
     tokens = torch.randint(0, cfg.vocab, (2, 17), generator=torch.Generator(device=card)
                            .manual_seed(1), device=card)
@@ -293,6 +298,45 @@ def test_smoke_model_prefill_and_decode_on_card(card, arch):
     torch.cuda.synchronize()
     assert full.is_cuda and bool(torch.isfinite(dec).all())
     assert (dec - full).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_whisper_smoke_prefill_and_decode_on_card(card):
+    """The decoder's causal self-attention runs through the kernel, and
+    decode after a prefill matches a longer prefill."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import whisper
+
+    cfg = get_smoke_config("whisper_base")
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = whisper.init(gen, cfg)
+    frames = torch.randn(2, cfg.encoder_len, cfg.d_model, generator=gen, device=card) * 0.1
+    tokens = torch.randint(0, cfg.vocab, (2, 17), generator=gen, device=card)
+    before = flash_attention.launches
+    full, _ = whisper.prefill(model, {"frames": frames, "tokens": tokens}, cfg, max_len=17)
+    _, cache = whisper.prefill(model, {"frames": frames, "tokens": tokens[:, :16]}, cfg,
+                               max_len=17)
+    assert flash_attention.launches == before + 2 * cfg.n_layers
+    dec, _ = whisper.decode_step(model, cache, tokens[:, 16:], 16, cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dec).all()) and (dec - full).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_moe_is_deterministic_on_card(card):
+    """Dispatch and combine use no float atomics: two bf16 calls, with
+    capacity drops, give equal bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mlp
+
+    cfg = dataclasses.replace(get_config("moonshot_v1_16b"), capacity_factor=0.5)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = mlp.init_moe_params(gen, cfg, card)
+    x = torch.randn(2, 512, cfg.d_model, generator=gen, device=card).bfloat16()
+    (a, aux_a), (b, aux_b) = mlp.moe(params, x, cfg), mlp.moe(params, x, cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b) and bool(torch.isfinite(a).all())
 
 
 @pytest.mark.cuda

@@ -40,6 +40,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert {"repro_torch.core.mesh", "repro_torch.kernels._build",
             "repro_torch.core.noc.model", "repro_torch.models.transformer",
             "repro_torch.models.rglru", "repro_torch.models.rwkv6",
+            "repro_torch.models.whisper", "repro_torch.models.mlp",
+            "repro_torch.configs.moonshot_v1_16b", "repro_torch.configs.whisper_base",
             "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6",
             "repro_torch.runtime.server", "repro_torch.runtime.trainer",
             "repro_torch.optim.adamw", "repro_torch.optim.compress",
@@ -76,12 +78,12 @@ def test_no_source_names_jax_or_repro(path):
             assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
 
 
-def test_unported_noc_parts_raise_not_implemented():
-    """Named for the two calls that raised ``NotImplementedError`` while the
-    shard engine and the service were unported; both now answer as the
-    reference does.  The shard engine runs (and falls back to no other
-    engine: its profile names it), and the result-store schema names the
-    point-key scheme of ``service.jobs``."""
+def test_shard_engine_and_store_schema_are_ported():
+    """The two calls that raised ``NotImplementedError`` while the shard
+    engine and the service were unported answer as the reference does: the
+    shard engine runs (and falls back to no other engine: its profile names
+    it), and the result-store schema names the point-key scheme of
+    ``service.jobs``."""
     from repro_torch.core.noc import fingerprint
     from repro_torch.core.noc.netsim import NoCSim
     from repro_torch.core.topology import Coord, Mesh2D

@@ -27,7 +27,9 @@ from repro_torch.models import mlp as tmlp
 from repro_torch.models import rglru as trglru
 from repro_torch.models import rope as trope
 from repro_torch.models import rwkv6 as trwkv
+from repro_torch.models import api as tapi
 from repro_torch.models import transformer as ttransformer
+from repro_torch.models import whisper as twhisper
 from repro_torch.models.convert import from_jax_params
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -76,29 +78,32 @@ def test_config_records_equal_the_reference(arch, smoke):
 
 
 def test_config_aliases_and_waiting_archs():
+    """Every arch of the reference is ported, in its order and with equal
+    records: none waits."""
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert tconfigs.WAITING == [] and tapi._WAITING == ()
+    assert tconfigs.ALIASES == jconfigs.ALIASES
     for alias, arch in tconfigs.ALIASES.items():
-        if arch in tconfigs.ARCH_IDS:
-            assert tconfigs.get_config(alias) is tconfigs.get_config(arch)
-    assert sorted(tconfigs.ARCH_IDS + tconfigs.WAITING) == sorted(jconfigs.ARCH_IDS)
-    for arch in tconfigs.WAITING:
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tconfigs.get_config(arch)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get_smoke_config("phi3.5-moe-42b-a6.6b")
+        assert tconfigs.get_config(alias) is tconfigs.get_config(arch)
+    jall, tall = jconfigs.all_configs(), tconfigs.all_configs()
+    assert list(tall) == list(jall)
+    for arch, jc in jall.items():
+        tc = tall[arch]
+        for f in dataclasses.fields(jc):
+            if not f.name.endswith("_dtype"):
+                assert getattr(tc, f.name) == getattr(jc, f.name), (arch, f.name)
+        assert (tc.n_params, tc.n_active_params) == (jc.n_params, jc.n_active_params), arch
+    assert tconfigs.get_smoke_config("phi3.5-moe-42b-a6.6b").n_experts == 4
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_config("no_such_arch")
 
 
 @pytest.mark.parametrize("family,module", [("transformer", ttransformer),
                                            ("rglru_hybrid", trglru), ("rwkv6", trwkv),
-                                           ("whisper", None)])
-def test_get_family_has_only_the_transformer(family, module):
-    """The ported families return their modules; whisper still waits."""
-    if module is None:
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_family(family)
-    else:
-        assert get_family(family) is module
+                                           ("whisper", twhisper)])
+def test_get_family_returns_every_family(family, module):
+    """Every family of the reference returns the port's module."""
+    assert get_family(family) is module
     assert get_family(tconfigs.get_config("yi_6b")) is ttransformer
 
 
@@ -220,8 +225,10 @@ def test_init_has_the_reference_layout(arch):
     model = ttransformer.init(torch.Generator().manual_seed(0), tc, "cpu")
     assert tuple(model.embed.shape) == jp["embed"].shape
     assert ("lm_head" in jp) == (model.lm_head is not None)
+    groups = ("attn", "moe" if tc.n_experts else "mlp")
+    assert set(jp["layers"]) == {"norm1", "norm2", *groups}
     for blk in model.blocks:
-        for group in ("attn", "mlp"):
+        for group in groups:
             assert {k: tuple(v.shape) for k, v in getattr(blk, group).items()} == \
                 {k: v.shape[1:] for k, v in jp["layers"][group].items()}
         assert float(blk.norm1.abs().sum()) == 0.0 and float(blk.norm2.abs().sum()) == 0.0

@@ -1,13 +1,19 @@
-"""The port's dense transformers against the JAX reference, on the CPU.
+"""The port's transformers against the JAX reference, on the CPU.
 
-For the smoke config of each of the five dense transformers (yi, qwen,
-glm4, gemma3, chameleon): the JAX parameters from ``PRNGKey(0)`` are
+For the smoke config of each of the seven transformers (the MoE ones,
+phi3.5-moe and moonshot, and the dense yi, qwen, glm4, gemma3,
+chameleon): the JAX parameters from ``PRNGKey(0)`` are
 carried across by ``from_jax_params``, and ``forward`` (hidden states),
 ``prefill`` (logits and cache) and ``decode_step`` (logits and cache) are
 held against the reference in f32 at 2e-4.  The smoke configs cover
 gemma3's local:global windows, qwen's QKV biases and tied embeddings, and
-GQA with 1 and 2 kv heads.
+GQA with 1 and 2 kv heads.  The MoE configs' decode-after-prefill gate
+runs at the reference test's ``capacity_factor=64``: capacity drops
+legitimately differ between a prefill batch and a decode batch.
 """
+
+import dataclasses
+
 
 import jax
 import numpy as np
@@ -49,8 +55,9 @@ def _tok(x):
 def test_forward_matches_jax(pair):
     _, jc, tc, jfam, params, model, tokens = pair
     hidden, aux = tt.forward(model, _tok(tokens[:, :S]), tc)
-    jhidden, _ = jax.jit(lambda p, t: jfam.forward(p, t, jc))(params, tokens[:, :S])
-    assert hidden.shape == (B, S, jc.d_model) and float(aux) == 0.0
+    jhidden, jaux = jax.jit(lambda p, t: jfam.forward(p, t, jc))(params, tokens[:, :S])
+    assert hidden.shape == (B, S, jc.d_model) and (float(aux) > 0) == bool(tc.n_experts)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
     np.testing.assert_allclose(_np(hidden), _np(jhidden), **TOL)
     np.testing.assert_allclose(_np(model(_tok(tokens[:, :S]))[0]), _np(jhidden), **TOL)
 
@@ -77,6 +84,8 @@ def test_prefill_decode_consistency(pair):
     """decode(prefill(x[:S]), x[S]) matches prefill(x[:S+1]): the KV-cache gate
     of tests/test_arch_smoke.py, on the port alone."""
     _, _, tc, _, _, model, tokens = pair
+    if tc.n_experts:
+        tc = dataclasses.replace(tc, capacity_factor=64.0)
     full, _ = tt.prefill(model, _tok(tokens), tc, max_len=S + 1)
     _, cache = tt.prefill(model, _tok(tokens[:, :S]), tc, max_len=S + 1)
     dec, _ = tt.decode_step(model, cache, _tok(tokens[:, S:]), S, tc)
