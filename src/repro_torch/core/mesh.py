@@ -1,61 +1,65 @@
-"""The stacked mesh: every member of a device mesh as leading tensor dims.
+"""Device meshes of two kinds, under one set of axis functions.
 
 The JAX reference runs its collective bodies per device under
 ``shard_map`` over named mesh axes; the same bodies run unchanged under
-nested ``jax.vmap(..., axis_name=...)`` on one device.  The port takes the
-second form on one card: a tensor *on the mesh* has leading dims equal to
-``mesh.shape`` (one per axis, in order) followed by the member's local
-shape.  A member's dim 0 in a JAX body is dim ``mesh.ndim`` here.
+nested ``jax.vmap(..., axis_name=...)`` on one device.  The port has a
+mesh for each form:
 
-The axis primitives mirror ``jax.lax`` and find the mesh from the
-enclosing ``with mesh:`` block:
+* :class:`Mesh` stacks every member on one card, the second form: a
+  tensor *on the mesh* has leading dims equal to ``mesh.shape`` (one per
+  axis, in order) followed by the member's local shape, so a member's dim
+  0 in a JAX body is dim ``mesh.stacked`` here;
+* :class:`RankMesh` is one process per member (``torch.distributed``:
+  NCCL on a card, gloo on the host), the first form: a tensor is the
+  member's local tensor and ``mesh.stacked`` is 0.
 
-* ``axis_size``, ``axis_index`` (an integer tensor over the mesh dims;
-  :func:`lift` broadcasts such a per-member value against a stacked tensor);
-* ``ppermute`` (an ``index_select`` along the axis' dim);
+Code that indexes a member's dims counts from ``mesh.stacked``, and then
+runs unchanged on both kinds.  The axis primitives mirror ``jax.lax`` and
+find the mesh from the enclosing ``with mesh:`` block:
+
+* ``axis_size``, ``axis_index`` (an integer tensor over the stacked dims,
+  0-d on a rank mesh; :func:`lift` broadcasts such a per-member value
+  against a tensor);
+* ``ppermute`` (an ``index_select`` along the axis' dim; paired
+  ``isend`` / ``irecv`` on a rank mesh);
 * ``psum`` and ``psum_scatter`` (the ``reduce_nway`` kernel over the axis'
   dim for float32 and bfloat16; other dtypes as ``jax.lax.psum`` sums
-  them, see :func:`axis_sum`), ``pmax`` (its ``max``), ``all_gather``;
+  them, see :func:`axis_sum`; a rank mesh keeps the same arithmetic with
+  ``all_reduce`` / ``reduce_scatter``), ``pmax`` (its ``max``),
+  ``all_gather``;
 * ``take`` and ``put``: a per-member index into a local dim, in place of
   ``jnp.take`` / ``dynamic_slice`` / ``dynamic_update_slice`` with a
   traced index.
 
-``shard`` / ``unshard`` lay a global array out in the stacked layout
-exactly as ``shard_map`` hands blocks to devices under
-``PartitionSpec(*spec)``, and back for ``out_specs``.
+``shard`` / ``unshard`` lay a global array out exactly as ``shard_map``
+hands blocks to devices under ``PartitionSpec(*spec)`` (an entry may be a
+tuple of axes, major to minor), and back for ``out_specs``.
 """
 
 from __future__ import annotations
 
 import contextvars
+import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.reduce_nway import reduce_nway
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh")
+_INTS = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
 
 
-class Mesh:
-    """A logical device mesh whose members are stacked on one device.
+class _Axes:
+    """Named axes of a mesh, and entering it as the current mesh."""
 
-    ``device=None`` means CUDA and raises when no card is present; the CPU
-    is used only when the caller passes ``device="cpu"``.
-    """
-
-    def __init__(self, shape, axis_names, device=None):
+    def _set_axes(self, shape, axis_names):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         if len(self.shape) != len(self.axis_names):
             raise ValueError(f"mesh shape {self.shape} and axes {self.axis_names} differ in length")
         if len(set(self.axis_names)) != len(self.axis_names):
             raise ValueError(f"repeated axis name in {self.axis_names}")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("Mesh: no CUDA device; pass device='cpu' to run "
-                                   "the plain versions on the host")
-            device = "cuda"
-        self.device = torch.device(device)
         self._tokens = []
 
     @property
@@ -79,12 +83,34 @@ class Mesh:
         _CURRENT.reset(self._tokens.pop())
         return False
 
+
+class Mesh(_Axes):
+    """A logical device mesh whose members are stacked on one device.
+
+    ``device=None`` means CUDA and raises when no card is present; the CPU
+    is used only when the caller passes ``device="cpu"``.
+    """
+
+    def __init__(self, shape, axis_names, device=None):
+        self._set_axes(shape, axis_names)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("Mesh: no CUDA device; pass device='cpu' to run "
+                                   "the plain versions on the host")
+            device = "cuda"
+        self.device = torch.device(device)
+
+    @property
+    def stacked(self) -> int:
+        """The number of leading tensor dims that hold the members."""
+        return len(self.shape)
+
     def __repr__(self):
         axes = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names, self.shape))
         return f"Mesh({axes}, device={self.device})"
 
 
-def current() -> Mesh:
+def current():
     """The mesh of the enclosing ``with mesh:`` block."""
     mesh = _CURRENT.get(None)
     if mesh is None:
@@ -102,8 +128,11 @@ def axis_size(name: str) -> int:
 
 
 def axis_index(name: str) -> torch.Tensor:
-    """This member's index along ``name``: int64 of shape (1, .., n, .., 1)."""
+    """This member's index along ``name``: int64 of shape (1, .., n, .., 1)
+    on a stacked mesh, 0-d on a rank mesh."""
     mesh = current()
+    if isinstance(mesh, RankMesh):
+        return mesh.axis_index(name)
     d = mesh.dim(name)
     shape = [1] * mesh.ndim
     shape[d] = mesh.shape[d]
@@ -116,15 +145,22 @@ def lift(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(tuple(v.shape) + (1,) * (like.ndim - v.ndim))
 
 
-def ppermute(x: torch.Tensor, name: str, perm) -> torch.Tensor:
-    """Member ``dst`` receives ``x`` of member ``src`` for each (src, dst)."""
-    mesh = current()
-    n = mesh.size(name)
+def _sources(n: int, name: str, perm) -> list:
+    """``src[dst]`` of a full permutation of the ``n`` members of ``name``."""
     src = [None] * n
     for s, t in perm:
         src[t] = s
     if sorted(s for s in src if s is not None) != list(range(n)):
         raise ValueError(f"ppermute over {name!r} needs a full permutation of {n}, got {perm}")
+    return src
+
+
+def ppermute(x: torch.Tensor, name: str, perm) -> torch.Tensor:
+    """Member ``dst`` receives ``x`` of member ``src`` for each (src, dst)."""
+    mesh = current()
+    src = _sources(mesh.size(name), name, perm)
+    if isinstance(mesh, RankMesh):
+        return mesh.ppermute(x, name, src)
     index = torch.tensor(src, device=x.device)
     return x.index_select(mesh.dim(name), index)
 
@@ -145,45 +181,56 @@ def axis_sum(x: torch.Tensor, d: int) -> torch.Tensor:
         for i in range(1, x.shape[d]):
             total = total + x.select(d, i)
         return total
-    if x.dtype in (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64):
+    if x.dtype in _INTS:
         return x.sum(d, dtype=torch.int64).to(x.dtype)
     raise TypeError(f"psum: unsupported dtype {x.dtype}")
 
 
 def psum(x: torch.Tensor, name: str) -> torch.Tensor:
     """Sum over the axis (:func:`axis_sum`), replicated to every member."""
-    d = current().dim(name)
+    mesh = current()
+    if isinstance(mesh, RankMesh):
+        return mesh.psum(x, name)
+    d = mesh.dim(name)
     return axis_sum(x, d).unsqueeze(d).expand(x.shape)
 
 
 def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
     """Maximum over the axis (the ``reduce_nway`` kernel's ``max`` over its
     dim), replicated to every member, as ``jax.lax.pmax``."""
-    d = current().dim(name)
+    mesh = current()
+    if isinstance(mesh, RankMesh):
+        return mesh.pmax(x, name)
+    d = mesh.dim(name)
     return reduce_nway(x.contiguous(), op="max", dim=d).unsqueeze(d).expand(x.shape)
 
 
 def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
     """Sum over the axis, scattering the member's dim 0 across it."""
     mesh = current()
-    d, k, n = mesh.dim(name), mesh.ndim, mesh.size(name)
+    k, n = mesh.stacked, mesh.size(name)
     rows = x.shape[k]
     if rows % n:
         raise ValueError(f"psum_scatter: dim of size {rows} not divisible by {n}")
+    if not tiled and rows != n:
+        raise ValueError(f"psum_scatter(tiled=False) needs dim 0 of size {n}, got {rows}")
+    if isinstance(mesh, RankMesh):
+        out = mesh.psum_scatter(x, name)
+        return out if tiled else out.squeeze(0)
+    d = mesh.dim(name)
     total = axis_sum(x, d)  # member dim 0 is now k-1
     parts = total.unflatten(k - 1, (n, rows // n)).movedim(k - 1, d)
-    if tiled:
-        return parts
-    if rows != n:
-        raise ValueError(f"psum_scatter(tiled=False) needs dim 0 of size {n}, got {rows}")
-    return parts.squeeze(k)
+    return parts if tiled else parts.squeeze(k)
 
 
 def all_gather(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
     """Every member receives all members' ``x`` along the axis: stacked on a
     new dim 0, or concatenated on dim 0 when ``tiled``."""
     mesh = current()
-    d, k, n = mesh.dim(name), mesh.ndim, mesh.size(name)
+    if isinstance(mesh, RankMesh):
+        g = mesh.all_gather(x, name)
+        return g.flatten(0, 1) if tiled else g
+    d, k, n = mesh.dim(name), mesh.stacked, mesh.size(name)
     g = x.movedim(d, k - 1)  # the axis' members, just before the member dims
     if tiled:
         g = g.flatten(k - 1, k)
@@ -205,6 +252,186 @@ def put(x: torch.Tensor, i: torch.Tensor, v: torch.Tensor, dim: int) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
+# One process per member
+# ---------------------------------------------------------------------------
+
+
+class RankMesh(_Axes):
+    """A logical device mesh whose members are processes, one per card.
+
+    Member ``i`` in row-major order over ``shape`` is the process of global
+    rank ``ranks[i]`` (``ranks`` defaults to ``range(prod(shape))``; it is
+    sorted).  Each axis has one process group per line of members that
+    differ only along it; every process of the job builds every group, in
+    one order, so every process must construct the mesh, a member or not
+    (``member`` says which).  ``device=None`` or ``"cuda"`` means NCCL on
+    ``cuda:<rank % card count>`` (None raises without a card);
+    ``device="cpu"`` means gloo.  The default process group is the
+    caller's: an existing one is used, else ``init_method`` with ``rank``
+    starts one of the mesh's size.
+    """
+
+    stacked = 0
+
+    def __init__(self, shape, axis_names, device=None, ranks=None, init_method=None,
+                 rank=None):
+        self._set_axes(shape, axis_names)
+        size = math.prod(self.shape)
+        ranks = sorted(range(size) if ranks is None else ranks)
+        if len(ranks) != size:
+            raise ValueError(f"a mesh of shape {self.shape} needs {size} ranks, got {ranks}")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("RankMesh: no CUDA device; pass device='cpu' for gloo "
+                                   "ranks on the host")
+            device = "cuda"
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            me = rank if rank is not None else (dist.get_rank() if dist.is_initialized() else 0)
+            self.device = torch.device("cuda", me % torch.cuda.device_count())
+        self.backend = "gloo" if self.device.type == "cpu" else "nccl"
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        if not dist.is_initialized():
+            if init_method is None or rank is None:
+                raise ValueError("RankMesh: no process group; pass init_method and rank")
+            dist.init_process_group(self.backend, init_method=init_method, rank=rank,
+                                    world_size=size)
+        self.ranks = tuple(ranks)
+        self.rank = dist.get_rank()
+        self.member = self.rank in self.ranks
+        at = self.ranks.index(self.rank) if self.member else 0
+        self.coord = tuple(int(c) for c in _unravel(at, self.shape))
+        self.group = dist.new_group(list(self.ranks), backend=self.backend)
+        self._groups, self._peers = {}, {}
+        for d, name in enumerate(self.axis_names):
+            others = self.shape[:d] + (1,) + self.shape[d + 1:]
+            for line in range(math.prod(others)):
+                base = list(_unravel(line, others))
+                members = []
+                for c in range(self.shape[d]):
+                    base[d] = c
+                    members.append(self.ranks[_ravel(base, self.shape)])
+                group = dist.new_group(members, backend=self.backend)
+                if self.rank in members:
+                    self._groups[name], self._peers[name] = group, members
+
+    def __repr__(self):
+        axes = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names, self.shape))
+        return f"RankMesh({axes}, rank={self.rank}, {self.backend} on {self.device})"
+
+    def _group(self, name: str):
+        self.dim(name)
+        if not self.member:
+            raise RuntimeError(f"rank {self.rank} is not a member of {self!r}")
+        return self._groups[name]
+
+    def axis_index(self, name: str) -> torch.Tensor:
+        return torch.tensor(self.coord[self.dim(name)], device=self.device)
+
+    def ppermute(self, x, name, src):
+        group, peers = self._group(name), self._peers[name]
+        me = self.coord[self.dim(name)]
+        dst = src.index(me)
+        if src[me] == me:
+            return x.clone()
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x.contiguous(), peers[dst], group=group),
+               dist.P2POp(dist.irecv, out, peers[src[me]], group=group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out
+
+    def all_gather(self, x, name):
+        """Every member's ``x`` of the axis, stacked on a new dim 0."""
+        out = torch.empty((self.size(name),) + tuple(x.shape), dtype=x.dtype, device=x.device)
+        _ALL_GATHER(out.view(-1), x.contiguous().view(-1), group=self._group(name))
+        return out
+
+    def _ordered_sum(self, x, name):
+        """float16 and float64: added member by member in member order, in
+        their own type (``axis_sum``)."""
+        g = self.all_gather(x, name)
+        total = g[0]
+        for i in range(1, g.shape[0]):
+            total = total + g[i]
+        return total
+
+    def psum(self, x, name):
+        if x.dtype in (torch.float16, torch.float64):
+            return self._ordered_sum(x, name)
+        wide = _sum_type(x.dtype)
+        y = x.to(wide, copy=True).contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self._group(name))
+        return y.to(x.dtype)
+
+    def pmax(self, x, name):
+        """The types of the ``reduce_nway`` router's ``max``; bfloat16 goes
+        through f32 (exact)."""
+        if x.dtype not in (torch.float32, torch.bfloat16, torch.int32):
+            raise TypeError(f"pmax: unsupported dtype {x.dtype}")
+        y = x.to(torch.float32 if x.dtype == torch.bfloat16 else x.dtype, copy=True).contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self._group(name))
+        return y.to(x.dtype)
+
+    def psum_scatter(self, x, name):
+        """The summed ``x`` (as :meth:`psum`), this member's block of dim 0."""
+        n, me = self.size(name), self.coord[self.dim(name)]
+        if x.dtype in (torch.float16, torch.float64):
+            return self._ordered_sum(x, name).unflatten(0, (n, -1))[me]
+        wide = _sum_type(x.dtype)
+        y = x.to(wide).contiguous()
+        out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]), dtype=wide, device=x.device)
+        _REDUCE_SCATTER(out, y, dist.ReduceOp.SUM, group=self._group(name))
+        return out.to(x.dtype)
+
+    def broadcast_first(self, x):
+        """Member 0's ``x`` on every member of the mesh."""
+        y = x.detach().clone().contiguous()
+        if self.member:
+            dist.broadcast(y, src=self.ranks[0], group=self.group)
+        return y
+
+    def barrier(self):
+        if self.member:
+            dist.barrier(group=self.group)
+
+
+def _sum_type(dtype):
+    """The type a rank mesh sums in: bfloat16 in f32 (rounded once, as the
+    ``reduce_nway`` router), integers in int64 (cast back, wrapping as
+    int32 adds)."""
+    if dtype == torch.float32:
+        return dtype
+    if dtype == torch.bfloat16:
+        return torch.float32
+    if dtype in _INTS:
+        return torch.int64
+    raise TypeError(f"psum: unsupported dtype {dtype}")
+
+
+# Newer torch renames these two collectives (the old names warn); older
+# torch has only the old names.
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def _unravel(i: int, shape) -> list:
+    out = []
+    for s in reversed(shape):
+        out.append(i % s)
+        i //= s
+    return out[::-1]
+
+
+def _ravel(coord, shape) -> int:
+    i = 0
+    for c, s in zip(coord, shape):
+        i = i * s + c
+    return i
+
+
+# ---------------------------------------------------------------------------
 # shard_map layouts
 # ---------------------------------------------------------------------------
 
@@ -216,27 +443,60 @@ def _spec(spec, ndim: int) -> tuple:
     return spec + (None,) * (ndim - len(spec))
 
 
-def shard(x, mesh: Mesh, spec) -> torch.Tensor:
-    """Lay a global array out on the stacked mesh under ``PartitionSpec(*spec)``.
+def _axes_of(entry) -> tuple:
+    """The mesh axes of one spec entry: none, one name, or a tuple of names
+    (major to minor)."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
 
-    Dim ``i`` of ``x`` is split over axis ``spec[i]`` (block ``j`` to the
-    member at index ``j``), or kept whole for ``None``; members along an
-    axis that ``spec`` does not name get copies.
+
+def _named(spec, mesh) -> set:
+    """The axes that ``spec`` names; each at most once, each of ``mesh``."""
+    seen = set()
+    for entry in spec:
+        for name in _axes_of(entry):
+            mesh.dim(name)
+            if name in seen:
+                raise ValueError(f"axis {name!r} used twice in spec {spec}")
+            seen.add(name)
+    return seen
+
+
+def shard(x, mesh, spec) -> torch.Tensor:
+    """Lay a global array out on the mesh under ``PartitionSpec(*spec)``.
+
+    Dim ``i`` of ``x`` is split over the axes ``spec[i]`` (one name or a
+    tuple, major to minor: block ``j`` to the member whose indices along
+    them give ``j`` in row-major order), or kept whole for ``None``;
+    members along an axis that ``spec`` does not name get copies.  On a
+    rank mesh the result is this member's block.
     """
     x = torch.as_tensor(x, device=mesh.device)
     spec = _spec(spec, x.ndim)
-    split, at = [], {}
-    for g, name in zip(x.shape, spec):
-        if name is None:
-            split.append(g)
-            continue
-        n = mesh.size(name)
+    _named(spec, mesh)
+    for g, entry in zip(x.shape, spec):
+        n = math.prod(mesh.size(name) for name in _axes_of(entry))
         if g % n:
-            raise ValueError(f"dim of size {g} not divisible by axis {name!r} of size {n}")
-        if name in at:
-            raise ValueError(f"axis {name!r} used twice in spec {spec}")
-        at[name] = len(split)
-        split += [n, g // n]
+            raise ValueError(f"dim of size {g} not divisible by axes {_axes_of(entry)} of size {n}")
+    if isinstance(mesh, RankMesh):
+        for i, entry in enumerate(spec):
+            names = _axes_of(entry)
+            if names:
+                sizes = [mesh.size(a) for a in names]
+                block = _ravel([mesh.coord[mesh.dim(a)] for a in names], sizes)
+                step = x.shape[i] // math.prod(sizes)
+                x = x.narrow(i, block * step, step)
+        return x.contiguous()
+    split, at = [], {}
+    for g, entry in zip(x.shape, spec):
+        names = _axes_of(entry)
+        for name in names:
+            at[name] = len(split)
+            split.append(mesh.size(name))
+        split.append(g // math.prod(mesh.size(name) for name in names))
     y = x.reshape(split)
     lead = [at[name] for name in mesh.axis_names if name in at]
     y = y.permute(lead + [p for p in range(y.ndim) if p not in lead])
@@ -246,22 +506,32 @@ def shard(x, mesh: Mesh, spec) -> torch.Tensor:
     return y.expand(mesh.shape + tuple(y.shape[mesh.ndim:])).contiguous()
 
 
-def unshard(y: torch.Tensor, mesh: Mesh, spec) -> torch.Tensor:
-    """The global array of a stacked tensor laid out under ``spec``.
+def unshard(y: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The global array of a tensor laid out under ``spec``.
 
     Axes that ``spec`` does not name hold copies; member 0's is returned,
-    as ``shard_map`` does for an unchecked replicated output.
+    as ``shard_map`` does for an unchecked replicated output.  On a rank
+    mesh every member takes part and receives the global array.
     """
-    local = tuple(y.shape[mesh.ndim:])
+    local = tuple(y.shape[mesh.stacked:])
     spec = _spec(spec, len(local))
-    y = y[tuple(slice(None) if name in spec else 0 for name in mesh.axis_names)]
-    named = [name for name in mesh.axis_names if name in spec]
+    named = _named(spec, mesh)
+    if isinstance(mesh, RankMesh):
+        with mesh:
+            for name in mesh.axis_names:
+                if name not in named:  # member 0's copy along this axis
+                    y = y.clone(memory_format=torch.contiguous_format)
+                    dist.broadcast(y, src=mesh._peers[name][0], group=mesh._group(name))
+            for i, entry in enumerate(spec):
+                for name in reversed(_axes_of(entry)):  # minor axis first
+                    y = all_gather(y.movedim(i, 0), name, tiled=True).movedim(0, i)
+        return y
+    y = y[tuple(slice(None) if name in named else 0 for name in mesh.axis_names)]
+    lead = [name for name in mesh.axis_names if name in named]
     order, shape = [], []
-    for i, name in enumerate(spec):
-        if name is None:
-            shape.append(local[i])
-        else:
-            order.append(named.index(name))
-            shape.append(mesh.size(name) * local[i])
-        order.append(len(named) + i)
+    for i, entry in enumerate(spec):
+        names = _axes_of(entry)
+        order += [lead.index(name) for name in names]
+        order.append(len(lead) + i)
+        shape.append(local[i] * math.prod(mesh.size(name) for name in names))
     return y.permute(order).reshape(shape)

@@ -35,7 +35,7 @@ def ag_matmul(x_shard, w, axis: str):
     """
     n = M.axis_size(axis)
     idx = M.axis_index(axis)
-    k = M.current().ndim
+    k = M.current().stacked
     m = x_shard.shape[-2]
     w32 = w.float().contiguous()
     out = x_shard.new_zeros((*x_shard.shape[:-2], n, m, w.shape[-1]), dtype=torch.float32)
@@ -69,7 +69,7 @@ def matmul_rs(x, w_shard, axis: str):
     """
     n = M.axis_size(axis)
     idx = M.axis_index(axis)
-    k = M.current().ndim
+    k = M.current().stacked
     m = x.shape[-2]
     if m % n:
         raise ValueError(f"rows {m} not divisible by axis size {n}")

@@ -1,9 +1,10 @@
 """Collective schedules: the paper's SW baselines and HW path, on mesh axes.
 
 Port of ``repro.core.schedules``.  Each schedule is an
-SPMD program over one named axis of the stacked mesh (``core.mesh``): a
-tensor's leading dims are the mesh members, and a member's dim 0 in the
-reference body is dim ``mesh.ndim`` here.  The taxonomy is the reference's:
+SPMD program over one named axis of a mesh (``core.mesh``): on the stacked
+mesh a tensor's leading dims are the mesh members, on a rank mesh it is
+the member's own, and a member's dim 0 in the reference body is dim
+``mesh.stacked`` here.  The taxonomy is the reference's:
 
   paper (Section 4.2)                    here
   -------------------------------------  -------------------------------------
@@ -97,7 +98,7 @@ def _broadcast_chain(x, axis, root, n, idx, chunks: int):
     from relative position s to s+1.  SPMD-uniform: every member runs every
     step; non-participants forward zeros that are masked out.
     """
-    k = M.current().ndim
+    k = M.current().stacked
     rel = (idx - root) % n  # my distance down the chain
     parts = _split(x, chunks, k) if chunks > 1 else [x]
     out_parts = []
@@ -158,7 +159,7 @@ def all_reduce(x, axis: str, schedule: str = "native", chunks: int = 1):
 
 def _ring_all_reduce(x, axis, n):
     """Bandwidth-optimal ring: RS then AG on 1/n chunks."""
-    k = M.current().ndim
+    k = M.current().stacked
     idx = M.axis_index(axis)
     rows = x.shape[k]
     pad = (-rows) % n
@@ -201,7 +202,7 @@ def all_gather(x, axis: str, schedule: str = "native"):
     _check_pow2(n, "all_gather")
     if schedule == "native":
         return M.all_gather(x, axis, tiled=True)
-    k = M.current().ndim
+    k = M.current().stacked
     idx = M.axis_index(axis)
     if schedule in ("chain", "pipelined"):
         gathered = [x]
@@ -238,7 +239,7 @@ def reduce_scatter(x, axis: str, schedule: str = "native"):
     _check_pow2(n, "reduce_scatter")
     if schedule == "native":
         return M.psum_scatter(x, axis, tiled=True)
-    k = M.current().ndim
+    k = M.current().stacked
     idx = M.axis_index(axis)
     parts = torch.stack(_split(x, n, k), dim=k)
     carry = M.take(parts, (idx - 1) % n, k)
@@ -254,10 +255,10 @@ def barrier(axis: str, schedule: str = "native"):
     Returns every member's count of arrivals (the axis size), int32.
     """
     mesh = M.current()
-    token = torch.ones(mesh.shape, dtype=torch.int32, device=mesh.device)
+    token = torch.ones(mesh.shape[:mesh.stacked], dtype=torch.int32, device=mesh.device)
     if schedule == "native":
         return M.psum(token, axis)
-    return all_reduce(token.unsqueeze(mesh.ndim), axis, schedule="tree")[..., 0]
+    return all_reduce(token.unsqueeze(mesh.stacked), axis, schedule="tree")[..., 0]
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,8 @@ accepted and changes nothing (the port runs its layers in a Python loop);
 already works in blocks, so it is ignored too.  ``attn_bf16_logits``
 changes the numbers and is not ported: a model built with it raises
 ``NotImplementedError``.
-``ShardingPolicy`` / ``constrain`` have no meaning on one card and wait for
-the ``torch.distributed`` backend.
+``ShardingPolicy`` / ``constrain`` wait for the model-parallel slice
+(ROADMAP.md), which builds on the rank mesh (``core.mesh.RankMesh``).
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ reference family's ``init`` returns, as a nested structure of numpy arrays
   reference ``vmap``s their init), each a dict of dicts (norms, attention,
   MLP), beside ``enc_pos``, ``dec_embed``, ``enc_norm`` and ``dec_norm``.
 
+``reference_leaves`` maps the port's parameter names back onto the
+reference's leaves: a layer-stacked leaf is the port's per-layer
+parameters in layer order.
+
 Going through numpy keeps the port free of JAX.  Each leaf keeps its own
 dtype (rwkv6 and the hybrid hold f32 leaves beside ``param_dtype`` ones).
 A bf16 leaf arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
@@ -31,6 +35,27 @@ from repro_torch.models.common import ModelConfig, resolve_device
 from repro_torch.models.transformer import Block, Transformer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# The port's per-layer containers that the reference stacks on a leading L
+# dim, by family (the hybrid keeps a list of per-layer dicts).
+STACKED_LAYERS = {"transformer": ("blocks",), "rwkv6": ("layers",),
+                  "whisper": ("enc_layers", "dec_layers")}
+
+
+def reference_leaves(names, cfg: ModelConfig) -> dict:
+    """The reference's pytree leaves in terms of the port's parameter names
+    (``named_parameters`` order): ``"blocks.*.attn.wq"`` -> the names of
+    ``blocks.<i>.attn.wq`` in layer order, stacked on L in the reference;
+    any other name is a leaf of its own."""
+    stacked = STACKED_LAYERS.get(cfg.family, ())
+    leaves = {}
+    for name in names:
+        head, _, rest = name.partition(".")
+        if head in stacked:
+            layer, _, rest = rest.partition(".")
+            leaves.setdefault(f"{head}.*.{rest}", []).append((int(layer), name))
+        else:
+            leaves[name] = [(0, name)]
+    return {leaf: [n for _, n in sorted(pairs)] for leaf, pairs in leaves.items()}
 
 
 def from_jax_params(params, cfg: ModelConfig, device=None, trainable: bool = False):

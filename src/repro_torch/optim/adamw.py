@@ -7,8 +7,9 @@ gradients, corrects the moments' bias, decays every leaf (decoupled), and
 computes the update in f32, cast back to each parameter's dtype; it is
 functional, like the reference: it returns new tensors and leaves its
 arguments as they are.  ``torch.optim.AdamW`` is not used: it keeps a bf16
-parameter's state in bf16 and has no global clip.  The ZeRO-1 state specs
-(``opt_state_specs``) wait for the multi-card backend (ROADMAP.md).
+parameter's state in bf16 and has no global clip.  ``opt_state_specs`` gives the
+state's layout under ZeRO-1 over the data-parallel axes, as specs for
+``core.mesh.shard`` (tuples in place of ``PartitionSpec``).
 """
 
 from __future__ import annotations
@@ -63,3 +64,42 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, lr_sc
                             + cfg.weight_decay * p32)
         new_params[k], new_m[k], new_v[k] = new_p.to(p.dtype), m, v
     return new_params, {"step": step, "m": new_m, "v": new_v}, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_specs(param_specs, param_shapes, batch_axes=("data",), zero1: bool = True,
+                    axis_sizes: dict | None = None):
+    """Specs of the optimizer state (ZeRO-1 over the DP axes).
+
+    ``param_specs`` maps names (dicts may nest) to spec tuples;
+    ``param_shapes`` matches it with tensors or shapes.  Each moment is
+    split over ``batch_axes`` along the largest dim that the spec leaves
+    whole and the DP degree divides (by size, not position, so that a cut
+    depth sees the layout of the full model), or keeps the parameter's
+    spec when no dim does.
+    """
+    dp = 1
+    for a in batch_axes:
+        dp *= (axis_sizes or {}).get(a, 1)
+
+    def zspec(spec, shape):
+        spec = tuple(spec)
+        if not zero1 or dp <= 1:
+            return spec
+        dims = tuple(shape.shape) if hasattr(shape, "shape") else tuple(shape)
+        parts = list(spec) + [None] * (len(dims) - len(spec))
+        best, best_size = None, 0
+        for i, (p, dim) in enumerate(zip(parts, dims)):
+            if p is None and dim % dp == 0 and dim > best_size:
+                best, best_size = i, dim
+        if best is None:
+            return spec
+        parts[best] = tuple(batch_axes)
+        return tuple(parts)
+
+    def walk(specs, shapes):
+        if isinstance(specs, dict):
+            return {k: walk(v, shapes[k]) for k, v in specs.items()}
+        return zspec(specs, shapes)
+
+    m_specs = walk(param_specs, param_shapes)
+    return {"step": (), "m": m_specs, "v": m_specs}

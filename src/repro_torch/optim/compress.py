@@ -1,12 +1,12 @@
 """Int8 gradient compression with error feedback (``src/repro/optim/compress.py``).
 
 ``compress_int8`` / ``decompress_int8`` quantize one tensor on a grid of
-max|g| / 127.  ``compressed_mean`` is the DP mean over an axis of the
-stacked mesh (``core/mesh.py``): every member quantizes on one grid, whose
-scale is the ``pmax`` of the members' max|g| (the ``reduce_nway`` kernel's
-``max``), and the int32 payload is summed exactly by ``axis_sum``.  The
-trainer does not call it yet: a data-parallel step needs one rank per card
-(ROADMAP.md).
+max|g| / 127.  ``compressed_mean`` is the DP mean over a mesh axis
+(``core/mesh.py``), on the stacked mesh and on a rank mesh alike: every
+member quantizes on one grid, whose scale is the ``pmax`` of the members'
+max|g| (on the stacked mesh the ``reduce_nway`` kernel's ``max``), and the
+int32 payload is summed exactly (``psum``).  The data-parallel trainer
+(``runtime/trainer.py``) calls it once a step.
 """
 
 from __future__ import annotations
@@ -32,16 +32,16 @@ def decompress_int8(q, scale):
 
 
 def compressed_mean(grads: dict, axis: str, err_tree: dict | None = None):
-    """Quantized mean of stacked gradients over the mesh axis ``axis``.
+    """Quantized mean of the members' gradients over the mesh axis ``axis``.
 
     Each leaf of ``grads`` (name -> tensor whose leading dims are the
-    enclosing mesh's) is quantized per member on the grid of the axis'
-    ``pmax`` of max|g| / 127 (with the residual ``err_tree[name]`` added
-    first when given), summed as int32 over the axis, dequantized and
-    averaged.  Returns (mean grads, new residuals), both stacked.
+    enclosing mesh's stacked dims, none on a rank mesh) is quantized per
+    member on the grid of the axis' ``pmax`` of max|g| / 127 (with the
+    residual ``err_tree[name]`` added first when given), summed as int32
+    over the axis, dequantized and averaged.  Returns (mean grads, new residuals), laid out as ``grads``.
     """
     mesh = M.current()
-    n, k = mesh.size(axis), mesh.ndim
+    n, k = mesh.size(axis), mesh.stacked
 
     def one(g, err):
         g32 = g.float() + (0.0 if err is None else err)

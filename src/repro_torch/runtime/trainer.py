@@ -1,21 +1,36 @@
-"""Training loop: microbatching, AdamW, checkpoints, recovery.
+"""Training loop: microbatching, data-parallel compressed gradients,
+AdamW, checkpoints, recovery.
 
-The port's counterpart of ``src/repro/runtime/trainer.py`` on one card.
-A step takes the gradient of the family's ``loss_fn`` by autograd (through
-the kernels' ``autograd.Function``s), accumulated over ``microbatches``
-(the loss and the gradients averaged), scales the learning rate by
-``warmup_cosine`` at the optimizer's step and applies ``adamw_update`` to
-the model's parameters in place.  ``fit`` saves an async checkpoint every
+The port's counterpart of ``src/repro/runtime/trainer.py``.  A step takes
+the gradient of the family's ``loss_fn`` by autograd (through the kernels'
+``autograd.Function``s), accumulated over ``microbatches`` (the loss and
+the gradients averaged), scales the learning rate by ``warmup_cosine`` at
+the optimizer's step and applies ``adamw_update`` to the model's
+parameters in place.  ``fit`` saves an async checkpoint every
 ``ckpt_every`` steps and a last one at the end, and resumes exactly from
-the latest valid checkpoint (the data cursor is the step).  The
-int8-compressed data-parallel mean (``compress_grads`` with ``dp_axis``)
-needs one rank per card and raises (ROADMAP.md).
+the latest valid checkpoint (the data cursor is the step).
+
+With ``compress_grads`` and ``dp_axis`` the step is the reference's
+``shard_map`` over the DP axis of ``mesh``: member ``i`` of the axis takes
+rows ``[i*B/n, (i+1)*B/n)`` of the global batch, computes its loss and
+gradients (over its microbatches), and ``optim.compressed_mean`` gives
+the members' int8 mean with a residual per member; AdamW then applies the
+mean, equal on every member.  On the stacked mesh the members run one
+after another on the card and AdamW runs once; on a rank mesh each rank
+runs its member.  As in the reference, whose ``out_specs=P()`` under
+``check_vma=False`` return device 0's shard, the logged loss is member
+0's, and a checkpoint keeps member 0's residuals, which a resume gives
+to every member.  On a rank mesh only member 0 writes checkpoints; every
+rank restores.
 
 The training state is ``(model, opt_state, err_state)``: the model holds
 the parameters; ``opt_state`` is AdamW's (``step``, ``m``, ``v``) and
-``err_state`` the compression residuals, both keyed by parameter name.  A
-checkpoint holds it as one flat dict (``params/<name>``, ``opt/step``,
-``opt/m/<name>``, ``opt/v/<name>``, ``err/<name>``).
+``err_state`` the compression residuals, keyed by the reference's leaf
+(``models.convert.reference_leaves``: ``blocks.*.attn.wq`` holds every
+layer's, as the reference's layer-stacked leaf) and stacked per member on
+a stacked mesh.  A checkpoint holds the state as one flat dict
+(``params/<name>``, ``opt/step``, ``opt/m/<name>``, ``opt/v/<name>``,
+``err/<leaf>``).
 """
 
 from __future__ import annotations
@@ -29,9 +44,12 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import mesh as M
 from repro_torch.models import get_family
 from repro_torch.models.common import ModelConfig, resolve_device
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine
+from repro_torch.models.convert import reference_leaves
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update, compressed_mean,
+                               warmup_cosine)
 
 PARAMS = "params/"
 
@@ -68,20 +86,40 @@ def restore_params(model, ckpt_dir: str, step: int | None = None) -> int | None:
     return step
 
 
+def _by_param(leaves: dict, grouped: dict) -> dict:
+    """Tensors by parameter name from tensors by reference leaf."""
+    out = {}
+    for leaf, names in leaves.items():
+        out.update(zip(names, grouped[leaf].unbind(0)) if "*" in leaf
+                   else ((names[0], grouped[leaf]),))
+    return out
+
+
 class Trainer:
     """Trains ``model_cfg`` on ``device`` (None means CUDA, and raises without
-    a card).  ``model``, when given, is the initial weights: ``init_state``
-    copies it instead of drawing new ones (its device is then the
-    trainer's)."""
+    a card), or on ``mesh``'s device.  ``model``, when given, is the initial
+    weights: ``init_state`` copies it instead of drawing new ones (its
+    device is then the trainer's).  ``mesh`` (a stacked ``Mesh`` or a
+    ``RankMesh``) is needed by the data-parallel step (``compress_grads``
+    with ``dp_axis``); without them the whole batch is one member's."""
 
-    def __init__(self, model_cfg: ModelConfig, tcfg: TrainerConfig, device=None, model=None):
-        if tcfg.compress_grads and tcfg.dp_axis:
-            raise NotImplementedError(
-                "compressed data-parallel gradients need the one-rank-per-card "
-                "torch.distributed backend (ROADMAP.md)")
+    def __init__(self, model_cfg: ModelConfig, tcfg: TrainerConfig, device=None, model=None,
+                 mesh=None):
+        self.dp = bool(tcfg.compress_grads and tcfg.dp_axis)
+        if self.dp and mesh is None:
+            raise ValueError("compressed data-parallel gradients run over a mesh: pass mesh=")
+        if self.dp:
+            mesh.dim(tcfg.dp_axis)
         self.model_cfg = model_cfg
         self.tcfg = tcfg
-        self.device = model.device if model is not None else resolve_device(device)
+        self.mesh = mesh
+        self.ranked = isinstance(mesh, M.RankMesh)
+        if model is not None:
+            self.device = model.device
+        elif mesh is not None:
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.family = get_family(model_cfg)
         self._initial = model
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts) \
@@ -123,10 +161,68 @@ class Trainer:
                 acc[k] += g
         return loss / mb, {k: g / mb for k, g in acc.items()}
 
+    def _dp_grads(self, model, batch, err_state):
+        """(member 0's loss, the members' compressed mean gradients by
+        parameter, new residuals) over the DP axis.  The compression runs on
+        the reference's leaves (``reference_leaves``: one scale for a
+        layer-stacked leaf), so the residuals are keyed by them."""
+        mesh, axis = self.mesh, self.tcfg.dp_axis
+        leaves = reference_leaves(params_of(model), self.model_cfg)
+        n = mesh.size(axis)
+        rows = batch["tokens"].shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not split over {n} members of {axis!r}")
+        per = rows // n
+
+        def rows_of(i):
+            return {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+
+        with mesh:
+            if self.ranked:
+                loss, grads = self._grads(model, rows_of(mesh.coord[mesh.dim(axis)]))
+                grouped = {leaf: torch.stack([grads[k] for k in names]) if "*" in leaf
+                           else grads[names[0]] for leaf, names in leaves.items()}
+                del grads
+                mean, err_state = compressed_mean(grouped, axis, err_state)
+                return mesh.broadcast_first(loss), _by_param(leaves, mean), err_state
+            # Stacked: the members one after another, their gradients stacked
+            # along the axis' dim and copied along the mesh's other axes.
+            d, lead = mesh.dim(axis), mesh.shape
+            along = tuple(n if i == d else 1 for i in range(len(lead)))
+            stacked, loss = {}, None
+            for i in range(n):
+                member_loss, grads = self._grads(model, rows_of(i))
+                loss = member_loss if i == 0 else loss
+                for leaf, names in leaves.items():
+                    g0 = grads[names[0]]
+                    if i == 0:
+                        shape = (len(names),) * ("*" in leaf) + tuple(g0.shape)
+                        stacked[leaf] = g0.new_empty((n,) + shape)
+                    if "*" in leaf:
+                        for j, k in enumerate(names):
+                            stacked[leaf][i, j].copy_(grads[k])
+                    else:
+                        stacked[leaf][i].copy_(g0)
+                del grads
+            stacked = {k: g.reshape(along + g.shape[1:]).expand(lead + g.shape[1:])
+                       for k, g in stacked.items()}
+            mean, err_state = compressed_mean(stacked, axis, err_state)
+            del stacked
+        first = (0,) * len(lead)
+        unequal = torch.zeros((), dtype=torch.bool, device=self.device)
+        for m in mean.values():
+            unequal |= (m != m[first]).any()
+        if bool(unequal):
+            raise RuntimeError("the compressed mean differs between members of the mesh")
+        return loss, _by_param(leaves, {k: m[first].clone() for k, m in mean.items()}), err_state
+
     def _step_fn(self, model, opt_state, batch, err_state):
         """One optimizer step; the model's parameters are updated in place.
         Returns (model, opt_state, err_state, metrics)."""
-        loss, grads = self._grads(model, batch)
+        if self.dp:
+            loss, grads, err_state = self._dp_grads(model, batch, err_state)
+        else:
+            loss, grads = self._grads(model, batch)
         lr_scale = warmup_cosine(opt_state["step"], warmup=self.tcfg.warmup,
                                  total=self.tcfg.total_steps)
         params = params_of(model)
@@ -150,25 +246,32 @@ class Trainer:
             model = self.family.init(gen, self.model_cfg, self.device, trainable=True)
         params = params_of(model)
         opt_state = adamw_init(params)
-        err_shape = (lambda p: p.shape) if self.tcfg.compress_grads else (lambda p: (1,))
-        err_state = {k: torch.zeros(err_shape(p), dtype=torch.float32, device=p.device)
-                     for k, p in params.items()}
+        err_state = {}
+        for leaf, names in reference_leaves(params, self.model_cfg).items():
+            p = params[names[0]]
+            shape = self._lead + (len(names),) * ("*" in leaf) + tuple(p.shape) \
+                if self.tcfg.compress_grads else (1,)
+            err_state[leaf] = torch.zeros(shape, dtype=torch.float32, device=p.device)
         return model, opt_state, err_state
 
-    @staticmethod
-    def _flat(state) -> dict:
+    @property
+    def _lead(self) -> tuple:
+        """The stacked member dims of the residuals."""
+        return self.mesh.shape[:self.mesh.stacked] if self.dp else ()
+
+    def _flat(self, state) -> dict:
         model, opt_state, err_state = state
         flat = {PARAMS + k: p.detach() for k, p in params_of(model).items()}
         flat["opt/step"] = opt_state["step"]
         for part in ("m", "v"):
             flat.update({f"opt/{part}/{k}": t for k, t in opt_state[part].items()})
-        flat.update({f"err/{k}": t for k, t in err_state.items()})
+        first = (0,) * len(self._lead)  # member 0's residuals, as the reference saves
+        flat.update({f"err/{k}": t[first] for k, t in err_state.items()})
         return flat
 
-    @staticmethod
-    def _load(state, flat: dict):
-        """``state`` with every leaf replaced by ``flat``'s; the model's
-        parameters are written in place."""
+    def _load(self, state, flat: dict):
+        """``state`` with every leaf replaced by ``flat``'s (the residuals
+        given to every member); the model's parameters are written in place."""
         model, opt_state, err_state = state
         with torch.no_grad():
             for k, p in params_of(model).items():
@@ -176,7 +279,15 @@ class Trainer:
         opt_state = {"step": flat["opt/step"],
                      **{part: {k: flat[f"opt/{part}/{k}"] for k in opt_state[part]}
                         for part in ("m", "v")}}
-        return model, opt_state, {k: flat[f"err/{k}"] for k in err_state}
+        err = {k: flat[f"err/{k}"].expand(self._lead + flat[f"err/{k}"].shape).clone()
+               for k in err_state}
+        return model, opt_state, err
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes checkpoints: member 0 of a rank mesh,
+        or the one process."""
+        return not self.ranked or self.mesh.rank == self.mesh.ranks[0]
 
     # -- loop ----------------------------------------------------------------
 
@@ -204,12 +315,14 @@ class Trainer:
             self._watch_straggler(dt, step)
             step += 1
             self.metrics_log.append({"step": step, "loss": loss, "dt": dt})
-            if self.ckpt and step % self.tcfg.ckpt_every == 0:
+            if self.ckpt and self._writes and step % self.tcfg.ckpt_every == 0:
                 self.ckpt.save_async(step, self._flat((model, opt_state, err_state)),
                                      metadata={"loss": loss})
         self.state = (model, opt_state, err_state)
-        if self.ckpt:
+        if self.ckpt and self._writes:
             self.ckpt.save(step, self._flat(self.state))
+        if self.ckpt and self.ranked:
+            self.mesh.barrier()  # every rank sees the last checkpoint
         return model, opt_state
 
     def _watch_straggler(self, dt: float, step: int):

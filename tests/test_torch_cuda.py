@@ -564,3 +564,87 @@ def test_wkv_gradients_on_card(card, shape):
     u = 0.5 * torch.randn(H, hd, generator=gen, device=card)
     s0, gs = (torch.randn(B, H, hd, hd, generator=gen, device=card) for _ in range(2))
     _grads_vs_plain(wkv, tref.wkv_ref, (r, k, v, logw, u, s0), (g, gs), 2e-3)
+
+
+# -- data parallel: the stacked mesh's DP step and the NCCL rank mesh --------
+
+
+def _dp_tiny_cfg(dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("qwen1_5_0_5b")
+    return dataclasses.replace(cfg, n_layers=2, d_model=128, n_heads=2, n_kv_heads=2,
+                               head_dim=64, d_ff=256, vocab=256, param_dtype=dtype,
+                               compute_dtype=dtype)
+
+
+def _dp_fit(cfg, mesh, steps=3):
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(compress_grads=True, dp_axis="data", adamw=AdamWConfig(lr=3e-3),
+                         warmup=1, total_steps=10)
+    tr = Trainer(cfg, tcfg, mesh=mesh)
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0, branching=2)
+    model, _ = tr.fit(src, steps=steps, seed=0)
+    return [m["loss"] for m in tr.metrics_log], {k: p.detach().clone()
+                                                for k, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_stacked_dp_step_on_card_equals_the_plain_pmax(card, dt):
+    """3 compressed DP steps over 4 stacked members: the reduce_nway pmax
+    against the plain amax gives equal losses and parameters (the max is
+    exact), and the kernel was launched once per reference leaf a step."""
+    from unittest import mock
+
+    from repro_torch.core import mesh as M
+
+    cfg = _dp_tiny_cfg(TDT[dt])
+    mesh = M.Mesh((4,), ("data",), device=card)
+    before = reduce_nway.launches
+    got = _dp_fit(cfg, mesh)
+    assert reduce_nway.launches - before == 3 * 14
+    with mock.patch.object(M, "reduce_nway", lambda x, op, dim: tref.reduce_nway_ref(x, op, dim)):
+        want = _dp_fit(cfg, mesh)
+    assert got[0] == want[0]
+    assert all(torch.equal(p, want[1][k]) for k, p in got[1].items())
+
+
+@pytest.mark.cuda
+def test_rank_mesh_under_nccl_at_world_size_1_equals_the_stacked_mesh(card, tmp_path):
+    """NCCL refuses two ranks on one card, so the card runs one: every axis
+    function and 2 DP steps equal the stacked mesh of one member."""
+    import torch.distributed as dist
+
+    from repro_torch.core import mesh as M
+
+    ranked = M.RankMesh((1,), ("data",), init_method=f"file://{tmp_path}/rendezvous", rank=0)
+    try:
+        assert dist.get_backend() == "nccl" and ranked.device.type == "cuda"
+        stacked = M.Mesh((1,), ("data",), device=card)
+        gen = torch.Generator(device=card).manual_seed(4)
+        x = torch.randn(8, 16, generator=gen, device=card)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int32):
+            xd = (x * 2**20).to(dtype) if dtype == torch.int32 else x.to(dtype)
+            fns = [lambda t: M.psum(t, "data"), lambda t: M.psum_scatter(t, "data"),
+                   lambda t: M.all_gather(t, "data"), lambda t: M.ppermute(t, "data", [(0, 0)])]
+            if dtype in (torch.float32, torch.bfloat16, torch.int32):  # the router's max
+                fns.append(lambda t: M.pmax(t, "data"))
+            for fn in fns:
+                with ranked:
+                    got = fn(xd)
+                with stacked:
+                    want = fn(xd[None])[0]
+                assert got.dtype == want.dtype and torch.equal(got, want)
+        cfg = _dp_tiny_cfg(torch.float32)
+        got = _dp_fit(cfg, ranked, steps=2)
+        want = _dp_fit(cfg, stacked, steps=2)
+        assert got[0] == want[0]
+        assert all(torch.equal(p, want[1][k]) for k, p in got[1].items())
+    finally:
+        dist.destroy_process_group()

@@ -103,8 +103,28 @@ def test_recovery_from_corrupt_latest(tmp_path):
                    if a.abs().sum() > 0)
 
 
-def test_compressed_dp_needs_the_multi_card_backend():
-    with pytest.raises(NotImplementedError, match="one-rank-per-card"):
+def test_compressed_dp_trains_on_a_stacked_mesh():
+    """The path that raised while the DP step waited: 4 members on the
+    host, a residual per member and reference leaf, member 0's loss."""
+    from repro_torch.core.mesh import Mesh
+
+    cfg = _tiny_cfg()
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=16, global_batch=8, seed=0, branching=2)
+    t = Trainer(cfg, TrainerConfig(compress_grads=True, dp_axis="data", total_steps=10),
+                mesh=Mesh((4,), ("data",), device="cpu"))
+    t.fit(src, steps=2, resume=False)
+    model, opt_state, err = t.state
+    assert int(opt_state["step"]) == 2 and len(t.metrics_log) == 2
+    assert err["blocks.*.attn.wq"].shape == (4, 2) + model.blocks[0].attn["wq"].shape
+    assert not torch.equal(err["embed"][0], err["embed"][1])
+    one = Trainer(cfg, TrainerConfig(), device="cpu")
+    member0 = {k: torch.from_numpy(v[:2]).long() for k, v in src.batch_at(0).items()}
+    loss0 = one.family.loss_fn(one.init_state(0)[0], member0, cfg)
+    assert t.metrics_log[0]["loss"] == pytest.approx(loss0.item(), rel=1e-6)
+
+
+def test_compressed_dp_needs_a_mesh():
+    with pytest.raises(ValueError, match="pass mesh="):
         Trainer(_tiny_cfg(), TrainerConfig(compress_grads=True, dp_axis="data"), device="cpu")
 
 
