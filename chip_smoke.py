@@ -124,8 +124,27 @@ Phases, each of which raises on failure:
    (9d) ``largest_pow2_mesh`` over 8 and 5 members, qwen's parameters
    re-meshed (4, 2) -> (2, 2) under ZeRO-1 specs and back bit-equal, and
    each member's loss at 2 layers finite, their mean the whole batch's;
-10. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
-   ``{"data_parallel": ...}`` line, the ``{"kernels": [...]}`` line, one entry per route of each kernel (with
+10. model-parallel serving: (10a) yi-6b at full width and depth on a
+   stacked ("data", "model") = (2, 4) mesh, tensor-parallel (weights laid
+   out by ``shard_model`` under ``make_policy``, replicated over "data"),
+   and (10b) moonshot-v1-16b-a3b at full width and depth on (1, 4),
+   expert-parallel (16 experts and 4 heads a member, the dispatch and
+   combine ``all_to_all``): each with f32 checks at ``TP_CHECK_LAYERS`` on
+   a model built apart (sharded against unsharded prefill logits and a
+   decode after it, within SERVE_RTOL of max|logits|; moonshot at
+   capacity_factor 64 with its routing flips counted), then phase 4's
+   requests in bf16 twice, equal, ``reduce_nway`` launched, every prefill's
+   flash launches on the tensor-core route, the peak under ``TP_PEAK_GIB``;
+   the tokens that agree with phase 4's serve (printed, not gated), rows
+   dropped by member in an untimed prefill, a profiled prefill and decode
+   step beside the unsharded phase's, and the psum (first held against the
+   plain f32 sum at the bf16 activation's and the f32 aux's shapes) and
+   ``all_to_all`` device ms beside their byte bounds; (10c) the rank mesh
+   under NCCL at world size 1: ``all_to_all`` and a dense and an MoE
+   sharded smoke prefill equal to the stacked mesh's;
+11. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
+   ``{"data_parallel": ...}`` line, the ``{"model_parallel": ...}`` line,
+   the ``{"kernels": [...]}`` line, one entry per route of each kernel (with
    its gradient's method and times where it has one, and its launches in
    each model's phase, ``launches_by_model``), and, last, the
    ``{"ok": true, ...}`` line.
@@ -286,6 +305,26 @@ TRAIN_RECURRENT = (
 DP_MEMBERS, DP_KEEP = 4, 0.5
 DP_RANK_LAYERS, DP_RANK_TOKENS = 2, (1, WAVE)
 ELASTIC_LAYERS, ELASTIC_TOKENS = 2, (2, WAVE)
+# Model-parallel serving (phase 10), each model on a stacked ("data",
+# "model") mesh on the card, laid out by shard_model under make_policy:
+# yi-6b tensor-parallel over (2, 4) (weights replicated over "data"), and
+# moonshot-v1-16b-a3b expert-parallel over (1, 4) (16 of its 64 experts and
+# 4 of its 16 heads a member).  The f32 checks at TP_CHECK_LAYERS on a
+# model built apart: sharded against unsharded prefill logits and a decode
+# after it, within SERVE_RTOL of max|logits| (the MoE at capacity_factor
+# 64, where the expert-parallel MoE drops no row and equals the local one);
+# then phase 4's requests at full depth in bf16, twice, equal.  The peak
+# must stay under TP_PEAK_GIB (moonshot's 52.3 GiB of weights are on the
+# card once).  10c: the rank mesh under NCCL at world size 1.
+TP_SERVES = (
+    dict(arch="yi_6b", mesh=(2, 4), tag="tp yi-6b (2,4)"),
+    dict(arch="moonshot_v1_16b", mesh=(1, 4), tag="ep moonshot (1,4)"),
+)
+TP_CHECK_LAYERS, TP_PEAK_GIB = 4, 60.0
+TP_RANK_TOKENS = (2, 64)
+# the served tokens of phases 4-6a whose full model drew the seed's first
+# weights (phase 10 builds the same model), for phase 10's agreement count
+SERVED_TOKENS = {}
 # The fabric programs of the main path (phase 8), simulated on the host by
 # the port's flit-level NoC simulator with the paper's micro-benchmark
 # parameters (PAPER_MICRO); its cycles are the modelled fabric's, not the
@@ -1176,6 +1215,8 @@ def serve_phase(seed: int, arch: str, kernels: dict, gate: int, check_layers: in
 
     profile_calls(out, {"prefill": prefill, "decode": decode})
     del state
+    if not check_layers:  # the full model's weights were the seed's first draws
+        SERVED_TOKENS[arch] = runs[0]["out"]
     for r in runs:
         del r["out"]
     out.update(runs=runs, launches=launches, route_launches=serve_routes,
@@ -1239,16 +1280,17 @@ def whisper_phase(seed: int) -> dict:
     prompts = torch.randint(0, cfg.vocab, (B, plen), generator=gen, device=DEVICE)
     times = {"prefill": [], "decode": []}
 
-    def timed(key, fn, *a):
+    def timed(key, fn, *a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        r = fn(*a)
+        r = fn(*a, **kw)
         torch.cuda.synchronize()
         times[key].append((time.perf_counter() - t) * 1e3)
         return r
 
     def generate():
-        logits, cache = timed("prefill", fam.prefill, model, batch(prompts), cfg, n_ctx)
+        logits, cache = timed("prefill", fam.prefill, model, batch(prompts), cfg,
+                              max_len=n_ctx)
         toks = [logits[:, :cfg.vocab].argmax(-1)]
         for step in range(1, MAX_NEW):
             logits, cache = timed("decode", fam.decode_step, model, cache, toks[-1][:, None],
@@ -1289,7 +1331,8 @@ def whisper_phase(seed: int) -> dict:
     state = {}
 
     def prefill():
-        state["logits"], state["cache"] = fam.prefill(model, batch(prompts), cfg, n_ctx)
+        state["logits"], state["cache"] = fam.prefill(model, batch(prompts), cfg,
+                                                      max_len=n_ctx)
 
     def decode():
         fam.decode_step(model, state["cache"], state["logits"].argmax(-1)[:, None], plen, cfg)
@@ -2106,6 +2149,370 @@ def dp_phase(seed: int) -> dict:
             "elastic": elastic, "wall_s": wall}
 
 
+def ep_routing_global(record: list, B: int, S: int) -> list:
+    """``routing()`` records of an expert-parallel run on a (1, tp) mesh as
+    the unsharded run's: each member's routed tokens (its slice of the
+    sequence, or all of them) back in global (b, s) order."""
+    out = []
+    for vals, idx, aux in record:
+        vals, idx = vals[0], idx[0]  # the one member of "data"
+        if idx.shape[1] != B * S:  # sliced: member m routed s in [m S/tp, (m+1) S/tp)
+            tp = idx.shape[0]
+            vals, idx = (t.unflatten(1, (B, S // tp)).transpose(0, 1).reshape(B * S, -1)
+                         for t in (vals, idx))
+        else:
+            vals, idx = vals[0], idx[0]
+        out.append((vals, idx, aux.reshape(-1)[0]))
+    return out
+
+
+@contextlib.contextmanager
+def ep_drops():
+    """Rows each member drops at capacity, summed on the card over the MoE
+    layers called inside (the yielded dict's "rows", one per member)."""
+    from unittest import mock
+
+    from repro_torch.models import mlp as mlp_mod
+
+    real, seen = mlp_mod._dispatch_indices, {}
+
+    def dispatch(gate_idx, E, C):
+        got = real(gate_idx, E, C)
+        dropped = (~got[3]).sum(-1)
+        seen["rows"] = dropped if "rows" not in seen else seen["rows"] + dropped
+        return got
+
+    with mock.patch.object(mlp_mod, "_dispatch_indices", dispatch):
+        yield seen
+
+
+def collective_costs(cfg, mesh, policy, B: int, S: int) -> dict:
+    """Device ms (CUDA events) of phase 10's collectives at a prefill
+    wave's shapes in bf16, each beside its byte bound: the psum after a
+    row-parallel product (``reduce_nway`` over the model axis: every
+    member's rows read, one sum written) and, with experts, the dispatch
+    and combine ``all_to_all`` (a copy: every byte read and written).
+    Before it is timed, each psum is held against the plain sum of the
+    same input: the bf16 activation's, and the f32 aux loss's (one value
+    per member, as the expert-parallel MoE's ``pmean`` sums it)."""
+    from repro_torch.core import mesh as M
+    from repro_torch.models.mlp import moe_capacity
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    tp, dp = mesh.size("model"), mesh.size("data")
+    out = {}
+
+    def row(name, fn, nbytes):
+        ms = time_ms(fn, 10)
+        out[name] = {"ms": ms, "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes}
+        print(f"  {name}: {ms:.4f} ms, byte bound {out[name]['bound_ms']:.4f} ms "
+              f"({nbytes / 2**20:.1f} MiB)", flush=True)
+
+    def held(x, axis, rtol, atol):
+        """psum over ``axis`` against the f32 sum of the same members, cast
+        back, element by element: |got - want| <= rtol * |want| + atol."""
+        d = mesh.dim(axis)
+        got = M.psum(x, axis)
+        want = x.float().sum(d, keepdim=True).to(x.dtype).expand(x.shape)
+        torch.cuda.synchronize()
+        kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        name = f"psum over {axis} of {tuple(x.shape)} {kind}"
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{name}: gave {tuple(got.shape)} {got.dtype}, plain {tuple(want.shape)} "
+                 f"{want.dtype}")
+        diff = (got.float() - want.float()).abs()
+        ratio = (diff / (rtol * want.float().abs() + atol)).max().item()
+        if not ratio <= 1.0:
+            fail(f"{name}: max_abs_err {diff.max().item():.3e} at {ratio:.3f} of its limit "
+                 f"{rtol:.3e} x |plain| + {atol} per element")
+        out[f"{name} held"] = {"max_abs_err": diff.max().item(), "limit_ratio": ratio}
+        print(f"  {name}: max_abs_err {diff.max().item():.3e} ({ratio:.3f} of {rtol:.3e} x "
+              f"|plain| + {atol} per element) against the plain sum", flush=True)
+
+    with mesh:
+        # the f32 aux, one value per member: summed over 4 members in f32
+        # in another order, ~4 * 2^-24 relative apart
+        aux = torch.rand(mesh.shape, generator=gen, device=DEVICE)
+        for axis in ("data", "model"):
+            held(aux, axis, 1e-5, 1e-6)
+        y = torch.randn(mesh.shape + (B // dp, S, cfg.d_model), generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16)
+        held(y, "model", BF16_RTOL, 1e-5)  # phase 2's bf16 add rule
+        row(f"psum over model of {tuple(y.shape)} bf16", lambda: M.psum(y, "model"),
+            y.numel() * 2 * (1 + 1 / tp))
+        del y
+        if cfg.n_experts:
+            tokens = B // dp * (S // tp if S % tp == 0 else S)
+            C = moe_capacity(cfg, tokens)
+            buf = torch.randn(mesh.shape + (cfg.n_experts, C, cfg.d_model), generator=gen,
+                              device=DEVICE, dtype=torch.bfloat16)
+            row(f"dispatch all_to_all of {tuple(buf.shape)} bf16",
+                lambda: M.all_to_all(buf, "model", 0, 1), buf.numel() * 2 * 2)
+            back = M.all_to_all(buf, "model", 0, 1)
+            row(f"combine all_to_all of {tuple(back.shape)} bf16",
+                lambda: M.all_to_all(back, "model", 1, 0), back.numel() * 2 * 2)
+            del buf, back
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve(seed: int, arch: str, mesh_shape: tuple, tag: str, unsharded: dict) -> dict:
+    """10a / 10b: one model laid out on a stacked mesh: the f32 checks at
+    TP_CHECK_LAYERS against the unsharded model, then phase 4's bf16 serve
+    at full depth, twice; returns its numbers."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.reduce_nway import reduce_nway
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import get_family
+    from repro_torch.models.convert import shard_model
+    from repro_torch.runtime.server import Request, Server
+
+    cfg = get_config(arch)
+    fam = get_family(cfg)
+    mesh = Mesh(mesh_shape, ("data", "model"), device=DEVICE)
+    policy = make_policy(cfg, mesh)
+    out = {"arch": cfg.name, "mesh": list(mesh_shape), "n_layers": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+
+    # f32 checks on a model built apart: sharded against unsharded.
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32,
+                                n_layers=TP_CHECK_LAYERS)
+    if cfg.n_experts:  # no row dropped: the expert-parallel MoE equals the local one
+        cfg32 = dataclasses.replace(cfg32, capacity_factor=64.0)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    model32, _ = build_model(fam, cfg32, gen, "tp f32 checks")
+    x = torch.randint(0, cfg.vocab, (SLOTS, WAVE + 1), generator=gen, device=DEVICE)
+    with torch.inference_mode():
+        with routing() as routed_plain:
+            want, cache = fam.prefill(model32, x[:, :WAVE], cfg32, max_len=WAVE + 1)
+        want_dec = fam.decode_step(model32, cache, x[:, WAVE:], WAVE, cfg32)[0]
+        del cache
+        sharded = shard_model(copy.deepcopy(model32), mesh, policy)
+        with routing() as routed_tp:
+            got, cache = fam.prefill(sharded, x[:, :WAVE], cfg32, policy, max_len=WAVE + 1)
+        got_dec = fam.decode_step(sharded, cache, x[:, WAVE:], WAVE, cfg32, policy)[0]
+        del cache, sharded
+        name = (f"f32 prefill logits, sharded on {mesh_shape} vs unsharded, {SLOTS} x {WAVE}, "
+                f"{TP_CHECK_LAYERS} of {cfg.n_layers} layers"
+                + (" (capacity_factor 64)" if cfg.n_experts else ""))
+        flips = 0
+        if cfg.n_experts:
+            routed_tp = ep_routing_global(routed_tp, SLOTS, WAVE)
+            flips = routing_flips(routed_tp, routed_plain[:len(routed_tp)])
+            out["routing_flips"] = flips
+            print(f"  routing: {flips} of {len(routed_tp)} x {SLOTS * WAVE} (layer, token) "
+                  f"choices differ between the sharded and the unsharded run", flush=True)
+        if not logits_check(out, "prefill_f32", name, got, want, gate=not flips):
+            pinned = []
+            with pinned_routing(routed_tp, pinned):
+                want, _ = fam.prefill(model32, x[:, :WAVE], cfg32, max_len=WAVE + 1)
+            out["prefill_f32_unpinned"] = out.pop("prefill_f32")
+            logits_check(out, "prefill_f32", name + ", routing pinned to the sharded run's",
+                         got, want)
+        logits_check(out, "decode_f32", f"f32 decode at {WAVE} after the prefill, sharded vs "
+                     "unsharded", got_dec, want_dec)
+    del model32, got, want, got_dec, want_dec, routed_plain, routed_tp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 serving at full depth: phase 4's weights and requests.
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model, out["n_params"] = build_model(fam, cfg, gen, tag)
+    t0 = time.perf_counter()
+    shard_model(model, mesh, policy)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 2**30
+    print(f"  laid out on {mesh!r} in {out['shard_s']:.2f} s: {resident:.2f} GiB resident",
+          flush=True)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, REQUESTS)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
+    server = Server(cfg, model, max_len=MAX_LEN, device=DEVICE, policy=policy)
+    times = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            return r
+        return call
+
+    server._prefill = timed(server._prefill, "prefill")
+    server._decode = timed(server._decode, "decode")
+    runs = []
+    flash_attention.launches, reduce_nway.launches = 0, 0
+    flash_attention.route_launches.update(dict.fromkeys(flash_attention.route_launches, 0))
+    for run in ("cold", "warm"):
+        for key in times:
+            times[key] = []
+        reqs = [Request(prompt=p, max_new=MAX_NEW) for p in prompts]
+        t = time.perf_counter()
+        done = server.serve(reqs, batch_slots=SLOTS)
+        wall = (time.perf_counter() - t) * 1e3
+        tokens = [r.out for r in done]
+        n_tok = sum(len(o) for o in tokens)
+        if not all(r.done and len(r.out) == MAX_NEW for r in done):
+            fail(f"{tag} serve: a request did not finish with its tokens")
+        if not all(0 <= tok < cfg.vocab for o in tokens for tok in o):
+            fail(f"{tag} serve: a token outside [0, vocab)")
+        runs.append({"run": run, "wall_ms": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall * 1e3,
+                     "prefill_ms": list(times["prefill"]),
+                     "decode_ms_per_step": sum(times["decode"]) / len(times["decode"]),
+                     "decode_steps": len(times["decode"]), "out": tokens})
+        print(f"  {tag} serve ({run}): {n_tok} tokens in {wall:.1f} ms ({n_tok / wall * 1e3:.1f} "
+              f"tok/s); prefill ms per wave {[round(m, 2) for m in times['prefill']]}, decode "
+              f"{runs[-1]['decode_ms_per_step']:.2f} ms per step over {len(times['decode'])} "
+              f"steps", flush=True)
+    n_prefills = sum(len(r["prefill_ms"]) for r in runs)
+    launches = {"flash_attention_wgmma": flash_attention.route_launches["tensor_core"],
+                "flash_attention_mma_sync": flash_attention.route_launches["mma_sync"],
+                "reduce_nway": reduce_nway.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if runs[0]["out"] != runs[1]["out"]:
+        fail(f"{tag} serve: a second run gave other tokens")
+    if launches["flash_attention_wgmma"] != cfg.n_layers * n_prefills or \
+            launches["flash_attention_mma_sync"]:
+        fail(f"{tag} serve launched flash_attention {launches} over {n_prefills} prefills, not "
+             f"{cfg.n_layers} tensor-core launches per prefill")
+    if launches["reduce_nway"] <= 0:
+        fail(f"{tag} serve never launched reduce_nway")
+    if peak > TP_PEAK_GIB:
+        fail(f"{tag}: peak device memory {peak:.2f} GiB above {TP_PEAK_GIB}")
+    agree = None
+    if arch in SERVED_TOKENS:
+        pairs = [(a, b) for ra, rb in zip(runs[0]["out"], SERVED_TOKENS[arch])
+                 for a, b in zip(ra, rb)]
+        agree = sum(a == b for a, b in pairs)
+        print(f"  {agree} of {len(pairs)} tokens equal to the unsharded serve's (phase 4; not "
+              f"gated: a bf16 sum taken in another order can tip an argmax)", flush=True)
+    print(f"  served twice, same tokens; launches {launches} over {n_prefills} prefills "
+          f"(reduce_nway {launches['reduce_nway'] / n_prefills:.1f} per prefill, decode steps "
+          f"included); peak device memory {peak:.2f} GiB ({resident:.2f} GiB resident)",
+          flush=True)
+
+    # One profiled prefill and decode step of the first wave, and the
+    # unsharded phase's numbers on the same card beside them.
+    wave = [[0] * (max(map(len, prompts[:SLOTS])) - len(p)) + p for p in prompts[:SLOTS]]
+    tokens = torch.tensor(wave, dtype=torch.int64, device=DEVICE)
+    state = {}
+    reduce_nway.launches = 0
+
+    def prefill():
+        state.clear()  # one cache at a time
+        state["logits"], state["cache"] = fam.prefill(model, tokens, cfg, policy,
+                                                      max_len=MAX_LEN)
+
+    def decode():
+        nxt = state["logits"].argmax(-1)[:, None]
+        fam.decode_step(model, state["cache"], nxt, tokens.shape[1], cfg, policy)
+
+    with torch.inference_mode(), ep_drops() as dropped:  # untimed: the drops counted
+        prefill()
+        torch.cuda.synchronize()
+    out["reduce_nway_per_prefill"] = reduce_nway.launches
+    drops = dropped["rows"].flatten().tolist() if "rows" in dropped else None
+    if drops:
+        print(f"  rows dropped by member at capacity, summed over the {cfg.n_layers} MoE "
+              f"layers of the first wave's prefill: {drops}", flush=True)
+    profile_calls(out, {"prefill": prefill, "decode": decode})
+    for call in ("prefill", "decode"):
+        base = unsharded.get(f"profiled_{call}")
+        if base:
+            print(f"  {call}: device {out[f'profiled_{call}']['device_ms']:.2f} ms, idle "
+                  f"{out[f'profiled_{call}']['idle_share']:.1%} sharded; unsharded (phase "
+                  f"{'4' if arch == 'yi_6b' else '6a'}) device {base['device_ms']:.2f} ms, idle "
+                  f"{base['idle_share']:.1%}", flush=True)
+    del state
+    out["collectives"] = collective_costs(cfg, mesh, policy, SLOTS, tokens.shape[1])
+    for r in runs:
+        del r["out"]
+    out.update(runs=runs, launches=launches, prefills=n_prefills, peak_gib=peak,
+               resident_gib=resident, rows_dropped_by_member=drops, agree_with_unsharded=agree,
+               prompt_lens=[int(n) for n in lens])
+    del model, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_backend(seed: int) -> dict:
+    """10c: the rank mesh under NCCL at world size 1 against the stacked
+    mesh of one member: ``all_to_all`` over a one-member axis, and the
+    sharded prefill of a dense and an MoE smoke model (f32), equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as M
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import get_family
+    from repro_torch.models.convert import shard_model
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_tp_") as tmp:
+        ranked = M.RankMesh((1, 1), ("data", "model"), device=DEVICE,
+                            init_method=f"file://{tmp}/rendezvous", rank=0)
+        try:
+            stacked = M.Mesh((1, 1), ("data", "model"), device=DEVICE)
+            x = torch.randn(8, 6, 4, generator=gen, device=DEVICE).to(torch.bfloat16)
+            for split, concat in ((0, 1), (1, 0)):
+                with ranked:
+                    got = M.all_to_all(x, "model", split, concat)
+                with stacked:
+                    want = M.all_to_all(x[None, None], "model", split, concat)[0, 0]
+                if not torch.equal(got, want):
+                    fail(f"rank mesh under NCCL: all_to_all {split}->{concat} differs")
+            prefills = {}
+            for arch in ("yi_6b", "moonshot_v1_16b"):
+                cfg = get_smoke_config(arch)
+                fam = get_family(cfg)
+                base = fam.init(torch.Generator(device=DEVICE).manual_seed(seed), cfg, DEVICE)
+                tokens = torch.randint(0, cfg.vocab, TP_RANK_TOKENS, generator=gen, device=DEVICE)
+                got = {}
+                for kind, mesh in (("ranks", ranked), ("stacked", stacked)):
+                    policy = make_policy(cfg, mesh)
+                    model = shard_model(copy.deepcopy(base), mesh, policy)
+                    got[kind] = fam.prefill(model, tokens, cfg, policy)[0]
+                if not torch.equal(got["ranks"], got["stacked"]):
+                    fail(f"rank mesh under NCCL: {arch} sharded prefill differs from the "
+                         f"stacked mesh's by {(got['ranks'] - got['stacked']).abs().max().item()}")
+                prefills[arch] = got["ranks"].abs().max().item()
+        finally:
+            dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    print(f"  rank mesh (NCCL, 1 rank, (1, 1)): all_to_all equal to the stacked mesh; sharded "
+          f"smoke prefills {sorted(prefills)} equal (max|logits| {prefills}); {wall:.1f} s",
+          flush=True)
+    return {"prefills": prefills, "wall_s": wall}
+
+
+def tp_phase(seed: int, serving: dict, smi: str) -> dict:
+    """Phase 10 (``smi``: the card's name and power limit); returns its numbers."""
+    t0 = time.perf_counter()
+    out = {}
+    for part, spec in zip("ab", TP_SERVES):
+        print(f"[tp] 10{part}: {spec['tag']}, {spec['arch']} at full width and depth on a "
+              f"stacked {spec['mesh']} mesh; card {smi}", flush=True)
+        out[spec["tag"]] = tp_serve(seed, spec["arch"], spec["mesh"], spec["tag"],
+                                    serving.get(spec["arch"], {}))
+    print(f"[tp] 10c: the rank mesh under NCCL; card {smi}", flush=True)
+    out["rank_backend"] = tp_rank_backend(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    out["card"] = smi
+    print(f"[tp] phase 10 took {out['wall_s']:.1f} s")
+    return out
+
+
 def _sha16(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
@@ -2683,7 +3090,15 @@ def main(argv=None) -> int:
     by_model.setdefault("flash_attention_wgmma", {})["dp_train qwen1.5-0.5b x4"] = \
         dp_launches["flash_attention[tensor_core]"]
 
-    # 10. Result lines.  Each route of a kernel is an entry of its own.
+    # 10. Model-parallel serving; its launches are gated inside the phase
+    # and join each kernel's launches_by_model.
+    mp = tp_phase(args.seed, serving, smi)
+    for spec in TP_SERVES:
+        tp_launches = mp[spec["tag"]]["launches"]
+        for name in ("reduce_nway", "flash_attention_wgmma"):
+            by_model.setdefault(name, {})[spec["tag"]] = tp_launches[name]
+
+    # 11. Result lines.  Each route of a kernel is an entry of its own.
     def entry(name, source, replaces, rows, route=None):
         if route is not None:
             rows = [r for r in rows if r["route"] == route]
@@ -2720,6 +3135,7 @@ def main(argv=None) -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"fabric": fabric}))
     print(json.dumps({"data_parallel": dp}))
+    print(json.dumps({"model_parallel": mp}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,9 +24,12 @@ find the mesh from the enclosing ``with mesh:`` block:
   ``isend`` / ``irecv`` on a rank mesh);
 * ``psum`` and ``psum_scatter`` (the ``reduce_nway`` kernel over the axis'
   dim for float32 and bfloat16; other dtypes as ``jax.lax.psum`` sums
-  them, see :func:`axis_sum`; a rank mesh keeps the same arithmetic with
-  ``all_reduce`` / ``reduce_scatter``), ``pmax`` (its ``max``),
-  ``all_gather``;
+  them, see :func:`axis_sum`; a rank mesh keeps the same arithmetic: a
+  reduce-scatter by ``all_to_all_single`` and the ``reduce_nway`` router,
+  then ``all_gather`` for ``psum``), ``pmax`` (its ``max``),
+  ``all_gather``, ``all_to_all`` (``jax.lax.all_to_all``'s tiled form: a
+  reshape and ``movedim`` across the axis' dim on the stacked mesh, no
+  kernel; ``all_to_all_single`` on a rank mesh);
 * ``take`` and ``put``: a per-member index into a local dim, in place of
   ``jnp.take`` / ``dynamic_slice`` / ``dynamic_update_slice`` with a
   traced index.
@@ -238,6 +241,37 @@ def all_gather(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
     return g.expand(g.shape[:d] + (n,) + g.shape[d + 1:])
 
 
+def all_to_all(x: torch.Tensor, name: str, split_axis: int, concat_axis: int,
+               tiled: bool = True) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, name, split_axis, concat_axis, tiled=True)``.
+
+    The member's dim ``split_axis`` (counted from ``mesh.stacked``) is cut
+    into one block per member of the axis; block ``j`` goes to member
+    ``j``, which concatenates the blocks it receives along its dim
+    ``concat_axis`` in member order.  On the stacked mesh this is pure data
+    movement: the axis' dim and the block dim trade places, and one
+    ``contiguous`` copy lays the result out.
+    """
+    if not tiled:
+        raise NotImplementedError("all_to_all: only the tiled form is ported")
+    mesh = current()
+    k, n = mesh.stacked, mesh.size(name)
+    rows = x.shape[k + split_axis]
+    if rows % n:
+        raise ValueError(f"all_to_all: dim of size {rows} not divisible by {n}")
+    if isinstance(mesh, RankMesh):
+        return mesh.all_to_all(x, name, split_axis, concat_axis)
+    d, s = mesh.dim(name), k + split_axis
+    c = k + concat_axis
+    c = c if c < s else c + 1  # the concat dim once the block dim is inserted at s
+    t = x.unflatten(s, (n, rows // n)).transpose(d, s)  # dim s: the sending member
+    if c > s:
+        t = t.movedim(s, c - 1).flatten(c - 1, c)
+    else:
+        t = t.movedim(s, c).flatten(c, c + 1)
+    return t.contiguous()
+
+
 def take(x: torch.Tensor, i: torch.Tensor, dim: int) -> torch.Tensor:
     """``x`` indexed at the per-member position ``i`` along ``dim`` (dropped)."""
     shape = list(x.shape)
@@ -357,9 +391,39 @@ class RankMesh(_Axes):
             total = total + g[i]
         return total
 
+    def _exchange(self, send, name):
+        """Row ``j`` of ``send`` (``(n, ...)``, contiguous) to member ``j``;
+        row ``i`` of the result is what member ``i`` sent here.  Moved as
+        bytes (``all_to_all_single``), so that any dtype goes."""
+        n = self.size(name)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv.view(n, -1).view(torch.uint8),
+                               send.view(n, -1).view(torch.uint8), group=self._group(name))
+        return recv
+
+    def _scatter_sum(self, x, name):
+        """float32 and bfloat16: ``x`` flattened (zero-padded to a multiple
+        of n) and cut into n blocks; block ``j`` of every member goes to
+        member ``j``, which sums the n blocks it receives with the
+        ``reduce_nway`` router in member order, the stacked mesh's
+        arithmetic.  Returns this member's summed block; each rank sends
+        and receives (n-1)/n of ``x``, as a ring reduce-scatter does."""
+        n = self.size(name)
+        flat = x.reshape(-1)
+        if flat.numel() % n:
+            flat = torch.cat([flat, flat.new_zeros(-flat.numel() % n)])
+        return reduce_nway(self._exchange(flat.view(n, -1).contiguous(), name), op="add",
+                           dim=0)
+
     def psum(self, x, name):
+        """float32 and bfloat16: :meth:`_scatter_sum`, then every member's
+        summed block gathered (2(n-1)/n of ``x`` in and out per rank, as a
+        ring all-reduce), so the two meshes give equal sums."""
         if x.dtype in (torch.float16, torch.float64):
             return self._ordered_sum(x, name)
+        if x.dtype in (torch.float32, torch.bfloat16):
+            total = self.all_gather(self._scatter_sum(x, name), name)
+            return total.view(-1)[:x.numel()].view(x.shape)
         wide = _sum_type(x.dtype)
         y = x.to(wide, copy=True).contiguous()
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self._group(name))
@@ -379,11 +443,20 @@ class RankMesh(_Axes):
         n, me = self.size(name), self.coord[self.dim(name)]
         if x.dtype in (torch.float16, torch.float64):
             return self._ordered_sum(x, name).unflatten(0, (n, -1))[me]
+        if x.dtype in (torch.float32, torch.bfloat16):  # dim 0 divides: block me is rows me
+            return self._scatter_sum(x, name).view((x.shape[0] // n,) + tuple(x.shape[1:]))
         wide = _sum_type(x.dtype)
         y = x.to(wide).contiguous()
         out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]), dtype=wide, device=x.device)
         _REDUCE_SCATTER(out, y, dist.ReduceOp.SUM, group=self._group(name))
         return out.to(x.dtype)
+
+    def all_to_all(self, x, name, split_axis, concat_axis):
+        """Tiled ``all_to_all`` (:func:`all_to_all`): ``all_to_all_single``
+        over the axis' group, moved as bytes so that any dtype goes."""
+        send = x.unflatten(split_axis, (self.size(name), -1)).movedim(split_axis, 0)
+        recv = self._exchange(send.contiguous(), name)
+        return recv.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
 
     def broadcast_first(self, x):
         """Member 0's ``x`` on every member of the mesh."""
@@ -398,13 +471,8 @@ class RankMesh(_Axes):
 
 
 def _sum_type(dtype):
-    """The type a rank mesh sums in: bfloat16 in f32 (rounded once, as the
-    ``reduce_nway`` router), integers in int64 (cast back, wrapping as
-    int32 adds)."""
-    if dtype == torch.float32:
-        return dtype
-    if dtype == torch.bfloat16:
-        return torch.float32
+    """The type a rank mesh's ``all_reduce`` / ``reduce_scatter`` sum
+    integers in: int64, cast back (wrapping as int32 adds)."""
     if dtype in _INTS:
         return torch.int64
     raise TypeError(f"psum: unsupported dtype {dtype}")

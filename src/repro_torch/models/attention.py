@@ -31,6 +31,18 @@ The decode cache is updated in place (``KVCache`` tensors are written at
 ``pos``), where the reference's ``dynamic_update_slice`` returns a new
 array: the returned cache holds the same tensors, and no copy of the cache
 is made per step.
+
+Under a sharding policy with a model axis (``models/parallel.py``) Q, K
+and V are column-parallel and ``wo`` row-parallel, its product summed over
+the model axis.  Flash attention runs on the member's own query heads,
+with the mesh dims folded into the kernel's batch.  Where a weight's spec
+splits a head between members (``n_heads`` or ``n_kv_heads`` not a
+multiple of the axis), the projections are gathered over the axis first,
+and a member whose kv heads do not cover its query heads' groups takes
+them from the gathered K and V.  The cache is laid out by
+``policy.kv_dims`` (the reference's ``launch/steps.py:_kv_dim_specs``): on
+kv heads, else on ``head_dim``, where decode sums the members' partial
+logits over the axis.
 """
 
 from __future__ import annotations
@@ -41,7 +53,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import ModelConfig, check_supported, dense_init
+from repro_torch.models.common import (REPLICATED, ModelConfig, ShardingPolicy, check_supported,
+                                       dense_init)
+from repro_torch.models.parallel import Members, is_sharded
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -2.0e38
@@ -67,6 +81,21 @@ def init_attn_params(gen, cfg: ModelConfig, device=None,
         p["bq"] = torch.zeros((cfg.n_heads * hd,), dtype=cfg.param_dtype, device=dev)
         p["bk"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=cfg.param_dtype, device=dev)
         p["bv"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=cfg.param_dtype, device=dev)
+    return p
+
+
+def attn_param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    hd = cfg.head_dim
+    p = {
+        "wq": policy.w_col(cfg.n_heads * hd) if cfg.n_heads * hd else policy.none(),
+        "wk": policy.w_col(cfg.n_kv_heads * hd),
+        "wv": policy.w_col(cfg.n_kv_heads * hd),
+        "wo": policy.w_row(cfg.n_heads * hd),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = (policy._model_if_divisible(cfg.n_heads * hd),)
+        p["bk"] = (policy._model_if_divisible(cfg.n_kv_heads * hd),)
+        p["bv"] = (policy._model_if_divisible(cfg.n_kv_heads * hd),)
     return p
 
 
@@ -169,9 +198,14 @@ def self_attention(params, x, positions, cfg: ModelConfig, *, window: int = 0):
 
 
 def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0,
-              bidirectional: bool = False):
+              policy: ShardingPolicy = REPLICATED, bidirectional: bool = False):
     """Self-attention over a full sequence (training / prefill): causal
     through the flash kernel, or bidirectional on the plain path."""
+    if is_sharded(policy):
+        if bidirectional:
+            raise NotImplementedError("sharded bidirectional attention (whisper) is not "
+                                      "ported yet (ROADMAP.md)")
+        return self_attention_tp(params, x, positions, cfg, window, Members(policy))[0]
     if bidirectional:
         check_supported(cfg)
         S = x.shape[1]
@@ -205,12 +239,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
 
 
 def attention_decode(params, x, layer_cache: KVCache, pos: int, cfg: ModelConfig, *,
-                     window: int = 0):
+                     window: int = 0, policy: ShardingPolicy = REPLICATED):
     """One-token decode with the cache written at ``pos`` in place.
 
     x: (B, 1, d); layer_cache k/v: (B, S_max, n_kv, hd).  Returns (out, cache).
     """
     check_supported(cfg)
+    if is_sharded(policy):
+        return _attention_decode_tp(params, x, layer_cache, pos, cfg, window, Members(policy))
     B = x.shape[0]
     S_max = layer_cache.k.shape[1]
     q, k_new, v_new = _qkv(params, x, cfg)
@@ -229,3 +265,120 @@ def attention_decode(params, x, layer_cache: KVCache, pos: int, cfg: ModelConfig
     q5 = q.reshape(B, 1, Hkv, cfg.n_heads // Hkv, cfg.head_dim)
     out = _sdpa_block(q5, layer_cache.k.to(cd), layer_cache.v.to(cd), mask, cfg)
     return out @ params["wo"].to(cd), layer_cache
+
+
+# ---------------------------------------------------------------------------
+# Under a sharding policy (models/parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def _qkv_tp(params, x, cfg: ModelConfig, mb: Members):
+    """The member's q, k, v: (*lead, B, S, heads, hd), and whether q and k
+    hold the member's own block of heads (else all of them)."""
+    cd, hd = cfg.compute_dtype, cfg.head_dim
+    specs = attn_param_specs(cfg, mb.policy)
+
+    def proj(w, b):
+        y = mb.mm(x, params[w].to(cd))
+        return y + mb.bcast(params[b].to(cd), y) if cfg.qkv_bias else y
+
+    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+    q_own = mb.split(specs["wq"]) and cfg.n_heads % mb.tp == 0
+    kv_own = mb.split(specs["wk"]) and cfg.n_kv_heads % mb.tp == 0
+    if mb.split(specs["wq"]) and not q_own:  # heads cut mid-head: all of them
+        q = mb.gather(q, -1)
+    if mb.split(specs["wk"]) and not kv_own:
+        k, v = mb.gather(k, -1), mb.gather(v, -1)
+    heads = (lambda t: t.unflatten(-1, (-1, hd)))
+    return heads(q), heads(k), heads(v), q_own, kv_own
+
+
+def _kv_for_q(k, q_own: bool, kv_own: bool, cfg: ModelConfig, mb: Members):
+    """K (or V) whose heads serve q's as grouped attention reads them: as
+    it is, unless q holds the member's heads and k all of them, when the
+    member takes the kv head ``h // group`` of each of its query heads."""
+    if not q_own or kv_own:
+        return k
+    return mb.block(k.repeat_interleave(cfg.q_per_kv, dim=-2), -2)
+
+
+def _to_cache(t, kv_own: bool, cfg: ModelConfig, mb: Members):
+    """K or V in the cache layout of ``policy.kv_dims``."""
+    kv_s, hd_s = mb.policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
+    if kv_s is not None:
+        assert kv_own, "kv heads on the model axis come from a split wk"
+        return t
+    return mb.block(t, -1) if hd_s is not None else t
+
+
+def _out_tp(o, params, cfg: ModelConfig, mb: Members, q_own: bool):
+    """``o @ wo`` for the member's rows of ``wo``, summed over the model axis."""
+    spec = attn_param_specs(cfg, mb.policy)["wo"]
+    if mb.split(spec) and not q_own:
+        o = mb.block(o, -1)
+    out = mb.mm(o, params["wo"].to(cfg.compute_dtype))
+    return mb.psum(out) if mb.split(spec) else out
+
+
+def self_attention_tp(params, x, positions, cfg: ModelConfig, window: int, mb: Members):
+    """Causal self-attention of the member's heads through the flash kernel,
+    projected by ``wo`` and summed over the model axis.
+
+    x: (*lead, B, S, d).  Returns (out, k after RoPE, v), the last two in
+    the cache layout.
+    """
+    check_supported(cfg)
+    q, k, v, q_own, kv_own = _qkv_tp(params, x, cfg, mb)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    fold = (lambda t: t.flatten(0, mb.k))  # the mesh dims into the batch
+    o = _causal_flash(fold(q), fold(_kv_for_q(k, q_own, kv_own, cfg, mb)),
+                      fold(_kv_for_q(v, q_own, kv_own, cfg, mb)), window)
+    o = o.reshape(q.shape[:-2] + (-1,))
+    out = _out_tp(o, params, cfg, mb, q_own)
+    return out, _to_cache(k, kv_own, cfg, mb), _to_cache(v, kv_own, cfg, mb)
+
+
+def _attention_decode_tp(params, x, layer_cache: KVCache, pos: int, cfg: ModelConfig,
+                         window: int, mb: Members):
+    """One-token decode of the member's heads against its cache block.
+
+    x: (*lead, B, 1, d); the cache (*lead, B, S_max, kv, hd) in the layout
+    of ``policy.kv_dims``.  On kv heads, each member attends over its own;
+    on ``head_dim``, the members' partial logits are summed over the model
+    axis and each member's slice of the output gathered; otherwise every
+    member attends over the whole cache.
+    """
+    cd = cfg.compute_dtype
+    q, k_new, v_new, q_own, kv_own = _qkv_tp(params, x, cfg, mb)
+    at = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, at, cfg.rope_theta)
+    k_new = apply_rope(k_new, at, cfg.rope_theta)
+    seq = mb.k + 1  # the cache's position dim
+    layer_cache.k.select(seq, pos).copy_(_to_cache(k_new, kv_own, cfg, mb).select(seq, 0))
+    layer_cache.v.select(seq, pos).copy_(_to_cache(v_new, kv_own, cfg, mb).select(seq, 0))
+    S_max = layer_cache.k.shape[seq]
+    ki = torch.arange(S_max, device=x.device)
+    valid = ki <= pos
+    if window > 0:
+        valid = valid & (ki > pos - window)
+    kv_s, hd_s = mb.policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
+    K, V = layer_cache.k.to(cd), layer_cache.v.to(cd)
+    if kv_s is None and q_own:  # the cache holds every kv head: so must q
+        q = mb.gather(q, -2)
+        q_own = False
+    Hkv = K.shape[-2]
+    q5 = q.unflatten(-2, (Hkv, -1))  # (*lead, B, 1, Hkv, G, hd)
+    if kv_s is None and hd_s is not None:
+        part = torch.einsum("...qkgd,...skd->...kgqs", mb.block(q5, -1).float(), K.float())
+        logits = mb.psum(part) * _scale(cfg.head_dim)
+    else:
+        logits = torch.einsum("...qkgd,...skd->...kgqs", q5.float(), K.float()) \
+            * _scale(cfg.head_dim)
+    logits = torch.where(valid, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("...kgqs,...skd->...qkgd", probs.to(cd), V)
+    if kv_s is None and hd_s is not None:
+        o = mb.gather(o, -1)
+    out = _out_tp(o.flatten(-3), params, cfg, mb, q_own)
+    return out, layer_cache

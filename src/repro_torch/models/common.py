@@ -9,15 +9,19 @@ accepted and changes nothing (the port runs its layers in a Python loop);
 already works in blocks, so it is ignored too.  ``attn_bf16_logits``
 changes the numbers and is not ported: a model built with it raises
 ``NotImplementedError``.
-``ShardingPolicy`` / ``constrain`` wait for the model-parallel slice
-(ROADMAP.md), which builds on the rank mesh (``core.mesh.RankMesh``).
+``ShardingPolicy`` and ``REPLICATED`` are the reference's, with a spec as
+the plain tuple that ``core.mesh.shard`` / ``unshard`` take (an entry is
+``None``, an axis name or a tuple of names) in place of ``PartitionSpec``.
+The reference's ``constrain`` is not copied: it changes a layout and
+never a number, and the port's sharded bodies lay their tensors out
+explicitly (``models/parallel.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -124,6 +128,87 @@ class ModelConfig:
         if not self.block_pattern:
             return "attn"
         return self.block_pattern[i % len(self.block_pattern)]
+
+
+# ---------------------------------------------------------------------------
+# Sharding policy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """Maps logical tensor dimensions to mesh axes.
+
+    ``batch_axes`` collect DP axes (('pod','data') on the multi-pod mesh);
+    ``model_axis`` is the TP/EP axis.  ``divisible`` guards: a dimension is
+    only sharded if the axis size divides it (e.g. 4 KV heads or 8 whisper
+    heads do NOT shard over a 16-wide model axis -> replicate).
+    """
+
+    batch_axes: tuple[str, ...] = ("data",)
+    model_axis: Optional[str] = "model"
+    mesh_axis_sizes: dict[str, int] = dataclasses.field(default_factory=dict)
+    # Sequence parallelism (Megatron-style): between blocks, activations are
+    # sharded on the sequence dim over ``seq_axis``.
+    seq_axis: Optional[str] = None
+    # Decode-path layout hint of the reference (in-flight q/k/v follow the
+    # KV-cache layout).  The port's decode always does, so no model path
+    # reads it; it is kept for the dry-run tooling (ROADMAP.md), whose
+    # reference steps and hill-climb set it through ``make_policy``.
+    align_decode_cache: bool = False
+
+    def kv_dims(self, n_kv: int, head_dim: int):
+        """(kv_spec, hd_spec) for cache dims: prefer kv heads, else head_dim."""
+        kv = self._model_if_divisible(n_kv)
+        if kv is not None:
+            return kv, None
+        return None, self._model_if_divisible(head_dim)
+
+    def _model_if_divisible(self, dim: int):
+        if self.model_axis is None:
+            return None
+        size = self.mesh_axis_sizes.get(self.model_axis, 1)
+        return self.model_axis if dim % size == 0 else None
+
+    # -- parameter specs --
+    def w_col(self, out_dim: int) -> tuple:     # (d_in, d_out) column parallel
+        return (None, self._model_if_divisible(out_dim))
+
+    def w_row(self, in_dim: int) -> tuple:      # (d_in, d_out) row parallel
+        return (self._model_if_divisible(in_dim), None)
+
+    def w_expert_col(self, n_experts: int, out_dim: int) -> tuple:
+        e = self._model_if_divisible(n_experts)
+        return (e, None, None if e else self._model_if_divisible(out_dim))
+
+    def w_expert_row(self, n_experts: int, in_dim: int) -> tuple:
+        e = self._model_if_divisible(n_experts)
+        return (e, None if e else self._model_if_divisible(in_dim), None)
+
+    def embed(self, vocab: int) -> tuple:
+        return (self._model_if_divisible(vocab), None)
+
+    def none(self) -> tuple:
+        return ()
+
+    # -- activation specs --
+    def act_bsd(self) -> tuple:                 # (batch, seq, d)
+        return (self.batch_axes or None, self.seq_axis, None)
+
+    def act_bshd(self, n_heads: int) -> tuple:  # (batch, seq, heads, head_dim)
+        return (self.batch_axes or None, None, self._model_if_divisible(n_heads), None)
+
+    def act_bsf(self, d_ff: int) -> tuple:      # (batch, seq, d_ff)
+        return (self.batch_axes or None, None, self._model_if_divisible(d_ff))
+
+    def act_bsv(self, vocab: int) -> tuple:     # (batch, seq, vocab)
+        return (self.batch_axes or None, None, self._model_if_divisible(vocab))
+
+    def kv_cache(self, n_kv: int) -> tuple:     # (layers, batch, seq, kv, hd)
+        return (None, self.batch_axes or None, None, self._model_if_divisible(n_kv), None)
+
+
+REPLICATED = ShardingPolicy(batch_axes=(), model_axis=None)
 
 
 def check_supported(cfg: ModelConfig) -> None:

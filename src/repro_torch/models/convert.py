@@ -19,6 +19,13 @@ reference family's ``init`` returns, as a nested structure of numpy arrays
 reference's leaves: a layer-stacked leaf is the port's per-layer
 parameters in layer order.
 
+``shard_model(model, mesh, policy)`` lays a model out on a mesh by its
+family's ``param_specs`` (``core.mesh.shard``: the mesh dims leading on the
+stacked mesh, the member's block on a rank mesh), parameter by parameter
+in layer order, dropping each source tensor once its layout exists, so
+that the weights are never on the card twice; the model then knows its
+``mesh`` and ``policy``.
+
 Going through numpy keeps the port free of JAX.  Each leaf keeps its own
 dtype (rwkv6 and the hybrid hold f32 leaves beside ``param_dtype`` ones).
 A bf16 leaf arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
@@ -30,8 +37,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import mesh as M
 from repro_torch.models import rglru, rwkv6, whisper
-from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.models.api import get_family
+from repro_torch.models.common import ModelConfig, ShardingPolicy, param, resolve_device
+from repro_torch.models.parallel import check_policy
 from repro_torch.models.transformer import Block, Transformer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -41,21 +51,48 @@ STACKED_LAYERS = {"transformer": ("blocks",), "rwkv6": ("layers",),
                   "whisper": ("enc_layers", "dec_layers")}
 
 
+def leaf_of(name: str, cfg: ModelConfig) -> tuple[str, int]:
+    """(the reference leaf of the port's parameter ``name``, its layer):
+    ``blocks.3.attn.wq`` -> ("blocks.*.attn.wq", 3); any other name is a
+    leaf of its own, at 0."""
+    head, _, rest = name.partition(".")
+    if head in STACKED_LAYERS.get(cfg.family, ()):
+        layer, _, rest = rest.partition(".")
+        return f"{head}.*.{rest}", int(layer)
+    return name, 0
+
+
 def reference_leaves(names, cfg: ModelConfig) -> dict:
     """The reference's pytree leaves in terms of the port's parameter names
     (``named_parameters`` order): ``"blocks.*.attn.wq"`` -> the names of
     ``blocks.<i>.attn.wq`` in layer order, stacked on L in the reference;
     any other name is a leaf of its own."""
-    stacked = STACKED_LAYERS.get(cfg.family, ())
     leaves = {}
     for name in names:
-        head, _, rest = name.partition(".")
-        if head in stacked:
-            layer, _, rest = rest.partition(".")
-            leaves.setdefault(f"{head}.*.{rest}", []).append((int(layer), name))
-        else:
-            leaves[name] = [(0, name)]
+        leaf, layer = leaf_of(name, cfg)
+        leaves.setdefault(leaf, []).append((layer, name))
     return {leaf: [n for _, n in sorted(pairs)] for leaf, pairs in leaves.items()}
+
+
+def shard_model(model, mesh, policy: ShardingPolicy):
+    """Lay ``model`` out on ``mesh`` under ``policy`` in place, one parameter
+    at a time; returns it, with ``model.mesh`` and ``model.policy`` set."""
+    if getattr(model, "mesh", None) is not None:
+        raise ValueError(f"the model is laid out on {model.mesh!r} already")
+    if model.device.type != mesh.device.type:
+        raise ValueError(f"the model lies on {model.device}, the mesh on {mesh.device}")
+    check_policy(mesh, policy)
+    cfg = model.cfg
+    specs = get_family(cfg).param_specs(cfg, policy)
+    for name in [n for n, _ in model.named_parameters()]:
+        owner, _, attr = name.rpartition(".")
+        module = model.get_submodule(owner)
+        src = getattr(module, attr)
+        laid = M.shard(src.detach(), mesh, specs[leaf_of(name, cfg)[0]])
+        module.register_parameter(attr, param(laid))
+        del src
+    model.mesh, model.policy = mesh, policy
+    return model
 
 
 def from_jax_params(params, cfg: ModelConfig, device=None, trainable: bool = False):

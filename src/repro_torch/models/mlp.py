@@ -33,10 +33,21 @@ the token count, and every index is computed on the device.
 ``jax.lax.top_k`` puts the lower index first.  The port takes the top K
 of a stable descending sort, which does the same.
 
-The expert-parallel path (``_moe_ep``: a shard_map with two
-``all_to_all`` token exchanges over the model axis) waits for the
-``torch.distributed`` mesh backend (ROADMAP.md): on one card every
-expert is local.
+Every step of the MoE takes leading dims before the tokens, one per mesh
+dim of the stacked mesh (``models/parallel.py``): each member routes and
+dispatches its own tokens.  Under a policy whose model axis is wider than
+1 and divides ``n_experts``, ``moe`` takes the expert-parallel path
+(``_moe_ep``, the reference's shard_map over the batch and model axes):
+each member routes its tokens (its slice of the sequence over the model
+axis when ``moe_token_shard`` is set or ``seq_axis`` is the model axis
+and the axis divides S; otherwise every member routes the same tokens),
+at a capacity of its own token count; a tiled ``all_to_all`` carries each
+expert's rows to the member that owns it (the fabric's many-to-many), the
+member runs its experts, and the mirrored ``all_to_all`` brings the rows
+back to be combined; the aux loss is averaged over the batch axes, and
+over the model axis when the tokens were sliced, whose slices are then
+gathered back.  Under any other policy each member runs the local MoE, its
+products summed over the model axis where the spec splits ``d_ff``.
 """
 
 from __future__ import annotations
@@ -44,7 +55,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.core import mesh as M
+from repro_torch.models.common import REPLICATED, ModelConfig, ShardingPolicy, dense_init
+from repro_torch.models.parallel import Members, is_sharded
 
 
 def init_mlp_params(gen, cfg: ModelConfig, device=None, d_model: int | None = None,
@@ -58,8 +71,23 @@ def init_mlp_params(gen, cfg: ModelConfig, device=None, d_model: int | None = No
     }
 
 
-def mlp(params, x, cfg: ModelConfig):
+def mlp_param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    return {
+        "w_gate": policy.w_col(cfg.d_ff),
+        "w_up": policy.w_col(cfg.d_ff),
+        "w_down": policy.w_row(cfg.d_ff),
+    }
+
+
+def mlp(params, x, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
+    """The gated MLP; under a policy, column-parallel ``w_gate`` / ``w_up``
+    and row-parallel ``w_down`` summed over the model axis."""
     cd = cfg.compute_dtype
+    if is_sharded(policy):
+        mb = Members(policy)
+        h = F.silu(mb.mm(x, params["w_gate"].to(cd))) * mb.mm(x, params["w_up"].to(cd))
+        out = mb.mm(h, params["w_down"].to(cd))
+        return mb.psum(out) if mb.split(mlp_param_specs(cfg, policy)["w_down"]) else out
     h = F.silu(x @ params["w_gate"].to(cd))
     h = h * (x @ params["w_up"].to(cd))
     return h @ params["w_down"].to(cd)
@@ -80,6 +108,16 @@ def init_moe_params(gen, cfg: ModelConfig, device=None) -> dict:
     }
 
 
+def moe_param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    e, f = cfg.n_experts, cfg.d_ff
+    return {
+        "router": (None, None),
+        "w_gate": policy.w_expert_col(e, f),
+        "w_up": policy.w_expert_col(e, f),
+        "w_down": policy.w_expert_row(e, f),
+    }
+
+
 def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     per_expert = (n_tokens * cfg.top_k + cfg.n_experts - 1) // cfg.n_experts
     cap = int(per_expert * cfg.capacity_factor) + 1
@@ -87,35 +125,37 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
 
 
 def _route(params, xf, cfg: ModelConfig):
-    """Router: returns (gate_vals (T, K), gate_idx (T, K), aux scalar)."""
+    """Router: returns (gate_vals (..., T, K), gate_idx (..., T, K), aux (...))
+    for xf (..., T, d) and a router (..., d, E)."""
     E, K = cfg.n_experts, cfg.top_k
-    T = xf.shape[0]
-    logits = xf.float() @ params["router"]                      # (T, E)
+    T = xf.shape[-2]
+    logits = xf.float() @ params["router"]                      # (..., T, E)
     probs = torch.softmax(logits, dim=-1)
     # top K with the lower index first among equal values (jax.lax.top_k)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, gate_idx = vals[:, :K], idx[:, :K]
+    gate_vals, gate_idx = vals[..., :K], idx[..., :K]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     # auxiliary load-balancing loss (Switch-style)
-    me = probs.mean(0)
-    ce = F.one_hot(gate_idx.reshape(-1), E).sum(0).float() / (T * K)
-    aux = E * torch.sum(me * ce)
+    me = probs.mean(-2)
+    ce = F.one_hot(gate_idx, E).sum((-3, -2)).float() / (T * K)
+    aux = E * torch.sum(me * ce, dim=-1)
     return gate_vals, gate_idx, aux
 
 
 def _dispatch_indices(gate_idx, E: int, C: int):
-    """Capacity-ranked scatter indices. Returns (tok_idx, e_idx, c_idx, keep)."""
-    T, K = gate_idx.shape
-    flat_expert = gate_idx.reshape(-1)                          # (T*K,) token-major
+    """Capacity-ranked scatter indices. Returns (tok_idx (T*K,), and e_idx,
+    c_idx, keep (..., T*K)) for gate_idx (..., T, K)."""
+    T, K = gate_idx.shape[-2:]
+    flat_expert = gate_idx.flatten(-2)                          # (..., T*K) token-major
     # Rank within expert: the pairs before this one (token-major) that chose
     # the same expert, the reference's cumulative one-hot.  A stable sort
     # keeps those pairs in order, so the rank is the distance from the start
     # of the expert's run.  (A cumsum down a (T*K, E) one-hot scans its long
     # outer dim on the card: 12 ms a layer at T*K = 49152.)
-    sorted_e, order = torch.sort(flat_expert, stable=True)
+    sorted_e, order = torch.sort(flat_expert, dim=-1, stable=True)
     run_start = torch.searchsorted(sorted_e, sorted_e)
     rank = torch.arange(T * K, device=gate_idx.device) - run_start
-    pos = torch.empty_like(rank).scatter_(0, order, rank)
+    pos = torch.empty_like(rank).scatter_(-1, order, rank)
     keep = pos < C
     tok_idx = torch.arange(T * K, device=gate_idx.device) // K  # repeat(arange(T), K)
     e_idx = torch.where(keep, flat_expert, 0)
@@ -123,40 +163,114 @@ def _dispatch_indices(gate_idx, E: int, C: int):
     return tok_idx, e_idx, c_idx, keep
 
 
+def _bmm(a, b):
+    """Per-expert products over any leading dims: (..., C, n) @ (..., n, m)."""
+    out = torch.bmm(a.reshape((-1,) + a.shape[-2:]), b.reshape((-1,) + b.shape[-2:]))
+    return out.reshape(a.shape[:-1] + b.shape[-1:])
+
+
 def _expert_ffn(params, buf, cfg: ModelConfig):
-    """buf: (E, C, d) -> (E, C, d) through the per-expert gated FFN."""
+    """buf: (..., E, C, d) -> (..., E, C, d) through the per-expert gated FFN."""
     cd = cfg.compute_dtype
-    h = F.silu(torch.bmm(buf, params["w_gate"].to(cd)))
-    h = h * torch.bmm(buf, params["w_up"].to(cd))
-    return torch.bmm(h, params["w_down"].to(cd))
+    h = F.silu(_bmm(buf, params["w_gate"].to(cd)))
+    h = h * _bmm(buf, params["w_up"].to(cd))
+    return _bmm(h, params["w_down"].to(cd))
+
+
+def _moe_body(params, xf, cfg: ModelConfig, C: int, exchange=None, reduce=None):
+    """Route, dispatch, the experts' FFN, combine.
+
+    xf: (..., T, d), one leading dim per mesh dim on the stacked mesh.
+    ``exchange(buf, split, concat)`` carries the (..., E, C, d) buffer to
+    the experts' owners and back (the expert-parallel ``all_to_all``);
+    ``reduce`` sums the FFN's output over the members that split ``d_ff``.
+    Each large temporary is dropped as soon as the next exists.  Returns
+    (combined (..., T, d), aux (...)).
+    """
+    T, d = xf.shape[-2:]
+    lead = xf.shape[:-2]
+    L = xf[..., 0, 0].numel()  # members
+    E, K = cfg.n_experts, cfg.top_k
+    cd = cfg.compute_dtype
+    gate_vals, gate_idx, aux = _route(params, xf, cfg)
+    tok_idx, e_idx, c_idx, keep = _dispatch_indices(gate_idx, E, C)
+    # each member's kept rows to their unique (expert, slot) of its block of
+    # the buffer; dropped rows to the spare row L * E * C
+    base = (torch.arange(L, device=xf.device) * (E * C)).reshape(lead + (1,))
+    slot = base + e_idx * C + c_idx
+    buf = xf.new_zeros((L * E * C + 1, d), dtype=cd).index_put(
+        (torch.where(keep, slot, L * E * C).reshape(-1),),
+        xf.reshape(L, T, d)[:, tok_idx].to(cd).reshape(-1, d))
+    buf = buf[:L * E * C].view(lead + (E, C, d))
+    if exchange is not None:
+        buf = exchange(buf, 0, 1)
+    buf = _expert_ffn(params, buf, cfg)
+    if reduce is not None:
+        buf = reduce(buf)
+    if exchange is not None:
+        buf = exchange(buf, 1, 0)
+    rows = buf.reshape(L * E * C, d)[slot.reshape(-1)].view(lead + (T * K, d))
+    del buf
+    rows = torch.where(keep[..., None], rows, 0)
+    rows = rows * gate_vals.reshape(lead + (T * K, 1)).to(cd)
+    return rows.view(lead + (T, K, d)).sum(-2), aux
 
 
 def _moe_local(params, xf, cfg: ModelConfig):
     """Single-device MoE body: route, dispatch, expert FFN, combine."""
-    T, d = xf.shape
-    E, K = cfg.n_experts, cfg.top_k
-    cd = cfg.compute_dtype
-    C = moe_capacity(cfg, T)
-    gate_vals, gate_idx, aux = _route(params, xf, cfg)
-    tok_idx, e_idx, c_idx, keep = _dispatch_indices(gate_idx, E, C)
-    # kept rows to their unique (expert, slot); dropped rows to the spare row E * C
-    slot = torch.where(keep, e_idx * C + c_idx, E * C)
-    buf = xf.new_zeros((E * C + 1, d), dtype=cd).index_put((slot,), xf[tok_idx].to(cd))
-    out_buf = _expert_ffn(params, buf[:E * C].view(E, C, d), cfg)
-    gathered = out_buf[e_idx, c_idx]
-    gathered = torch.where(keep[:, None], gathered, 0)
-    weighted = gathered * gate_vals.reshape(-1)[:, None].to(cd)
-    return weighted.view(T, K, d).sum(1), aux
+    return _moe_body(params, xf, cfg, moe_capacity(cfg, xf.shape[-2]))
 
 
-def moe(params, x, cfg: ModelConfig):
-    """Token-choice top-k MoE with capacity dropping, on one device.
+def moe(params, x, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
+    """Token-choice top-k MoE with capacity dropping.
 
-    x: (B, S, d) -> ((B, S, d), aux load-balance loss).  In the paper's
-    terms the dispatch is a fabric many-to-many (multicast of tokens to
-    expert owners) and the combine the mirrored reduction; on one card
-    both are local gathers and scatters.
+    x: (B, S, d) -> ((B, S, d), aux load-balance loss).  Under a policy,
+    x is the member's (*lead, B, S, d) and the aux is per member; the
+    expert-parallel path is taken, as in the reference, whenever the model
+    axis is wider than 1 and divides ``n_experts``.
     """
-    B, S, d = x.shape
-    out, aux = _moe_local(params, x.reshape(B * S, d), cfg)
-    return out.reshape(B, S, d), aux
+    B, S, d = x.shape[-3:]
+    if not is_sharded(policy):
+        out, aux = _moe_local(params, x.reshape(B * S, d), cfg)
+        return out.reshape(B, S, d), aux
+    esize = policy.mesh_axis_sizes.get(policy.model_axis or "", 1)
+    if policy.model_axis is None or esize <= 1 or cfg.n_experts % esize != 0:
+        return _moe_tp_local(params, x, cfg, Members(policy))
+    return _moe_ep(params, x, cfg, policy, esize)
+
+
+def _moe_tp_local(params, x, cfg: ModelConfig, mb: Members):
+    """Each member's local MoE over its tokens; where the spec splits
+    ``d_ff`` (experts that the model axis does not divide), each expert's
+    product is summed over the model axis."""
+    B, S, d = x.shape[-3:]
+    split_f = moe_param_specs(cfg, mb.policy)["w_down"][1] is not None
+    xf = x.reshape(x.shape[:-3] + (B * S, d))
+    out, aux = _moe_body(params, xf, cfg, moe_capacity(cfg, B * S),
+                         reduce=mb.psum if split_f else None)
+    return out.reshape(x.shape), aux
+
+
+def _moe_ep(params, x, cfg: ModelConfig, policy: ShardingPolicy, esize: int):
+    """Expert-parallel MoE over the batch and model axes (the reference's
+    shard_map): x (*lead, B, S, d), whole over the model axis, in and out."""
+    mb = Members(policy)
+    axis = policy.model_axis
+    B, S, d = x.shape[-3:]
+    want_shard = policy.seq_axis == axis or cfg.moe_token_shard
+    seq = want_shard and S % esize == 0
+    xs = mb.block(x, -2) if seq else x          # the member's tokens
+    Tl = B * xs.shape[-2]
+
+    def exchange(buf, split, concat):
+        # dispatch (split 0, concat 1): experts travel to their owners, the
+        # many-to-many multicast, (E, C, d) -> (E/esize, C*esize, d); the
+        # combine (split 1, concat 0) is the mirrored reduction back
+        return M.all_to_all(buf, axis, split_axis=split, concat_axis=concat)
+
+    combined, aux = _moe_body(params, xs.reshape(xs.shape[:-3] + (Tl, d)), cfg,
+                              moe_capacity(cfg, Tl), exchange=exchange)
+    for a in tuple(policy.batch_axes) + ((axis,) if seq else ()):
+        aux = M.psum(aux, a) / M.axis_size(a)
+    out = combined.reshape(xs.shape)
+    return (mb.gather(out, -2) if seq else out), aux

@@ -1,0 +1,141 @@
+"""The sharded bodies' view of a mesh: layouts and the collectives between them.
+
+The reference partitions its model functions by the parameter specs under
+a ``(data, model)`` mesh (GSPMD, and ``shard_map`` for the expert-parallel
+MoE).  The port writes the partitioned bodies out.  A model laid out by
+``models.convert.shard_model`` holds each parameter as ``core.mesh.shard``
+lays it out under its family's ``param_specs``: the mesh dims leading on
+the stacked mesh (``core.mesh.Mesh``), the member's block on a rank mesh
+(``RankMesh``).  Activations take the same form: ``(*lead, B, S, d)``,
+``lead`` being the mesh dims (none on a rank mesh), each member holding its
+block of the batch over ``policy.batch_axes`` and the whole of it over the
+model axis (the reference's ``act_bsd`` without sequence parallelism).
+
+Between the two, a column-parallel product keeps its columns on the
+member; a row-parallel one ends in a ``psum`` over the model axis (the
+``reduce_nway`` router); heads that a weight's spec splits mid-head, kv
+heads that do not cover the member's query heads, and the vocab-parallel
+logits are gathered over the model axis (``all_gather``).  Every body runs
+under ``with mesh:`` and reads the mesh from there.
+"""
+
+from __future__ import annotations
+
+
+from repro_torch.core import mesh as M
+from repro_torch.models.common import REPLICATED, ShardingPolicy
+
+
+def is_sharded(policy: ShardingPolicy) -> bool:
+    """Whether ``policy`` lays anything out over a mesh axis."""
+    if not isinstance(policy, ShardingPolicy):  # e.g. max_len passed where policy goes
+        raise TypeError(f"a ShardingPolicy is expected, got {policy!r}")
+    return policy.model_axis is not None or bool(policy.batch_axes)
+
+
+def model_axis_raise(family: str, policy: ShardingPolicy, model=None):
+    """The families whose sharded execution is not ported yet: a policy
+    with a model axis, or a model laid out on a mesh, raises."""
+    sharded = is_sharded(policy)
+    if policy.model_axis is not None or getattr(model, "mesh", None) is not None:
+        raise NotImplementedError(
+            f"sharded execution of the {family} family is not ported yet (ROADMAP.md); "
+            "only its param_specs are")
+    if sharded:
+        raise NotImplementedError(
+            f"a batch-sharded {family} is not ported yet (ROADMAP.md)")
+
+
+def check_layout(model, policy: ShardingPolicy):
+    """The mesh that ``model`` was laid out on for ``policy``, or None for an
+    unsharded model run with ``REPLICATED``-like policy; anything else raises."""
+    mesh = getattr(model, "mesh", None)
+    if not is_sharded(policy):
+        if mesh is not None:
+            raise ValueError(f"the model is laid out on {mesh!r}; pass the policy it was "
+                             "laid out for (models.convert.shard_model)")
+        return None
+    if mesh is None:
+        raise ValueError("a sharded policy needs a model laid out on a mesh "
+                         "(models.convert.shard_model)")
+    if model.policy != policy:
+        raise ValueError(f"the model was laid out for {model.policy}, not {policy}")
+    if policy.seq_axis is not None:
+        raise NotImplementedError("sequence-parallel execution is not ported yet "
+                                  "(ROADMAP.md): it comes with the training half")
+    return mesh
+
+
+def check_policy(mesh, policy: ShardingPolicy):
+    """``policy`` must name axes of ``mesh`` at the mesh's sizes."""
+    axes = tuple(policy.batch_axes) + ((policy.model_axis,) if policy.model_axis else ())
+    for a in axes:
+        if a not in mesh.axis_names:
+            raise ValueError(f"policy axis {a!r} is not an axis of {mesh!r}")
+        if policy.mesh_axis_sizes.get(a, 1) != mesh.size(a):
+            raise ValueError(f"policy has {a!r} of size {policy.mesh_axis_sizes.get(a, 1)}, "
+                             f"the mesh {mesh.size(a)}")
+
+
+class Members:
+    """The current mesh (``with mesh:``) as ``policy`` uses it."""
+
+    def __init__(self, policy: ShardingPolicy = REPLICATED):
+        self.mesh = M.current()
+        self.policy = policy
+        self.k = self.mesh.stacked
+        self.axis = policy.model_axis
+        self.tp = self.mesh.size(self.axis) if self.axis else 1
+        self.batch = tuple(policy.batch_axes)
+
+    def split(self, spec) -> bool:
+        """Whether a parameter spec cuts a dim over the model axis."""
+        return self.axis is not None and self.axis in spec
+
+    # -- local arithmetic --
+    def mm(self, x, w):
+        """``x @ w`` for each member: x (*lead, ..., n), w (*lead, n, m)."""
+        k = self.k
+        y = x.reshape(x.shape[:k] + (-1, x.shape[-1])) @ w
+        return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+    def bcast(self, p, like):
+        """A per-member parameter (*lead, n) against ``like`` (*lead, ..., n)."""
+        k = self.k
+        return p.reshape(p.shape[:k] + (1,) * (like.ndim - p.ndim) + p.shape[k:])
+
+    # -- the model axis --
+    def psum(self, x):
+        return M.psum(x, self.axis) if self.axis else x
+
+    def gather(self, x, dim: int):
+        """The members' blocks of local dim ``dim`` (from the end when
+        negative), concatenated in member order."""
+        dim = dim % x.ndim
+        k = self.k
+        return M.all_gather(x.movedim(dim, k), self.axis, tiled=True).movedim(k, dim)
+
+    def index(self):
+        return M.axis_index(self.axis)
+
+    def block(self, x, dim: int):
+        """This member's block of local dim ``dim`` of a replicated tensor."""
+        dim = dim % x.ndim
+        return M.take(x.unflatten(dim, (self.tp, -1)), self.index(), dim)
+
+    # -- the batch axes --
+    def _bspec(self, ndim: int) -> tuple:
+        return (self.batch or None,) + (None,) * (ndim - 1)
+
+    def shard_batch(self, x):
+        """A global (B, ...) tensor split over the batch axes, whole over
+        the others."""
+        return M.shard(x, self.mesh, self._bspec(x.ndim))
+
+    def unshard_batch(self, y):
+        """The global tensor of a batch-split one (member 0 of the others)."""
+        return M.unshard(y, self.mesh, self._bspec(y.ndim - self.k))
+
+    def first(self, y):
+        """Member 0's value of a per-member one (an unchecked ``P()`` output)."""
+        return M.unshard(y, self.mesh, ())

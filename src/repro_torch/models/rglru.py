@@ -26,6 +26,12 @@ is at most one window long or a whole multiple of it; elsewhere its decode
 reads the wrong keys (ROADMAP.md queue 3).  The port equals the reference
 wherever the reference is right.  ``decode_step`` writes the KV cache in
 place and replaces the recurrent and conv states in the cache's lists.
+
+``param_specs`` (with ``rec_block_specs``) gives each parameter's layout
+under a ``ShardingPolicy``, keyed by the port's names
+(``layers.<i>.mixer.*`` for the reference's ``layers[i].rec`` or
+``.attn``).  The hybrid's sharded execution is not ported yet
+(ROADMAP.md): its passes raise on a sharded policy.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (
+    REPLICATED,
     ModelConfig,
+    ShardingPolicy,
     check_supported,
     chunked_cross_entropy,
     dense_init,
@@ -51,6 +59,7 @@ from repro_torch.models.common import (
     resolve_device,
     rms_norm,
 )
+from repro_torch.models.parallel import model_axis_raise
 from repro_torch.models.rope import apply_rope
 
 _C = 8.0  # the RG-LRU's "c" constant (Griffin paper)
@@ -154,6 +163,32 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None,
 # ---------------------------------------------------------------------------
 
 
+def rec_block_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    w = _lru_width(cfg)
+    return {
+        "w_x": policy.w_col(w),
+        "w_gate": policy.w_col(w),
+        "conv_w": (None, policy._model_if_divisible(w)),
+        "lambda": (policy._model_if_divisible(w),),
+        "w_input_gate": policy.w_col(w),  # note: (w, w) diag-blockable
+        "w_a_gate": policy.w_col(w),
+        "w_out": policy.w_row(w),
+    }
+
+
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    """Each parameter's spec under ``policy``, by the port's name."""
+    specs = {"embed": policy.embed(cfg.padded_vocab), "final_norm": (None,)}
+    for i, kind in enumerate(_kinds(cfg)):
+        mixer = (rec_block_specs(cfg, policy) if kind == "rec"
+                 else attn_mod.attn_param_specs(cfg, policy))
+        specs.update({f"layers.{i}.norm1": (None,), f"layers.{i}.norm2": (None,)})
+        specs.update({f"layers.{i}.mixer.{k}": v for k, v in mixer.items()})
+        specs.update({f"layers.{i}.mlp.{k}": v
+                      for k, v in mlp_mod.mlp_param_specs(cfg, policy).items()})
+    return specs
+
+
 def _causal_conv(x, conv_w, state=None):
     """Depthwise causal conv along time.  x: (B, S, W); conv_w: (K, W);
     state: the previous K - 1 inputs (B, K - 1, W) or None for zeros.
@@ -240,8 +275,9 @@ def _block(layer: Layer, x, positions, cfg: ModelConfig):
     return x + mlp_mod.mlp(layer.mlp, h, cfg)
 
 
-def forward(model: Hybrid, tokens, cfg: ModelConfig):
+def forward(model: Hybrid, tokens, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """tokens: (B, S) -> (hidden (B, S, d), aux loss)."""
+    model_axis_raise("rglru_hybrid", policy, model)
     B, S = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
     positions = _positions(B, S, x.device)
@@ -252,8 +288,9 @@ def forward(model: Hybrid, tokens, cfg: ModelConfig):
     return x, torch.zeros((), device=x.device)
 
 
-def loss_fn(model: Hybrid, batch: dict, cfg: ModelConfig):
+def loss_fn(model: Hybrid, batch: dict, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))."""
+    model_axis_raise("rglru_hybrid", policy, model)
     hidden, _ = forward(model, batch["tokens"], cfg)
     return chunked_cross_entropy(hidden, model.embed, batch["labels"], cfg)
 
@@ -277,13 +314,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Hybri
     return HybridCache(rec_h=rec_h, conv=conv, attn=attn)
 
 
-def prefill(model: Hybrid, tokens, cfg: ModelConfig, max_len: int | None = None):
+def prefill(model: Hybrid, tokens, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED,
+            max_len: int | None = None):
     """Full-sequence prefill; returns (last-token logits, cache).
 
     Each attention layer's rolling cache gets the keys (after RoPE) and
     values of the last ``window`` positions, position p in slot
     ``p % window``, where decode looks for it.
     """
+    model_axis_raise("rglru_hybrid", policy, model)
     B, S = tokens.shape
     cd = cfg.compute_dtype
     x = model.embed[tokens].to(cd)
@@ -332,9 +371,11 @@ def _attn_decode(params, h, kv: KVCache, pos: int, cfg: ModelConfig):
     return out @ params["wo"].to(cd)
 
 
-def decode_step(model: Hybrid, cache: HybridCache, tokens, pos: int, cfg: ModelConfig):
+def decode_step(model: Hybrid, cache: HybridCache, tokens, pos: int, cfg: ModelConfig,
+                policy: ShardingPolicy = REPLICATED):
     """One-token decode at position ``pos``.  tokens: (B, 1).  Returns
     (logits, cache)."""
+    model_axis_raise("rglru_hybrid", policy, model)
     x = model.embed[tokens].to(cfg.compute_dtype)
     rec_h, conv = list(cache.rec_h), list(cache.conv)
     for i, layer in enumerate(model.layers):

@@ -21,6 +21,12 @@ width at the default eps (not ``cfg.norm_eps``).  The number of heads is
 ``d_model // rwkv_head_size``, not ``n_heads``; ``lm_head`` is separate from
 ``embed``.  ``decode_step`` writes the cache's state and token shifts in
 place (the reference returns new arrays).
+
+``param_specs`` (with ``layer_specs``) gives each parameter's layout
+under a ``ShardingPolicy`` by the port's names (``layers.*.<name>``, one
+per-layer spec for each stacked reference leaf).  rwkv6's sharded
+execution is not ported yet (ROADMAP.md): its passes raise on a sharded
+policy.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ from torch import nn
 
 from repro_torch.kernels.rwkv6 import wkv
 from repro_torch.models.common import (
+    REPLICATED,
     ModelConfig,
+    ShardingPolicy,
     chunked_cross_entropy,
     dense_init,
     embed_init,
@@ -42,6 +50,7 @@ from repro_torch.models.common import (
     resolve_device,
     rms_norm,
 )
+from repro_torch.models.parallel import model_axis_raise
 
 LORA_DIM = 32
 
@@ -134,6 +143,29 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None, trainable: bool = 
 # ---------------------------------------------------------------------------
 
 
+def layer_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    f = cfg.d_ff
+    rep = (None, None)
+    return {
+        "norm1": (None,), "norm2": (None,),
+        "mix_rkvg": rep, "mix_w": (None,),
+        # time-mix replicated: 40 heads % 16 != 0
+        "w_r": rep, "w_k": rep, "w_v": rep, "w_g": rep, "w_o": rep,
+        "w0": (None,), "w_lora_a": rep, "w_lora_b": rep,
+        "bonus_u": rep, "ln_x": (None,),
+        "mix_c": rep,
+        "w_ck": policy.w_col(f), "w_cv": policy.w_row(f), "w_cr": rep,
+    }
+
+
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    """Each parameter's spec under ``policy``, by reference leaf."""
+    specs = {f"layers.*.{k}": v for k, v in layer_specs(cfg, policy).items()}
+    specs.update({"embed": policy.embed(cfg.padded_vocab), "final_norm": (None,),
+                  "lm_head": policy.embed(cfg.padded_vocab)})
+    return specs
+
+
 def _token_shift(x, prev):
     """x[t-1] with ``prev`` at t = 0.  x: (B, S, d); prev: (B, d)."""
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
@@ -211,8 +243,9 @@ def _layer_out(lp, x, cfg: ModelConfig):
     return _layer(lp, x, cfg)[0]
 
 
-def forward(model: Rwkv, tokens, cfg: ModelConfig):
+def forward(model: Rwkv, tokens, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """tokens: (B, S) -> (hidden (B, S, d), aux loss)."""
+    model_axis_raise("rwkv6", policy, model)
     x = model.embed[tokens].to(cfg.compute_dtype)
     layer = maybe_remat(_layer_out, cfg.remat)
     for lp in model.layers:
@@ -221,8 +254,9 @@ def forward(model: Rwkv, tokens, cfg: ModelConfig):
     return x, torch.zeros((), device=x.device)
 
 
-def loss_fn(model: Rwkv, batch: dict, cfg: ModelConfig):
+def loss_fn(model: Rwkv, batch: dict, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))."""
+    model_axis_raise("rwkv6", policy, model)
     hidden, _ = forward(model, batch["tokens"], cfg)
     return chunked_cross_entropy(hidden, model.lm_head, batch["labels"], cfg)
 
@@ -235,9 +269,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, device=None) -> R
                           device=device))
 
 
-def prefill(model: Rwkv, tokens, cfg: ModelConfig, max_len: int | None = None):
+def prefill(model: Rwkv, tokens, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED,
+            max_len: int | None = None):
     """Full-sequence prefill; returns (last-token logits, cache).  The cache
     is O(1) in the sequence: ``max_len`` is accepted and unused."""
+    model_axis_raise("rwkv6", policy, model)
     B, _ = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
     cache = init_cache(cfg, B, device=x.device)
@@ -246,12 +282,14 @@ def prefill(model: Rwkv, tokens, cfg: ModelConfig, max_len: int | None = None):
     return _logits(model, x, cfg), cache
 
 
-def decode_step(model: Rwkv, cache: RwkvCache, tokens, pos: int, cfg: ModelConfig):
+def decode_step(model: Rwkv, cache: RwkvCache, tokens, pos: int, cfg: ModelConfig,
+                policy: ShardingPolicy = REPLICATED):
     """One decode step, the plain recurrence.  tokens: (B, 1).
 
     Writes each layer's state and shifts into ``cache`` in place and
     returns (logits, cache).  ``pos`` is not needed by the recurrence.
     """
+    model_axis_raise("rwkv6", policy, model)
     del pos
     B = tokens.shape[0]
     H, hd = _heads(cfg)

@@ -16,6 +16,21 @@ the layers, and ``prefill`` / ``decode_step`` drop it, as the reference
 does.
 
 Parameters require gradients only in a model built with ``trainable=True``.
+
+``param_specs`` gives each parameter's layout under a ``ShardingPolicy``,
+keyed by the port's names (``models.convert.reference_leaves``: one spec
+for each of ``blocks.*.attn.wq``, ...).  ``forward``, ``prefill`` and
+``decode_step`` take the reference's ``policy``: with a sharded one, the
+model must have been laid out for it (``models.convert.shard_model``) and
+the passes run its partitioned bodies under ``with model.mesh:``
+(``models/parallel.py``).  They take and return global tensors: the tokens
+are split over ``policy.batch_axes``; the embedding is vocab-parallel (a
+masked lookup of the member's rows, summed over the model axis); the
+head's logits are computed in f32 on the member's vocab slice and gathered
+over the model axis.  The KV cache stays sharded on the mesh: (*mesh dims,
+L, B / batch, S_max, kv, hd) with kv or hd split as ``policy.kv_dims``
+says (``cache_spec``).  Sequence parallelism (``seq_axis``) and the sharded
+loss come with the training half (ROADMAP.md) and raise.
 """
 
 from __future__ import annotations
@@ -23,11 +38,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core import mesh as M
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (
+    REPLICATED,
     ModelConfig,
+    ShardingPolicy,
     check_supported,
     chunked_cross_entropy,
     embed_init,
@@ -36,6 +54,7 @@ from repro_torch.models.common import (
     resolve_device,
     rms_norm,
 )
+from repro_torch.models.parallel import Members, check_layout
 
 
 def layer_windows_list(cfg: ModelConfig) -> list[int]:
@@ -66,11 +85,11 @@ class Block(nn.Module):
         self.moe = None if moe is None else nn.ParameterDict(
             {k: param(v) for k, v in moe.items()})
 
-    def ffn(self, h, cfg: ModelConfig):
+    def ffn(self, h, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
         """The MLP or MoE on the normed ``h``: (out, aux loss or None)."""
         if self.moe is not None:
-            return mlp_mod.moe(self.moe, h, cfg)
-        return mlp_mod.mlp(self.mlp, h, cfg), None
+            return mlp_mod.moe(self.moe, h, cfg, policy)
+        return mlp_mod.mlp(self.mlp, h, cfg, policy), None
 
 
 class Transformer(nn.Module):
@@ -133,6 +152,28 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None,
     return Transformer(cfg, embed, blocks, zeros(), lm_head, trainable)
 
 
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    """Each parameter's spec under ``policy``, by reference leaf: a
+    per-layer spec for ``blocks.*.<name>`` (the reference's stacked spec
+    without its leading layer dim)."""
+    ffn, ffn_specs = (("moe", mlp_mod.moe_param_specs) if cfg.n_experts
+                      else ("mlp", mlp_mod.mlp_param_specs))
+    specs = {"embed": policy.embed(cfg.padded_vocab), "final_norm": (None,),
+             "blocks.*.norm1": (None,), "blocks.*.norm2": (None,)}
+    specs.update({f"blocks.*.attn.{k}": v
+                  for k, v in attn_mod.attn_param_specs(cfg, policy).items()})
+    specs.update({f"blocks.*.{ffn}.{k}": v for k, v in ffn_specs(cfg, policy).items()})
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = policy.embed(cfg.padded_vocab)
+    return specs
+
+
+def cache_spec(cfg: ModelConfig, policy: ShardingPolicy) -> tuple:
+    """The layout of the KV cache's k and v, (L, B, S_max, kv, hd)."""
+    kv_s, hd_s = policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
+    return (None, policy.batch_axes or None, None, kv_s, hd_s)
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -157,8 +198,13 @@ def _layer(blk: Block, x, positions, window: int, cfg: ModelConfig):
     return x + h, torch.zeros((), device=x.device) if aux is None else aux
 
 
-def forward(model: Transformer, tokens, cfg: ModelConfig):
+def forward(model: Transformer, tokens, cfg: ModelConfig,
+            policy: ShardingPolicy = REPLICATED):
     """tokens: (B, S) -> (hidden (B, S, d), aux loss summed over layers)."""
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            return _forward_tp(model, tokens, cfg, Members(policy))
     B, S = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
     positions = _positions(B, S, x.device)
@@ -171,15 +217,20 @@ def forward(model: Transformer, tokens, cfg: ModelConfig):
     return x, aux
 
 
-def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig):
+def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig,
+            policy: ShardingPolicy = REPLICATED):
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))
     plus 0.01 of the MoE's aux loss (zero without the MoE)."""
+    if check_layout(model, policy) is not None:
+        raise NotImplementedError("the vocab-parallel loss and sharded training are not "
+                                  "ported yet (ROADMAP.md)")
     hidden, aux = forward(model, batch["tokens"], cfg)
     loss = chunked_cross_entropy(hidden, model.head, batch["labels"], cfg)
     return loss + 0.01 * aux
 
 
-def prefill(model: Transformer, tokens, cfg: ModelConfig, max_len: int | None = None):
+def prefill(model: Transformer, tokens, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED,
+            max_len: int | None = None):
     """Full-sequence prefill; returns (last-token logits, KV cache).
 
     The cache holds the keys after RoPE and the values for positions
@@ -189,6 +240,10 @@ def prefill(model: Transformer, tokens, cfg: ModelConfig, max_len: int | None = 
     max_len = max_len or S
     if S > max_len:
         raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            return _prefill_tp(model, tokens, cfg, max_len, Members(policy))
     cd = cfg.compute_dtype
     x = model.embed[tokens].to(cd)
     positions = _positions(B, S, x.device)
@@ -204,12 +259,17 @@ def prefill(model: Transformer, tokens, cfg: ModelConfig, max_len: int | None = 
     return _logits(model, x, cfg), cache
 
 
-def decode_step(model: Transformer, cache: KVCache, tokens, pos: int, cfg: ModelConfig):
+def decode_step(model: Transformer, cache: KVCache, tokens, pos: int, cfg: ModelConfig,
+                policy: ShardingPolicy = REPLICATED):
     """One decode step.  tokens: (B, 1); pos: the current position.
 
     Writes the new keys and values into ``cache`` at ``pos`` and returns
     (logits, cache).
     """
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            return _decode_tp(model, cache, tokens, pos, cfg, Members(policy))
     x = model.embed[tokens].to(cfg.compute_dtype)
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows_list(cfg))):
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
@@ -219,3 +279,90 @@ def decode_step(model: Transformer, cache: KVCache, tokens, pos: int, cfg: Model
         h = rms_norm(x, blk.norm2, cfg.norm_eps)
         x = x + blk.ffn(h, cfg)[0]
     return _logits(model, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Under a sharding policy (models/parallel.py): the member's tensors
+# ---------------------------------------------------------------------------
+
+
+def _embed_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
+    """The member's rows of the global ``tokens``: (*lead, B, S, d).  With
+    the vocab split over the model axis, each member looks up the tokens
+    of its own rows (zero elsewhere) and the members' rows are summed."""
+    tok = mb.shard_batch(tokens)
+    table = model.embed
+    lead, (V, d) = table.shape[:mb.k], table.shape[mb.k:]
+    split = mb.split(mb.policy.embed(cfg.padded_vocab))
+    if split:
+        tok = tok - M.lift(mb.index(), tok) * V
+        inside = (tok >= 0) & (tok < V)
+        tok = torch.where(inside, tok, 0)
+    L = table[..., 0, 0].numel()
+    base = (torch.arange(L, device=tok.device) * V).reshape(lead + (1,) * (tok.ndim - mb.k))
+    rows = table.reshape(-1, d)[tok + base]
+    if split:
+        rows = mb.psum(torch.where(inside[..., None], rows, 0))
+    return rows.to(cfg.compute_dtype)
+
+
+def _logits_tp(model: Transformer, x, cfg: ModelConfig, mb: Members):
+    """The last token's global logits (B, padded vocab) in f32."""
+    x = x[..., -1, :]
+    x = rms_norm(x, mb.bcast(model.final_norm, x), cfg.norm_eps)
+    logits = mb.mm(x.float(), model.head.float().transpose(-1, -2))
+    if mb.split(mb.policy.embed(cfg.padded_vocab)):
+        logits = mb.gather(logits, -1)
+    return mb.unshard_batch(logits)
+
+
+def _norm(x, scale, cfg: ModelConfig, mb: Members):
+    return rms_norm(x, mb.bcast(scale, x), cfg.norm_eps)
+
+
+def _forward_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
+    x = _embed_tp(model, tokens, cfg, mb)
+    positions = torch.arange(x.shape[-2], dtype=torch.int32, device=x.device)
+    aux = torch.zeros(x.shape[:mb.k], device=x.device)
+    for blk, window in zip(model.blocks, layer_windows_list(cfg)):
+        h = _norm(x, blk.norm1, cfg, mb)
+        x = x + attn_mod.attention(blk.attn, h, positions, cfg, window=window,
+                                   policy=mb.policy)
+        h, a = blk.ffn(_norm(x, blk.norm2, cfg, mb), cfg, mb.policy)
+        x = x + h
+        if a is not None:
+            aux = aux + a
+    x = _norm(x, model.final_norm, cfg, mb)
+    return mb.unshard_batch(x), mb.first(aux)
+
+
+def _prefill_tp(model: Transformer, tokens, cfg: ModelConfig, max_len: int, mb: Members):
+    x = _embed_tp(model, tokens, cfg, mb)
+    S = x.shape[-2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    cache = None
+    at = (slice(None),) * mb.k
+    for i, (blk, window) in enumerate(zip(model.blocks, layer_windows_list(cfg))):
+        h = _norm(x, blk.norm1, cfg, mb)
+        o, kr, v = attn_mod.self_attention_tp(blk.attn, h, positions, cfg, window, mb)
+        x = x + o
+        x = x + blk.ffn(_norm(x, blk.norm2, cfg, mb), cfg, mb.policy)[0]
+        if cache is None:  # (*lead, L, B, max_len, kv, hd), kv or hd the member's
+            shape = kr.shape[:mb.k] + (cfg.n_layers, kr.shape[mb.k], max_len) + kr.shape[-2:]
+            cache = KVCache(k=kr.new_zeros(shape), v=v.new_zeros(shape))
+        cache.k[at + (i, slice(None), slice(0, S))] = kr
+        cache.v[at + (i, slice(None), slice(0, S))] = v
+    return _logits_tp(model, x, cfg, mb), cache
+
+
+def _decode_tp(model: Transformer, cache: KVCache, tokens, pos: int, cfg: ModelConfig,
+               mb: Members):
+    x = _embed_tp(model, tokens, cfg, mb)
+    for i, (blk, window) in enumerate(zip(model.blocks, layer_windows_list(cfg))):
+        h = _norm(x, blk.norm1, cfg, mb)
+        o, _ = attn_mod.attention_decode(
+            blk.attn, h, KVCache(cache.k.select(mb.k, i), cache.v.select(mb.k, i)), pos, cfg,
+            window=window, policy=mb.policy)
+        x = x + o
+        x = x + blk.ffn(_norm(x, blk.norm2, cfg, mb), cfg, mb.policy)[0]
+    return _logits_tp(model, x, cfg, mb), cache

@@ -20,6 +20,11 @@ and recomputes the cross-attention K and V from ``memory`` every step, as
 the reference does.  The reference's ``Server`` passes a token array to
 ``prefill``, which whisper's ``prefill`` does not take, so whisper is
 driven through ``prefill`` and ``decode_step`` directly, not served.
+
+``param_specs`` (with ``_mlp_specs``) gives each parameter's layout under
+a ``ShardingPolicy`` by the port's names (``enc_layers.*.attn.wq``,
+``norms.enc_norm.scale``, ...).  Whisper's sharded execution is not
+ported yet (ROADMAP.md): its passes raise on a sharded policy.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from torch import nn
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (
+    REPLICATED,
     ModelConfig,
+    ShardingPolicy,
     check_supported,
     chunked_cross_entropy,
     dense_init,
@@ -43,6 +50,7 @@ from repro_torch.models.common import (
     param,
     resolve_device,
 )
+from repro_torch.models.parallel import model_axis_raise
 
 
 class WhisperCache(NamedTuple):
@@ -128,6 +136,32 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None,
                    _ln_init(cfg, device), trainable)
 
 
+def _mlp_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    return {
+        "w1": policy.w_col(cfg.d_ff),
+        "b1": (policy._model_if_divisible(cfg.d_ff),),
+        "w2": policy.w_row(cfg.d_ff),
+        "b2": (None,),
+    }
+
+
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    """Each parameter's spec under ``policy``, by reference leaf: per-layer
+    specs for the layers the reference stacks on L."""
+    ln = {"scale": (None,), "bias": (None,)}
+    attn = attn_mod.attn_param_specs(cfg, policy)
+    enc = {"ln1": ln, "ln2": ln, "attn": attn, "mlp": _mlp_specs(cfg, policy)}
+    dec = {"ln1": ln, "ln2": ln, "ln3": ln, "self_attn": attn, "cross_attn": attn,
+           "mlp": _mlp_specs(cfg, policy)}
+    specs = {"enc_pos": (None, None), "dec_embed": policy.embed(cfg.padded_vocab)}
+    for stack, layer in (("enc_layers", enc), ("dec_layers", dec)):
+        for group, leaves in layer.items():
+            specs.update({f"{stack}.*.{group}.{k}": v for k, v in leaves.items()})
+    for norm in ("enc_norm", "dec_norm"):
+        specs.update({f"norms.{norm}.{k}": v for k, v in ln.items()})
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -149,8 +183,9 @@ def _enc_layer(lp, x, cfg: ModelConfig):
     return x + _mlp(lp["mlp"], _ln(x, lp["ln2"]), cfg)
 
 
-def encode(model: Whisper, frames, cfg: ModelConfig):
+def encode(model: Whisper, frames, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """frames: (B, enc_len, d_model) precomputed conv-frontend embeddings."""
+    model_axis_raise("whisper", policy, model)
     cd = cfg.compute_dtype
     x = frames.to(cd) + model.enc_pos.to(cd)[None]
     layer = maybe_remat(_enc_layer, cfg.remat)
@@ -183,9 +218,10 @@ def _decoder(model: Whisper, tokens, memory, cfg: ModelConfig, cache: KVCache | 
     return _ln(x, model.norms["dec_norm"])
 
 
-def loss_fn(model: Whisper, batch: dict, cfg: ModelConfig):
+def loss_fn(model: Whisper, batch: dict, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """Mean next-token loss of ``batch`` (``frames`` (B, enc_len, d),
     ``tokens`` and ``labels`` (B, S)) against the tied ``dec_embed``."""
+    model_axis_raise("whisper", policy, model)
     memory = encode(model, batch["frames"], cfg)
     hidden = _decoder(model, batch["tokens"], memory, cfg)
     return chunked_cross_entropy(hidden, model.dec_embed, batch["labels"], cfg)
@@ -195,10 +231,12 @@ def _logits(model: Whisper, x) -> torch.Tensor:
     return x[:, -1].float() @ model.dec_embed.float().T
 
 
-def prefill(model: Whisper, batch: dict, cfg: ModelConfig, max_len: int | None = None):
+def prefill(model: Whisper, batch: dict, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED,
+            max_len: int | None = None):
     """batch: {frames, tokens} -> (last logits, WhisperCache).  The cache
     holds the self-attention keys after RoPE and the values for positions
     ``[0, S)``, zero up to ``max_len``."""
+    model_axis_raise("whisper", policy, model)
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
@@ -210,9 +248,11 @@ def prefill(model: Whisper, batch: dict, cfg: ModelConfig, max_len: int | None =
     return _logits(model, hidden), WhisperCache(self_kv=cache, memory=memory)
 
 
-def decode_step(model: Whisper, cache: WhisperCache, tokens, pos: int, cfg: ModelConfig):
+def decode_step(model: Whisper, cache: WhisperCache, tokens, pos: int, cfg: ModelConfig,
+                policy: ShardingPolicy = REPLICATED):
     """One decode step.  tokens: (B, 1); pos: the current position.  Writes
     the self-attention cache at ``pos`` in place; returns (logits, cache)."""
+    model_axis_raise("whisper", policy, model)
     x = model.dec_embed[tokens].to(cfg.compute_dtype)
     k, v = cache.self_kv
     for i, lp in enumerate(model.dec_layers):

@@ -9,6 +9,13 @@ draws from a numpy ``Generator(seed)``.  It runs eagerly, one
 ``decode_step`` per token, on the model's device.  It serves any ported
 family through ``models.get_family``: the dense transformers, the
 recurrentgemma hybrid and RWKV-6.
+
+With a sharding policy (the reference's ``policy`` argument) the server
+runs the family's partitioned passes: ``mesh`` lays an unsharded model
+out for the policy (``models.convert.shard_model``), or may be left out
+for a model laid out already.  Prefill splits each wave's prompts over the
+policy's batch axes and returns global logits; the KV cache stays sharded
+on the mesh between decode steps.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.models import get_family
-from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.models.common import REPLICATED, ModelConfig, ShardingPolicy, resolve_device
+from repro_torch.models.convert import shard_model
+from repro_torch.models.parallel import is_sharded
 
 
 @dataclasses.dataclass
@@ -33,24 +42,36 @@ class Request:
 
 class Server:
     """Serves ``model`` (of any ported family) on ``device``: None means CUDA,
-    and raises without a card; the model must lie on that device."""
+    and raises without a card; the model must lie on that device.  Under a
+    sharded ``policy`` the model is laid out on ``mesh`` (given here, or
+    by ``shard_model`` before)."""
 
     def __init__(self, model_cfg: ModelConfig, model, max_len: int = 64,
-                 temperature: float = 0.0, device=None):
+                 temperature: float = 0.0, device=None,
+                 policy: ShardingPolicy = REPLICATED, mesh=None):
         self.cfg = model_cfg
         self.family = get_family(model_cfg)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model lies on {model.device}, the server on {self.device}")
+        if mesh is not None:
+            if not is_sharded(policy):
+                raise ValueError("a mesh needs a sharded policy")
+            if getattr(model, "mesh", None) is None:
+                shard_model(model, mesh, policy)
+            elif model.mesh is not mesh:
+                raise ValueError(f"the model is laid out on {model.mesh!r}, not {mesh!r}")
         self.model = model
+        self.policy = policy
         self.max_len = max_len
         self.temperature = temperature
 
     def _prefill(self, tokens):
-        return self.family.prefill(self.model, tokens, self.cfg, max_len=self.max_len)
+        return self.family.prefill(self.model, tokens, self.cfg, self.policy,
+                                   max_len=self.max_len)
 
     def _decode(self, cache, tokens, pos: int):
-        return self.family.decode_step(self.model, cache, tokens, pos, self.cfg)
+        return self.family.decode_step(self.model, cache, tokens, pos, self.cfg, self.policy)
 
     def _sample(self, logits: np.ndarray, rng: np.random.Generator) -> np.ndarray:
         logits = logits[:, : self.cfg.vocab]  # strip padded vocab tail

@@ -648,3 +648,46 @@ def test_rank_mesh_under_nccl_at_world_size_1_equals_the_stacked_mesh(card, tmp_
         assert all(torch.equal(p, want[1][k]) for k, p in got[1].items())
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi_6b", "moonshot_v1_16b"])
+def test_sharded_smoke_prefill_on_a_stacked_mesh_on_card(card, arch):
+    """A smoke model laid out on a stacked (1, 4) mesh on the card: its
+    prefill through the kernels (flash, reduce_nway for every psum) against
+    the same sharded prefill with plain attention, and the unsharded model
+    (the MoE without drops: the expert-parallel capacity is per member)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as M
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.convert import shard_model
+
+    cfg = get_smoke_config(arch)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)
+    model = tt.init(torch.Generator(device=card).manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator(device=card)
+                           .manual_seed(1), device=card)
+    want, _ = tt.prefill(model, tokens, cfg)
+    mesh = M.Mesh((1, 4), ("data", "model"))
+    policy = make_policy(cfg, mesh)
+    shard_model(model, mesh, policy)
+    flash, reduce = flash_attention.launches, reduce_nway.launches
+    got, cache = tt.prefill(model, tokens, cfg, policy)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == flash + cfg.n_layers
+    assert reduce_nway.launches > reduce and cache.k.is_cuda and cache.k.shape[:2] == (1, 4)
+
+    def plain(q, k, v, *, window=0, **_):
+        return tref.flash_attention_ref(q, k, v, window=window)
+
+    with mock.patch.object(attn_mod, "flash_attention", plain):
+        plain_logits, _ = tt.prefill(model, tokens, cfg, policy)
+    assert got.shape == (2, cfg.padded_vocab) and bool(torch.isfinite(got).all())
+    assert (got - plain_logits).abs().max().item() <= 2e-4
+    assert (got - want).abs().max().item() <= 2e-4

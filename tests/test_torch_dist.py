@@ -21,6 +21,16 @@ differ by one bf16 ulp (2^-8 relative) where the f32 sums round apart.
 same order), ``compressed_mean`` (an exact max, an exact integer sum) and
 the trainer (per-member gradients from the same ops on one thread) must
 be equal.
+
+The model-parallel half: each rank also runs ``all_to_all`` (both of the
+expert-parallel MoE's (split, concat) pairs and one other, in int32, f32
+and bf16) over each axis, and the sharded prefill of a dense (yi-6b) and
+an MoE (moonshot) smoke model on a ``(2, 4)`` ``("data", "model")`` rank
+mesh, laid out by ``shard_model``.  All of it must be bit-equal to the
+stacked mesh: ``all_to_all`` moves bytes, and a rank mesh's f32 ``psum``
+sends each member its block of every member's rows (``all_to_all``),
+which it reduces with the ``reduce_nway`` router in member order, as the
+stacked mesh does, before the summed blocks are gathered.
 """
 
 import dataclasses
@@ -36,6 +46,9 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import mesh as M
 from repro_torch.core import schedules as S
 from repro_torch.data import SyntheticLMSource
+from repro_torch.launch.steps import make_policy
+from repro_torch.models import get_family
+from repro_torch.models.convert import shard_model
 from repro_torch.optim import AdamWConfig, compressed_mean
 from repro_torch.runtime.elastic import largest_pow2_mesh
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -107,8 +120,42 @@ SUMMED = ("psum f32", "psum bf16", "psum_scatter f32 tiled", "psum_scatter f32",
           "all_reduce native", "reduce_scatter native")
 
 
+# name -> (dtype, split_axis, concat_axis) of the all_to_all cases
+A2A_CASES = {f"all_to_all {dt} {s}->{c}": (dt, s, c)
+             for dt in ("int32", "float32", "bfloat16") for s, c in ((0, 1), (1, 0), (0, 0))}
+A2A_LOCAL = (8, 8, 3)
+TP_ARCHS = ("yi_6b", "moonshot_v1_16b")
+TP_TOKENS = (4, 16)
+
+
 def _axes():
     return [(shape, names, a) for shape, names in MESHES for a in names]
+
+
+def _a2a_input(shape, case: str) -> torch.Tensor:
+    dtype = A2A_CASES[case][0]
+    rng = np.random.default_rng(sorted(A2A_CASES).index(case) + 100 * len(shape))
+    x = rng.integers(-2**30, 2**30, shape + A2A_LOCAL) if dtype == "int32" else \
+        rng.standard_normal(shape + A2A_LOCAL)
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _tp_model(arch: str):
+    """The smoke model of ``arch`` from seed 0, and its prompt tokens."""
+    cfg = get_smoke_config(arch)
+    model = get_family(cfg).init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.randint(0, cfg.vocab, TP_TOKENS, generator=torch.Generator().manual_seed(1))
+    return cfg, model, tokens
+
+
+def _tp_prefill(arch: str, mesh):
+    """The sharded prefill of ``arch`` on ``mesh``: (global logits, the
+    member's cache)."""
+    cfg, model, tokens = _tp_model(arch)
+    policy = make_policy(cfg, mesh)
+    shard_model(model, mesh, policy)
+    logits, cache = get_family(cfg).prefill(model, tokens, cfg, policy)
+    return logits, cache
 
 
 def _input(shape, case: str, dtype: str) -> np.ndarray:
@@ -154,8 +201,15 @@ def _rank_main(rank: int, root: str):
                 x = _torch(_input(shape, case, dtype), dtype)[mesh.coord]
                 for a in names:
                     out[(shape, a, case)] = fn(x, a)
+            for case, (_, split, concat) in A2A_CASES.items():
+                x = _a2a_input(shape, case)[mesh.coord]
+                for a in names:
+                    out[(shape, a, case)] = M.all_to_all(x, a, split, concat)
             if shape == (2, 4):
                 out["layout"] = (mesh.coord, dict(mesh._peers))
+    tp_mesh = M.RankMesh((2, 4), ("data", "model"), device="cpu")
+    for arch in TP_ARCHS:
+        out[("tp", arch)] = _tp_prefill(arch, tp_mesh)
     # 3 ranks lost: the survivors' (2, 2) mesh holds ranks 0-3; ranks 4-7
     # build it too (its groups are collective) and are not members
     survivors = largest_pow2_mesh(range(5), model_max=2, device="cpu", ranks=True)
@@ -222,6 +276,35 @@ def test_rank_mesh_matches_the_stacked_mesh(ranks, shape, names, axis, case):
         else:
             scale = x.abs().sum(tuple(range(len(shape)))).max().item()
             assert (g - w).abs().max().item() <= 1e-6 * scale, rank
+
+
+@pytest.mark.parametrize("case", sorted(A2A_CASES))
+@pytest.mark.parametrize("shape,names,axis", _axes(), ids=lambda v: str(v))
+def test_all_to_all_on_ranks_is_bit_equal_to_the_stacked_mesh(ranks, shape, names, axis, case):
+    _, split, concat = A2A_CASES[case]
+    with M.Mesh(shape, names, device="cpu"):
+        want = M.all_to_all(_a2a_input(shape, case), axis, split, concat)
+    for rank, got in enumerate(ranks[1]):
+        g, w = got[(shape, axis, case)], want[_coord(rank, shape)]
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w), rank
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_sharded_prefill_on_ranks_is_bit_equal_to_the_stacked_mesh(ranks, arch):
+    """The (2, 4) rank mesh's sharded prefill: every rank's logits and cache
+    block equal the stacked mesh's, bit for bit."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks' summation orders
+    try:
+        mesh = M.Mesh((2, 4), ("data", "model"), device="cpu")
+        logits, cache = _tp_prefill(arch, mesh)
+    finally:
+        torch.set_num_threads(threads)
+    for rank, out in enumerate(ranks[1]):
+        got_logits, got_cache = out[("tp", arch)]
+        c = _coord(rank, (2, 4))
+        assert torch.equal(got_logits, logits), (rank, (got_logits - logits).abs().max())
+        assert torch.equal(got_cache.k, cache.k[c]) and torch.equal(got_cache.v, cache.v[c]), rank
 
 
 def test_rank_mesh_coordinates_and_groups_are_row_major(ranks):

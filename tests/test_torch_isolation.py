@@ -51,7 +51,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.core.noc.program", "repro_torch.core.noc.calibrate",
             "repro_torch.core.noc.shard", "repro_torch.core.noc.resilience.checkpoint",
             "repro_torch.core.noc.telemetry.collector",
-            "repro_torch.core.noc.service.server"} <= set(mods)
+            "repro_torch.core.noc.service.server", "repro_torch.launch.mesh",
+            "repro_torch.launch.steps", "repro_torch.models.parallel",
+            "repro_torch.models.convert"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
