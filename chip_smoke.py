@@ -142,12 +142,30 @@ Phases, each of which raises on failure:
    ``all_to_all`` device ms beside their byte bounds; (10c) the rank mesh
    under NCCL at world size 1: ``all_to_all`` and a dense and an MoE
    sharded smoke prefill equal to the stacked mesh's;
-11. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
+11. model-parallel training: (11a) qwen1.5-0.5b at full width and depth in
+   bf16 on a stacked (2, 4) ("data", "model") mesh, sequence-parallel,
+   through ``Trainer(policy=, mesh=)``: 12 steps of 4 x 2048 tokens on one
+   repeated batch, phase 7's learning gate, 48 tensor-core flash launches a
+   step, ``reduce_nway`` launched by the backward pass (counted apart from
+   the forward's), the peak under ``MP_PEAK_GIB``; step time, tokens/s,
+   MFU, peak and the idle share of a profiled step beside phases 7 and 9a,
+   the launches split into forward, recompute, backward and the copies'
+   sum, and the backward's sum at this shape (held against the plain sum,
+   timed beside its byte bound and ``torch.sum``); (11b) the f32 gradient
+   gates at full width and 2 layers, each global gradient leaf against the
+   unsharded model's within TRAIN_RTOL of its max|g|: qwen on (2, 4) with
+   sequence parallelism off and on, moonshot-v1-16b-a3b on (1, 4)
+   expert-parallel at capacity_factor 64 (the cross-entropy; routing pinned
+   to the sharded run's, flips counted); then moonshot at 2 layers in bf16,
+   sharded, 4 steps; (11c) the rank mesh under NCCL at world size 1: a
+   smoke config's sharded loss, gradients and 2 trainer steps equal to the
+   stacked mesh's;
+12. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
    ``{"data_parallel": ...}`` line, the ``{"model_parallel": ...}`` line,
-   the ``{"kernels": [...]}`` line, one entry per route of each kernel (with
-   its gradient's method and times where it has one, and its launches in
-   each model's phase, ``launches_by_model``), and, last, the
-   ``{"ok": true, ...}`` line.
+   the ``{"model_parallel_training": ...}`` line, the ``{"kernels": [...]}``
+   line, one entry per route of each kernel (with its gradient's method and
+   times where it has one, and its launches in each model's phase,
+   ``launches_by_model``), and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -322,6 +340,29 @@ TP_SERVES = (
 )
 TP_CHECK_LAYERS, TP_PEAK_GIB = 4, 60.0
 TP_RANK_TOKENS = (2, 64)
+# Model-parallel training (phase 11).  11a: qwen1.5-0.5b at full width and
+# depth in bf16 on a stacked ("data", "model") = MP_MESH mesh on the card,
+# sequence-parallel (make_policy(seq_parallel=True)), through
+# Trainer(policy=, mesh=): phase 7's batch (TRAIN_BATCH x TRAIN_SEQ) and
+# learning gate (LEARN_STEPS on one repeated batch, LEARN_DROP nats),
+# reduce_nway launched by the backward pass (the transposes of the
+# sequence gathers and of the loss's psums), the tensor-core flash
+# launches a step (the 8 members' heads in one launch a layer, forward and
+# remat recompute), the peak under MP_PEAK_GIB.  11b: the f32 gradient
+# gates at full width and MP_GATE_LAYERS layers, each global gradient leaf
+# (the copies' shares summed) against the unsharded model's within
+# TRAIN_RTOL of its max|g| (phase 7's gate): qwen on MP_MESH with sequence
+# parallelism off and on; moonshot-v1-16b-a3b on MP_MOE_MESH,
+# expert-parallel at capacity_factor 64 (the cross-entropy's gradients:
+# the aux loss is averaged over the members' token slices, as the
+# reference's, so it is not the unsharded model's), with the unsharded
+# run's routing pinned to the sharded run's and the flips counted; then
+# moonshot at MP_GATE_LAYERS layers in bf16, sharded, MP_MOE_STEPS steps.
+# 11c: the rank mesh under NCCL at world size 1, MP_RANK_STEPS sharded
+# steps of a smoke config equal to the stacked mesh's.
+MP_MESH, MP_MOE_MESH, MP_PEAK_GIB = (2, 4), (1, 4), 72.0
+MP_GATE_LAYERS, MP_GATE_TOKENS = 2, (2, 1024)
+MP_MOE_STEPS, MP_RANK_STEPS = 4, 2
 # the served tokens of phases 4-6a whose full model drew the seed's first
 # weights (phase 10 builds the same model), for phase 10's agreement count
 SERVED_TOKENS = {}
@@ -1569,15 +1610,15 @@ def train_flops(model, cfg, B: int, S: int) -> float:
     return 3.0 * (2.0 * B * S * weights + attention)
 
 
-def split_launches(fam, model, batch, cfg) -> dict:
-    """Launches of one loss and gradient, by kernel: in the forward, in the
-    backward's remat recompute, and by the backward itself."""
-    wrappers = model_kernels()
-    params = list(model.parameters())
+def split_launches(loss_of, params, wrappers=None) -> tuple[dict, tuple]:
+    """Launches of one loss (``loss_of()``) and its gradient, by kernel: in
+    the forward, in the backward's remat recompute, and by the backward
+    itself; and the gradients of ``params``."""
+    wrappers = wrappers or model_kernels()
     c0 = launch_counts(wrappers)
-    loss = fam.loss_fn(model, batch, cfg)
+    loss = loss_of()
     c1 = launch_counts(wrappers)
-    torch.autograd.grad(loss, params)
+    grads = torch.autograd.grad(loss, params)
     torch.cuda.synchronize()
     c2 = launch_counts(wrappers)
     out = {}
@@ -1586,7 +1627,7 @@ def split_launches(fam, model, batch, cfg) -> dict:
         bwd = c2.get(f"{name}[backward]", 0) - c1.get(f"{name}[backward]", 0)
         if fwd or during:
             out[name] = {"forward": fwd, "recompute": during - bwd, "backward": bwd}
-    return out
+    return out, grads
 
 
 def profiled_step(trainer, batch) -> dict:
@@ -1645,7 +1686,8 @@ def train_entry(seed: int) -> dict:
     flops = train_flops(model, cfg, B, S)
     src = SyntheticLMSource(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed, branching=4)
     batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in src.batch_at(steps).items()}
-    split = split_launches(trainer.family, model, batch, cfg)
+    split = split_launches(lambda: trainer.family.loss_fn(model, batch, cfg),
+                           list(model.parameters()))[0]
     prof = profiled_step(trainer, batch)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B, "seq": S, "steps": steps,
            "n_params": sum(p.numel() for p in model.parameters()), "losses": losses,
@@ -1772,7 +1814,8 @@ def recurrent_training(seed: int, arch: str, n_layers: int, launches: dict) -> d
     if per_step != launches:
         fail(f"{arch} training: launches per step {per_step}, not {launches}")
     batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in src.batch_at(0).items()}
-    split = split_launches(trainer.family, trainer.state[0], batch, cfg)
+    split = split_launches(lambda: trainer.family.loss_fn(trainer.state[0], batch, cfg),
+                           list(trainer.state[0].parameters()))[0]
     step_ms = statistics.median(dts[2:])
     print(f"  train {cfg.name} ({n_layers} layers, bf16, {B} x {S}): losses "
           f"{[round(x, 4) for x in losses]}; warm step {step_ms:.1f} ms (median of steps 3-"
@@ -2513,6 +2556,365 @@ def tp_phase(seed: int, serving: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: model-parallel training
+# ---------------------------------------------------------------------------
+
+
+def mp_training(seed: int, phase7: dict, phase9: dict) -> dict:
+    """11a: qwen1.5-0.5b, full width and depth, bf16, sequence-parallel on a
+    stacked MP_MESH mesh through ``Trainer(policy=, mesh=)``."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.kernels.reduce_nway import reduce_nway
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("qwen1_5_0_5b")
+    steps, B, S = LEARN_STEPS, TRAIN_BATCH, TRAIN_SEQ
+    mesh = Mesh(MP_MESH, ("data", "model"), device=DEVICE)
+    policy = make_policy(cfg, mesh, seq_parallel=True)
+    src = _Repeat(SyntheticLMSource(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed + 1,
+                                    branching=4))
+    batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in src.batch_at(0).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = tt.init(torch.Generator(device=DEVICE).manual_seed(seed), cfg, DEVICE)
+    flops = train_flops(model, cfg, B, S)  # of the global model, as phase 7's
+    trainer = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=LEARN_LR), warmup=2,
+                                         total_steps=steps), model=model, mesh=mesh,
+                      policy=policy)
+    del model  # the trainer keeps it (0.93 GB) and lays out a copy
+    wrappers = {**model_kernels(), "reduce_nway": reduce_nway}
+    zero_counts(wrappers)
+    trainer.fit(src, steps=steps, seed=seed)
+    counts = launch_counts(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    dts = [m["dt"] * 1e3 for m in trainer.metrics_log if "loss" in m]
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    want_flash = {"flash_attention": 2 * cfg.n_layers,
+                  "flash_attention[tensor_core]": 2 * cfg.n_layers}
+    got_flash = {k: per_step.get(k, 0) for k in want_flash}
+    if got_flash != want_flash:
+        fail(f"mp train: flash launches per step {got_flash}, not {want_flash} (the members' "
+             "heads in one launch a layer, forward and remat recompute, tensor-core route)")
+    if not per_step.get("reduce_nway[backward]", 0) > 0:
+        fail(f"mp train: reduce_nway never launched by the backward pass ({per_step})")
+    if not all(map(math.isfinite, losses)) or not losses[-1] <= losses[0] - LEARN_DROP:
+        fail(f"mp train: losses {losses}, not {LEARN_DROP} nats lower in {steps} steps")
+    if not peak < MP_PEAK_GIB:
+        fail(f"mp train: peak {peak:.2f} GiB, not under {MP_PEAK_GIB}")
+    split = mp_split_launches(trainer, batch)
+    prof = profiled_step(trainer, batch)
+    step_ms = statistics.median(dts[2:])
+    laid_out = sum(p.numel() for p in trainer.state[0].parameters())
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "mesh": list(MP_MESH),
+           "seq_parallel": True, "batch": B, "seq": S, "steps": steps, "losses": losses,
+           "step_ms": dts, "warm_step_ms": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+           "model_tflop_per_step": flops / 1e12, "mfu": flops / (step_ms / 1e3) / PEAK_BF16,
+           "peak_gib": peak, "laid_out_params": laid_out, "launches_per_step": per_step,
+           "launches": counts, "launch_split": split, "profiled_step": prof}
+    top = ", ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in prof["top"][:5])
+    print(f"  mp train {cfg.name} full ({cfg.n_layers} layers, bf16) on a stacked {MP_MESH} "
+          f"mesh, sequence-parallel, {B} x {S} tokens: losses {[round(x, 4) for x in losses]} "
+          f"(at least {LEARN_DROP} nats lower); warm step {step_ms:.1f} ms (median of steps "
+          f"3-{steps}), {out['tokens_per_s']:.0f} tokens/s, MFU {out['mfu']:.2%} of {flops / 1e12:.2f} "
+          f"model TFLOP a step; peak {peak:.2f} GiB (under {MP_PEAK_GIB}); {laid_out / 1e9:.3f} B "
+          f"laid-out parameters; launches per step {per_step}; split {split}; profiled step: "
+          f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms (idle "
+          f"{prof['idle_share']:.1%}): {top}", flush=True)
+    p7, p9 = phase7["train"], phase9["train"]
+    print(f"  beside phase 7 (one card, unsharded): warm step {p7['warm_step_ms']:.1f} ms, "
+          f"{p7['tokens_per_s']:.0f} tokens/s, MFU {p7['mfu']:.2%}, peak {p7['peak_gib']:.2f} GiB, "
+          f"idle {p7['profiled_step']['idle_share']:.1%}; phase 9a (4 stacked DP members): "
+          f"{p9['warm_step_ms']:.1f} ms, {p9['tokens_per_s']:.0f} tokens/s, peak "
+          f"{p9['peak_gib']:.2f} GiB, idle {p9['profiled_step']['idle_share']:.1%}", flush=True)
+    out["grad_row"] = backward_psum_cost(cfg, mesh, B, S)
+    out["grad_row"]["backward_launches_per_step"] = per_step["reduce_nway[backward]"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_split_launches(trainer, batch) -> dict:
+    """``split_launches`` of one sharded loss and gradient, and the
+    ``reduce_nway`` launches of the copies' sum (``sum_copies``)."""
+    from repro_torch.core import mesh as M
+    from repro_torch.kernels.reduce_nway import reduce_nway
+
+    model = trainer.state[0]
+    params = dict(model.named_parameters())
+    out, grads = split_launches(lambda: trainer._loss(model, batch), list(params.values()),
+                                {**model_kernels(), "reduce_nway": reduce_nway})
+    before = reduce_nway.launches
+    for k, g in zip(params, grads):
+        M.sum_copies(g, trainer.mesh, trainer._layout[1][k])
+    torch.cuda.synchronize()
+    out["reduce_nway"]["sum_copies"] = reduce_nway.launches - before
+    return out
+
+
+def backward_psum_cost(cfg, mesh, B: int, S: int) -> dict:
+    """The backward's sum at 11a's shape, the transpose of the gather of S
+    before attention and the MLP: ``reduce_nway`` over the model axis of
+    the (*mesh, B / data, S, d) bf16 cotangent, held against the plain f32
+    sum of the same input (phase 2's bf16 add rule), then timed beside its
+    byte bound and ``torch.sum`` over the same dim."""
+    from repro_torch.core import mesh as M
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    tp, dp = mesh.size("model"), mesh.size("data")
+    d = mesh.dim("model")
+    g = torch.randn(mesh.shape + (B // dp, S, cfg.d_model), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    got = M.axis_sum(g, d)
+    want = g.float().sum(d).to(g.dtype)
+    diff = (got.float() - want.float()).abs()
+    ratio = (diff / (BF16_RTOL * want.float().abs() + 1e-5)).max().item()
+    if not ratio <= 1.0:
+        fail(f"backward psum of {tuple(g.shape)}: max_abs_err {diff.max().item():.3e} at "
+             f"{ratio:.3f} of its limit")
+    nbytes = g.numel() * 2 * (1 + 1 / tp)
+    row = {"grad": "reduce_nway add is an autograd.Function (the cotangent broadcast); the "
+                   "stacked mesh's psum and all_gather transpose to a sum over the axis' dim "
+                   "through the kernel (core/mesh.py _Broadcast), a rank mesh's to the "
+                   "transposed collective",
+           "case": f"backward psum over model of {tuple(g.shape)} bf16",
+           "bwd_ms": time_ms(lambda: M.axis_sum(g, d), 10),
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "library_ms": time_ms(lambda: g.sum(d), 10), "max_abs_err": diff.max().item(),
+           "limit_ratio": ratio}
+    print(f"  {row['case']}: {row['bwd_ms']:.4f} ms, byte bound {row['bound_ms']:.4f} ms, "
+          f"torch.sum {row['library_ms']:.4f} ms; max_abs_err {row['max_abs_err']:.3e} "
+          f"({ratio:.3f} of the bf16 limit) against the plain f32 sum", flush=True)
+    del g, got, want, diff
+    return row
+
+
+def mp_grad_gate(seed: int, arch: str, mesh_shape: tuple, seq_parallel: bool) -> dict:
+    """11b: ``arch`` at full width, MP_GATE_LAYERS layers, f32, laid out on a
+    stacked ``mesh_shape`` mesh: the sharded loss's global gradient leaves
+    against the unsharded model's, within TRAIN_RTOL of each leaf's max|g|.
+    The MoE runs at capacity_factor 64 and is held on the cross-entropy
+    alone, its unsharded run on the sharded run's expert choices."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.common import chunked_cross_entropy
+    from repro_torch.models.convert import global_grads, reference_leaves, shard_model
+    from repro_torch.models.parallel import Members
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=MP_GATE_LAYERS,
+                              param_dtype=torch.float32, compute_dtype=torch.float32)
+    moe = bool(cfg.n_experts)
+    if moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    model = tt.init(gen, cfg, DEVICE, trainable=True)
+    B, S = MP_GATE_TOKENS
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device=DEVICE)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    mesh = Mesh(mesh_shape, ("data", "model"), device=DEVICE)
+    policy = make_policy(cfg, mesh, seq_parallel=seq_parallel)
+    sharded = shard_model(copy.deepcopy(model), mesh, policy).requires_grad_(True)
+    names = [n for n, _ in sharded.named_parameters()]
+
+    def sharded_loss():
+        if not moe:
+            return tt.loss_fn(sharded, batch, cfg, policy)
+        with mesh:
+            mb = Members(policy)
+            x, _ = tt._forward_tp(sharded, batch["tokens"], cfg, mb)
+            return mb.backward_loss(chunked_cross_entropy(
+                mb.gather_seq(x), sharded.head, mb.shard_batch(batch["labels"]), cfg, mb))
+
+    with routing() if moe else contextlib.nullcontext() as routed:
+        loss = sharded_loss()
+        got = global_grads(sharded, dict(zip(names, torch.autograd.grad(
+            loss, list(sharded.parameters())))))
+    del sharded
+    flips = []
+    with pinned_routing(ep_routing_global(routed, B, S), flips) if moe             else contextlib.nullcontext():
+        if moe:
+            hidden, _ = tt.forward(model, batch["tokens"], cfg)
+            want_loss = chunked_cross_entropy(hidden, model.head, batch["labels"], cfg)
+        else:
+            want_loss = tt.loss_fn(model, batch, cfg)
+        plain = dict(zip(names, torch.autograd.grad(want_loss, list(model.parameters()))))
+    want = {leaf: torch.stack([plain[n] for n in ns]) if "*" in leaf else plain[ns[0]]
+            for leaf, ns in reference_leaves(plain, cfg).items()}
+    if not abs(loss.item() - want_loss.item()) <= TRAIN_RTOL * abs(want_loss.item()):
+        fail(f"{arch} sharded f32 gate: loss {loss.item()} against {want_loss.item()}")
+    worst, worst_leaf = 0.0, None
+    for leaf, g in got.items():
+        err, scale = (g - want[leaf]).abs().max().item(), want[leaf].abs().max().item()
+        if not bool(torch.isfinite(g).all()) or not err <= TRAIN_RTOL * scale or \
+                not g.abs().max().item() > 0:
+            fail(f"{arch} sharded f32 gate: gradient of {leaf} off by {err:.3e}, max|g_plain| "
+                 f"{scale:.3e}, or zero")
+        if scale and err / scale >= worst:
+            worst, worst_leaf = err / scale, leaf
+    tag = f"{arch} on {mesh_shape}, sequence parallelism {'on' if seq_parallel else 'off'}"
+    routed_note = f"; {sum(flips)} routing flips over {len(flips)} router calls" if moe else ""
+    print(f"  {tag} ({cfg.n_layers} layers, f32, {B} x {S}{', capacity_factor 64, the '
+          'cross-entropy' if moe else ''}): loss {loss.item():.6f} (unsharded "
+          f"{want_loss.item():.6f}); worst global gradient leaf {worst_leaf} at {worst:.3e} of "
+          f"its max|g_unsharded| (<= {TRAIN_RTOL}){routed_note}", flush=True)
+    out = {"arch": arch, "mesh": list(mesh_shape), "seq_parallel": seq_parallel,
+           "loss": loss.item(), "unsharded_loss": want_loss.item(), "worst_grad_rel": worst,
+           "worst_leaf": worst_leaf}
+    if moe:
+        out["routing_flips"] = sum(flips)
+    del model, got, plain, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_moe_training(seed: int) -> dict:
+    """11b: moonshot-v1-16b-a3b at full width, MP_GATE_LAYERS layers, bf16,
+    expert- and sequence-parallel on a stacked MP_MOE_MESH mesh,
+    MP_MOE_STEPS steps through ``Trainer(policy=, mesh=)``."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.kernels.reduce_nway import reduce_nway
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("moonshot_v1_16b"), n_layers=MP_GATE_LAYERS)
+    mesh = Mesh(MP_MOE_MESH, ("data", "model"), device=DEVICE)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed, branching=4)
+    wrappers = {**model_kernels(), "reduce_nway": reduce_nway}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(wrappers)
+    trainer = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=3e-4), warmup=2,
+                                         total_steps=MP_MOE_STEPS), mesh=mesh,
+                      policy=make_policy(cfg, mesh, seq_parallel=True))
+    trainer.fit(src, steps=MP_MOE_STEPS, seed=seed)
+    per_step = {k: v / MP_MOE_STEPS for k, v in launch_counts(wrappers).items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    dts = [m["dt"] * 1e3 for m in trainer.metrics_log if "loss" in m]
+    if not all(map(math.isfinite, losses)):
+        fail(f"mp moe training: losses {losses}")
+    if not per_step.get("flash_attention[tensor_core]") or \
+            not per_step.get("reduce_nway[backward]"):
+        fail(f"mp moe training: launches per step {per_step}")
+    step_ms = statistics.median(dts[1:])
+    print(f"  mp train {cfg.name} ({cfg.n_layers} layers, bf16, {B} x {S}) on a stacked "
+          f"{MP_MOE_MESH} mesh, expert- and sequence-parallel: losses "
+          f"{[round(x, 4) for x in losses]}; warm step {step_ms:.1f} ms (median of steps 2-"
+          f"{MP_MOE_STEPS}); peak {peak:.2f} GiB; launches per step {per_step}", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "mesh": list(MP_MOE_MESH),
+            "batch": B, "seq": S, "losses": losses, "step_ms": dts, "warm_step_ms": step_ms,
+            "peak_gib": peak, "launches_per_step": per_step}
+
+
+def mp_rank_backend(seed: int) -> dict:
+    """11c: the rank mesh under NCCL at world size 1 against the stacked mesh
+    of one member: the sharded loss's global gradients of a smoke config,
+    then MP_RANK_STEPS steps of ``Trainer(policy=, mesh=)``, equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as M
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.convert import global_grads, shard_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = get_smoke_config("qwen1_5_0_5b")
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=seed + 4)
+    batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in src.batch_at(0).items()}
+    base = tt.init(torch.Generator(device=DEVICE).manual_seed(seed), cfg, DEVICE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_mp_") as tmp:
+        ranked = M.RankMesh((1, 1), ("data", "model"), device=DEVICE,
+                            init_method=f"file://{tmp}/rendezvous", rank=0)
+        try:
+            stacked = M.Mesh((1, 1), ("data", "model"), device=DEVICE)
+            runs = {}
+            for kind, mesh in (("ranks", ranked), ("stacked", stacked)):
+                policy = make_policy(cfg, mesh)
+                model = shard_model(copy.deepcopy(base), mesh, policy).requires_grad_(True)
+                loss = tt.loss_fn(model, batch, cfg, policy)
+                names = [n for n, _ in model.named_parameters()]
+                grads = global_grads(model, dict(zip(names, torch.autograd.grad(
+                    loss, list(model.parameters())))))
+                tr = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=1e-3), warmup=1,
+                                                total_steps=10), model=base, mesh=mesh,
+                             policy=policy)
+                trained, _ = tr.fit(src, steps=MP_RANK_STEPS, seed=seed)
+                params = {k: p.detach().clone() for k, p in trained.named_parameters()}
+                runs[kind] = (loss.item(), grads, [m["loss"] for m in tr.metrics_log], params)
+                del model, tr, trained
+        finally:
+            dist.destroy_process_group()
+    (loss_r, grads_r, losses_r, params_r), (loss_s, grads_s, losses_s, params_s) = \
+        runs["ranks"], runs["stacked"]
+    params_s = {k: p.reshape(params_r[k].shape) for k, p in params_s.items()}
+    if not (loss_r == loss_s and losses_r == losses_s
+            and all(torch.equal(g, grads_s[k]) for k, g in grads_r.items())):
+        fail(f"rank mesh under NCCL: the sharded loss {loss_r}, trainer losses {losses_r} or "
+             f"gradients differ from the stacked mesh's ({loss_s}, {losses_s})")
+    # the parameters at the trainer tests' rtol 1e-4 / atol 1e-5 (AdamW scales
+    # each element's step to about lr, whatever its gradient's size)
+    params_diff = max((p - params_s[k]).abs().max().item() for k, p in params_r.items())
+    if not all(torch.allclose(p, params_s[k], rtol=1e-4, atol=1e-5)
+               for k, p in params_r.items()):
+        fail(f"rank mesh under NCCL: parameters after {MP_RANK_STEPS} steps differ from the "
+             f"stacked mesh's by {params_diff:.3e}")
+    wall = time.perf_counter() - t0
+    print(f"  rank mesh (NCCL, 1 rank, (1, 1)): sharded smoke loss {loss_r:.6f}, its "
+          f"{len(grads_r)} global gradient leaves and {MP_RANK_STEPS} trainer steps' losses "
+          f"{losses_r} equal to the stacked mesh's; parameters after them within {params_diff:.3e} "
+          f"(rtol 1e-4, atol 1e-5); {wall:.1f} s", flush=True)
+    return {"loss": loss_r, "losses": losses_r, "params_max_abs_diff": params_diff,
+            "wall_s": wall}
+
+
+def mp_phase(seed: int, phase7: dict, phase9: dict, smi: str) -> dict:
+    """Phase 11 (``smi``: the card's name and power limit); returns its numbers."""
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    print(f"[mp train] 11a: qwen1.5-0.5b at full width and depth on a stacked {MP_MESH} mesh, "
+          f"sequence-parallel; card {smi}", flush=True)
+    out["train"] = mp_training(seed, phase7, phase9)
+    print(f"[mp train] 11b: f32 gradient gates at full width, {MP_GATE_LAYERS} layers; then "
+          f"moonshot in bf16; card {smi}", flush=True)
+    out["f32_gates"] = [mp_grad_gate(seed, "qwen1_5_0_5b", MP_MESH, sp) for sp in (False, True)]
+    out["f32_gates"].append(mp_grad_gate(seed, "moonshot_v1_16b", MP_MOE_MESH, True))
+    out["moe_train"] = mp_moe_training(seed)
+    print(f"[mp train] 11c: the rank mesh under NCCL; card {smi}", flush=True)
+    out["rank_backend"] = mp_rank_backend(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[mp train] phase 11 took {out['wall_s']:.1f} s")
+    return out
+
+
 def _sha16(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
@@ -2991,6 +3393,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3098,7 +3501,17 @@ def main(argv=None) -> int:
         for name in ("reduce_nway", "flash_attention_wgmma"):
             by_model.setdefault(name, {})[spec["tag"]] = tp_launches[name]
 
-    # 11. Result lines.  Each route of a kernel is an entry of its own.
+    # 11. Model-parallel training; its launches are gated inside the phase and
+    # join each kernel's launches_by_model; reduce_nway's gradient row is its.
+    mpt = mp_phase(args.seed, training, dp, smi)
+    mp_launches, tag = mpt["train"]["launches"], "mp_train qwen1.5-0.5b (2,4) sp"
+    by_model.setdefault("reduce_nway", {})[tag] = mp_launches["reduce_nway"]
+    by_model["reduce_nway"][tag + " backward"] = mp_launches["reduce_nway[backward]"]
+    by_model.setdefault("flash_attention_wgmma", {})[tag] = \
+        mp_launches["flash_attention[tensor_core]"]
+    grad_rows[("reduce_nway", None)] = mpt["train"]["grad_row"]
+
+    # 12. Result lines.  Each route of a kernel is an entry of its own.
     def entry(name, source, replaces, rows, route=None):
         if route is not None:
             rows = [r for r in rows if r["route"] == route]
@@ -3130,12 +3543,14 @@ def main(argv=None) -> int:
         entry("wkv", "src/repro_torch/kernels/csrc/wkv.cu",
               "src/repro/kernels/rwkv6.py:54", wkv_rows),
     ]
+    print(f"[chip_smoke] phases 1-11 took {time.perf_counter() - started:.1f} s")
     print(json.dumps({"main_path": walls}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"fabric": fabric}))
     print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"model_parallel": mp}))
+    print(json.dumps({"model_parallel_training": mpt}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

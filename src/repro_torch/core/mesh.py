@@ -36,7 +36,18 @@ find the mesh from the enclosing ``with mesh:`` block:
 
 ``shard`` / ``unshard`` lay a global array out exactly as ``shard_map``
 hands blocks to devices under ``PartitionSpec(*spec)`` (an entry may be a
-tuple of axes, major to minor), and back for ``out_specs``.
+tuple of axes, major to minor), and back for ``out_specs``; ``sum_copies``
+is the adjoint of ``shard`` (a laid-out gradient's copies summed).
+
+Gradients: every float axis function carries the transpose that
+``shard_map`` uses, on both kinds: ``psum`` -> ``psum``, ``all_gather`` ->
+``psum_scatter``, ``psum_scatter`` -> ``all_gather``, ``all_to_all`` -> the
+mirrored one, ``ppermute`` -> the inverse permutation.  On the stacked mesh
+the sums run the ``reduce_nway`` kernel in the backward as in the forward
+(``_Broadcast``, and the kernel's own ``ReduceAdd``); on a rank mesh each
+collective is an ``autograd.Function`` whose backward is the transposed
+collective.  The launches that a backward makes are also counted in
+``reduce_nway.backward_launches``.  ``pmax`` and integer sums carry none.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import reduce_nway as _kernel
 from repro_torch.kernels.reduce_nway import reduce_nway
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh")
@@ -159,11 +171,12 @@ def _sources(n: int, name: str, perm) -> list:
 
 
 def ppermute(x: torch.Tensor, name: str, perm) -> torch.Tensor:
-    """Member ``dst`` receives ``x`` of member ``src`` for each (src, dst)."""
+    """Member ``dst`` receives ``x`` of member ``src`` for each (src, dst).
+    Its gradient is the inverse permutation of the cotangents."""
     mesh = current()
     src = _sources(mesh.size(name), name, perm)
     if isinstance(mesh, RankMesh):
-        return mesh.ppermute(x, name, src)
+        return _on_ranks(_RankPpermute, x, mesh, name, tuple(src))
     index = torch.tensor(src, device=x.device)
     return x.index_select(mesh.dim(name), index)
 
@@ -189,18 +202,57 @@ def axis_sum(x: torch.Tensor, d: int) -> torch.Tensor:
     raise TypeError(f"psum: unsupported dtype {x.dtype}")
 
 
+def _counted(fn, *args):
+    """``fn(*args)`` run by a backward pass: its ``reduce_nway`` launches are
+    also counted in ``reduce_nway.backward_launches``."""
+    counter = _kernel.reduce_nway  # the wrapper's counts, whatever the caller patched in
+    before = counter.launches
+    out = fn(*args)
+    counter.backward_launches += counter.launches - before
+    return out
+
+
+class _Broadcast(torch.autograd.Function):
+    """A per-member value copied to the ``n`` members along the axis' dim
+    ``d`` (an ``expand``).  Its transpose sums the cotangents over that dim
+    with :func:`axis_sum`, so the backward of ``psum`` and ``all_gather``
+    on the stacked mesh runs the ``reduce_nway`` kernel as the forward of
+    ``psum`` does."""
+
+    @staticmethod
+    def forward(ctx, y, d, n):
+        ctx.d = d
+        y = y.unsqueeze(d)
+        return y.expand(y.shape[:d] + (n,) + y.shape[d + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return _counted(axis_sum, g.contiguous(), ctx.d), None, None
+
+
+def _broadcast(y: torch.Tensor, d: int, n: int) -> torch.Tensor:
+    if y.is_floating_point():
+        return _Broadcast.apply(y, d, n)
+    y = y.unsqueeze(d)
+    return y.expand(y.shape[:d] + (n,) + y.shape[d + 1:])
+
+
 def psum(x: torch.Tensor, name: str) -> torch.Tensor:
-    """Sum over the axis (:func:`axis_sum`), replicated to every member."""
+    """Sum over the axis (:func:`axis_sum`), replicated to every member.
+    Its gradient is the ``psum`` of the cotangents (integers carry none)."""
     mesh = current()
     if isinstance(mesh, RankMesh):
-        return mesh.psum(x, name)
+        return _on_ranks(_RankPsum, x, mesh, name)
     d = mesh.dim(name)
-    return axis_sum(x, d).unsqueeze(d).expand(x.shape)
+    return _broadcast(axis_sum(x, d), d, x.shape[d])
 
 
 def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
     """Maximum over the axis (the ``reduce_nway`` kernel's ``max`` over its
-    dim), replicated to every member, as ``jax.lax.pmax``."""
+    dim), replicated to every member, as ``jax.lax.pmax``.  It carries no
+    gradient: an input that requires one raises."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("pmax carries no gradient; detach its input")
     mesh = current()
     if isinstance(mesh, RankMesh):
         return mesh.pmax(x, name)
@@ -209,7 +261,8 @@ def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
-    """Sum over the axis, scattering the member's dim 0 across it."""
+    """Sum over the axis, scattering the member's dim 0 across it.  Its
+    gradient is the ``all_gather`` of the cotangents."""
     mesh = current()
     k, n = mesh.stacked, mesh.size(name)
     rows = x.shape[k]
@@ -218,7 +271,7 @@ def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor
     if not tiled and rows != n:
         raise ValueError(f"psum_scatter(tiled=False) needs dim 0 of size {n}, got {rows}")
     if isinstance(mesh, RankMesh):
-        out = mesh.psum_scatter(x, name)
+        out = _on_ranks(_RankPsumScatter, x, mesh, name)
         return out if tiled else out.squeeze(0)
     d = mesh.dim(name)
     total = axis_sum(x, d)  # member dim 0 is now k-1
@@ -228,17 +281,17 @@ def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor
 
 def all_gather(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
     """Every member receives all members' ``x`` along the axis: stacked on a
-    new dim 0, or concatenated on dim 0 when ``tiled``."""
+    new dim 0, or concatenated on dim 0 when ``tiled``.  Its gradient is the
+    ``psum_scatter`` of the cotangents."""
     mesh = current()
     if isinstance(mesh, RankMesh):
-        g = mesh.all_gather(x, name)
+        g = _on_ranks(_RankAllGather, x, mesh, name)
         return g.flatten(0, 1) if tiled else g
     d, k, n = mesh.dim(name), mesh.stacked, mesh.size(name)
     g = x.movedim(d, k - 1)  # the axis' members, just before the member dims
     if tiled:
         g = g.flatten(k - 1, k)
-    g = g.unsqueeze(d)
-    return g.expand(g.shape[:d] + (n,) + g.shape[d + 1:])
+    return _broadcast(g, d, n)
 
 
 def all_to_all(x: torch.Tensor, name: str, split_axis: int, concat_axis: int,
@@ -250,7 +303,8 @@ def all_to_all(x: torch.Tensor, name: str, split_axis: int, concat_axis: int,
     ``j``, which concatenates the blocks it receives along its dim
     ``concat_axis`` in member order.  On the stacked mesh this is pure data
     movement: the axis' dim and the block dim trade places, and one
-    ``contiguous`` copy lays the result out.
+    ``contiguous`` copy lays the result out.  Its gradient is the mirrored
+    ``all_to_all`` (``split_axis`` and ``concat_axis`` swapped).
     """
     if not tiled:
         raise NotImplementedError("all_to_all: only the tiled form is ported")
@@ -260,7 +314,7 @@ def all_to_all(x: torch.Tensor, name: str, split_axis: int, concat_axis: int,
     if rows % n:
         raise ValueError(f"all_to_all: dim of size {rows} not divisible by {n}")
     if isinstance(mesh, RankMesh):
-        return mesh.all_to_all(x, name, split_axis, concat_axis)
+        return _on_ranks(_RankAllToAll, x, mesh, name, split_axis, concat_axis)
     d, s = mesh.dim(name), k + split_axis
     c = k + concat_axis
     c = c if c < s else c + 1  # the concat dim once the block dim is inserted at s
@@ -470,6 +524,85 @@ class RankMesh(_Axes):
             dist.barrier(group=self.group)
 
 
+# The rank mesh's collectives, each with its transpose (the ones ``shard_map``
+# uses); ``_on_ranks`` applies one to a float tensor, and calls the method
+# for any other.
+
+
+def _on_ranks(fn, x, mesh, name, *args):
+    if x.is_floating_point():
+        return fn.apply(x, mesh, name, *args)
+    return getattr(mesh, fn.method)(x, name, *args)
+
+
+class _RankPsum(torch.autograd.Function):
+    method = "psum"
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        return mesh.psum(x, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _counted(ctx.mesh.psum, g.contiguous(), ctx.name), None, None
+
+
+class _RankPsumScatter(torch.autograd.Function):
+    method = "psum_scatter"
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        return mesh.psum_scatter(x, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), ctx.name).flatten(0, 1), None, None
+
+
+class _RankAllGather(torch.autograd.Function):
+    method = "all_gather"
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        return mesh.all_gather(x, name)
+
+    @staticmethod
+    def backward(ctx, g):  # (n, *x.shape) -> this member's summed row
+        return _counted(ctx.mesh.psum_scatter, g.contiguous(), ctx.name)[0], None, None
+
+
+class _RankAllToAll(torch.autograd.Function):
+    method = "all_to_all"
+
+    @staticmethod
+    def forward(ctx, x, mesh, name, split_axis, concat_axis):
+        ctx.mesh, ctx.name, ctx.axes = mesh, name, (split_axis, concat_axis)
+        return mesh.all_to_all(x, name, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (ctx.mesh.all_to_all(g.contiguous(), ctx.name, concat_axis, split_axis),
+                None, None, None, None)
+
+
+class _RankPpermute(torch.autograd.Function):
+    method = "ppermute"
+
+    @staticmethod
+    def forward(ctx, x, mesh, name, src):
+        ctx.mesh, ctx.name, ctx.src = mesh, name, src
+        return mesh.ppermute(x, name, list(src))
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [ctx.src.index(i) for i in range(len(ctx.src))]
+        return ctx.mesh.ppermute(g.contiguous(), ctx.name, inverse), None, None, None
+
+
 def _sum_type(dtype):
     """The type a rank mesh's ``all_reduce`` / ``reduce_scatter`` sum
     integers in: int64, cast back (wrapping as int32 adds)."""
@@ -603,3 +736,23 @@ def unshard(y: torch.Tensor, mesh, spec) -> torch.Tensor:
         order.append(len(lead) + i)
         shape.append(local[i] * math.prod(mesh.size(name) for name in names))
     return y.permute(order).reshape(shape)
+
+
+def copies(mesh, spec) -> int:
+    """How many members hold each block of a tensor laid out under ``spec``:
+    the product of the sizes of the axes that ``spec`` does not name."""
+    named = _named(spec, mesh)
+    return math.prod(s for a, s in zip(mesh.axis_names, mesh.shape) if a not in named)
+
+
+def sum_copies(g: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The adjoint of :func:`shard`: a laid-out gradient's copies along the
+    axes that ``spec`` does not name summed (a ``psum`` over each), so that
+    every copy holds its block of the global gradient.  Over the batch axes
+    this is the data-parallel all-reduce."""
+    named = _named(spec, mesh)
+    with mesh:
+        for name, size in zip(mesh.axis_names, mesh.shape):
+            if name not in named and size > 1:
+                g = psum(g, name)
+    return g

@@ -12,6 +12,17 @@ as the Pallas kernel does), ``max`` is elementwise (exact on int32: the
 kernel keeps an int32 running value, not an f32 one), ``and`` is a bitwise
 AND over int32 rows (the LsbAnd barrier); bool rows are cast to int32,
 which is exact, and the result back to bool.
+
+Gradient: ``add`` on float32 and bfloat16 is a ``torch.autograd.Function``
+(:class:`ReduceAdd`) whose forward is the kernel (the plain version on the
+CPU) and whose backward broadcasts the cotangent along the reduced dim:
+the sum's transpose, which launches nothing.  ``max`` and ``and`` carry
+no gradient: an input that requires one raises (a caller that needs a
+max inside a differentiated function, as the loss's log-sum-exp shift,
+detaches it first, as ``jax.nn.logsumexp`` stops the gradient of its
+max).  ``reduce_nway.backward_launches`` counts, apart from the forward's,
+the launches made by a backward pass: the transposes of the mesh's
+collectives that end in a sum (``core/mesh.py``) add them there.
 """
 
 from __future__ import annotations
@@ -47,8 +58,17 @@ def reduce_nway(x, *, op: str = "add", bs: int = 512, dim: int = 0):
     if x.ndim == 0 or x.shape[dim] == 0:
         raise ValueError(f"reduce_nway: nothing to reduce over dim {dim} of {tuple(x.shape)}")
     dim = dim % x.ndim
+    if x.requires_grad and torch.is_grad_enabled():
+        if op != "add":
+            raise ValueError(f"reduce_nway: op {op!r} carries no gradient; detach its input")
+        return ReduceAdd.apply(x, dim)
+    return _reduce(x, op, dim)
+
+
+def _reduce(x, op: str, dim: int):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if x.dtype == torch.bool:
-        return reduce_nway(x.to(torch.int32), op=op, dim=dim).to(torch.bool)
+        return _reduce(x.to(torch.int32), op, dim).to(torch.bool)
     if x.device.type == "cpu":
         return reduce_nway_ref(x, op, dim)
     if x.device.type != "cuda":
@@ -67,4 +87,20 @@ def reduce_nway(x, *, op: str = "add", bs: int = 512, dim: int = 0):
     return out
 
 
-reduce_nway.launches = 0
+class ReduceAdd(torch.autograd.Function):
+    """The N-way sum with its transpose: the cotangent broadcast along the
+    reduced dim."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        return _reduce(x, "add", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.unsqueeze(ctx.dim)
+        return g.expand(g.shape[:ctx.dim] + (ctx.n,) + g.shape[ctx.dim + 1:]), None
+
+
+reduce_nway.launches = 0           # every launch
+reduce_nway.backward_launches = 0  # those made by a backward pass (``core/mesh.py``)

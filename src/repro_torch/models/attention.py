@@ -34,7 +34,8 @@ is made per step.
 
 Under a sharding policy with a model axis (``models/parallel.py``) Q, K
 and V are column-parallel and ``wo`` row-parallel, its product summed over
-the model axis.  Flash attention runs on the member's own query heads,
+the model axis (under sequence parallelism: S gathered before QKV, the sum
+scattered on S after ``wo``).  Flash attention runs on the member's own query heads,
 with the mesh dims folded into the kernel's batch.  Where a weight's spec
 splits a head between members (``n_heads`` or ``n_kv_heads`` not a
 multiple of the axis), the projections are gathered over the axis first,
@@ -317,18 +318,20 @@ def _out_tp(o, params, cfg: ModelConfig, mb: Members, q_own: bool):
     if mb.split(spec) and not q_own:
         o = mb.block(o, -1)
     out = mb.mm(o, params["wo"].to(cfg.compute_dtype))
-    return mb.psum(out) if mb.split(spec) else out
+    return mb.row_out(out, mb.split(spec))
 
 
 def self_attention_tp(params, x, positions, cfg: ModelConfig, window: int, mb: Members):
     """Causal self-attention of the member's heads through the flash kernel,
     projected by ``wo`` and summed over the model axis.
 
-    x: (*lead, B, S, d).  Returns (out, k after RoPE, v), the last two in
-    the cache layout.
+    x: (*lead, B, S, d), or the member's block of S under sequence
+    parallelism, which is gathered before the QKV products and scattered
+    again by the reduction after ``wo``.  Returns (out, k after RoPE, v),
+    the last two in the cache layout, over the whole of S.
     """
     check_supported(cfg)
-    q, k, v, q_own, kv_own = _qkv_tp(params, x, cfg, mb)
+    q, k, v, q_own, kv_own = _qkv_tp(params, mb.gather_seq(x), cfg, mb)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     fold = (lambda t: t.flatten(0, mb.k))  # the mesh dims into the batch

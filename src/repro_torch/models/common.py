@@ -20,12 +20,15 @@ explicitly (``models/parallel.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import mesh as M
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,7 +270,7 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def chunked_cross_entropy(hidden, head, labels, cfg: ModelConfig):
+def chunked_cross_entropy(hidden, head, labels, cfg: ModelConfig, mb=None):
     """Mean next-token cross-entropy without the full (B, S, V) logits.
 
     The counterpart of ``src/repro/models/common.py:chunked_cross_entropy``:
@@ -277,18 +280,35 @@ def chunked_cross_entropy(hidden, head, labels, cfg: ModelConfig):
     and the result is ``total / max(count, 1)``.  Each slab runs under
     ``torch.utils.checkpoint``, so one (B, chunk, V) slab of logits is alive
     at a time in the backward pass as in the forward.
+
+    Under a sharding policy (``mb``, the ``models.parallel.Members`` of the
+    current mesh) ``hidden`` (*lead, B, S, d) and ``labels`` (*lead, B, S)
+    are the member's rows, and ``head`` (*lead, V / tp, d) its block of the
+    vocab where the spec splits it: the log-sum-exp over the padded vocab is
+    ``max + log psum(sum exp(logits - max))`` with the row max a ``pmax``
+    (detached: the shift carries no gradient, as in ``jax.nn.logsumexp``),
+    the gold logit comes from the member whose block holds the label
+    (``psum``), and the total and count are ``psum``'d over the batch axes.
+    A slab's recompute runs the same collectives in the same order on every
+    member.  Returns the global loss, one value a member (*lead).
     """
-    S = hidden.shape[1]
+    S = hidden.shape[-2]
     chunk = min(cfg.loss_chunk, S)
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    lead = hidden.shape[:-3]
+    total = torch.zeros(lead, dtype=torch.float32, device=hidden.device)
+    count = torch.zeros(lead, dtype=torch.float32, device=hidden.device)
+    slab = _chunk_loss if mb is None else functools.partial(
+        _chunk_loss_tp, mb=mb, split=mb.split(mb.policy.embed(cfg.padded_vocab)))
     for s0 in range(0, S, chunk):
-        h, y = hidden[:, s0:s0 + chunk], labels[:, s0:s0 + chunk]
+        h, y = hidden[..., s0:s0 + chunk, :], labels[..., s0:s0 + chunk]
         if torch.is_grad_enabled():
-            loss, n = checkpoint(_chunk_loss, h, head, y, use_reentrant=False)
+            loss, n = checkpoint(slab, h, head, y, use_reentrant=False)
         else:
-            loss, n = _chunk_loss(h, head, y)
+            loss, n = slab(h, head, y)
         total, count = total + loss, count + n
+    if mb is not None:
+        for axis in mb.batch:
+            total, count = M.psum(total, axis), M.psum(count, axis)
     return total / torch.clamp(count, min=1.0)
 
 
@@ -298,6 +318,26 @@ def _chunk_loss(h, head, y):
     gold = torch.gather(logits, -1, y.clamp(min=0)[..., None].long())[..., 0]
     valid = (y >= 0).float()
     return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def _chunk_loss_tp(h, head, y, mb, split: bool):
+    """One slab on the member's rows: (total, count), each (*lead).  It
+    enters the mesh itself, since its recompute runs in the backward pass."""
+    logits = mb.mm(h.float(), head.float().transpose(-1, -2))  # (*lead, B, chunk, V / tp)
+    if split:
+        with mb.mesh:
+            V = logits.shape[-1]
+            shift = M.pmax(logits.detach().amax(-1), mb.axis)
+            logz = shift + torch.log(mb.psum(torch.exp(logits - shift[..., None]).sum(-1)))
+            local = y - M.lift(mb.index(), y) * V
+            mine = (local >= 0) & (local < V)
+            gold = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None].long())[..., 0]
+            gold = mb.psum(torch.where(mine, gold, 0.0))
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y.clamp(min=0)[..., None].long())[..., 0]
+    valid = (y >= 0).float()
+    return torch.sum((logz - gold) * valid, (-2, -1)), torch.sum(valid, (-2, -1))
 
 
 def maybe_remat(fn, enabled: bool):

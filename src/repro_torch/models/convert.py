@@ -19,6 +19,10 @@ reference family's ``init`` returns, as a nested structure of numpy arrays
 reference's leaves: a layer-stacked leaf is the port's per-layer
 parameters in layer order.
 
+``laid_out_specs``, ``unshard_tensors`` and ``global_grads`` read a
+laid-out model's tensors back as global arrays (checkpoints hold those,
+and the tests hold gradients by reference leaf against the reference's).
+
 ``shard_model(model, mesh, policy)`` lays a model out on a mesh by its
 family's ``param_specs`` (``core.mesh.shard``: the mesh dims leading on the
 stacked mesh, the member's block on a rank mesh), parameter by parameter
@@ -93,6 +97,35 @@ def shard_model(model, mesh, policy: ShardingPolicy):
         del src
     model.mesh, model.policy = mesh, policy
     return model
+
+
+def laid_out_specs(model) -> dict:
+    """Each parameter's spec, by name, under the policy that ``model`` was
+    laid out for (``shard_model``)."""
+    cfg = model.cfg
+    specs = get_family(cfg).param_specs(cfg, model.policy)
+    return {name: specs[leaf_of(name, cfg)[0]] for name, _ in model.named_parameters()}
+
+
+def unshard_tensors(model, tensors: dict) -> dict:
+    """Tensors laid out as ``model``'s parameters (by name: the parameters,
+    their optimizer moments, summed gradients) as global arrays, by name.
+    On a rank mesh every member takes part and receives them."""
+    specs = laid_out_specs(model)
+    return {k: M.unshard(t, model.mesh, specs[k]) for k, t in tensors.items()}
+
+
+def global_grads(model, grads: dict) -> dict:
+    """The global gradients of a laid-out model, by reference leaf
+    (``reference_leaves``: a layer-stacked leaf stacked on L), from each
+    parameter's gradient by name as autograd gives it under the gradient
+    convention of ``models/parallel.py``: each copy's share, summed here
+    (``core.mesh.sum_copies``)."""
+    specs = laid_out_specs(model)
+    summed = unshard_tensors(model, {k: M.sum_copies(g, model.mesh, specs[k])
+                                     for k, g in grads.items()})
+    return {leaf: torch.stack([summed[n] for n in names]) if "*" in leaf else summed[names[0]]
+            for leaf, names in reference_leaves(summed, model.cfg).items()}
 
 
 def from_jax_params(params, cfg: ModelConfig, device=None, trainable: bool = False):

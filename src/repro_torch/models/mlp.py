@@ -39,8 +39,9 @@ dispatches its own tokens.  Under a policy whose model axis is wider than
 1 and divides ``n_experts``, ``moe`` takes the expert-parallel path
 (``_moe_ep``, the reference's shard_map over the batch and model axes):
 each member routes its tokens (its slice of the sequence over the model
-axis when ``moe_token_shard`` is set or ``seq_axis`` is the model axis
-and the axis divides S; otherwise every member routes the same tokens),
+axis when ``moe_token_shard`` is set and the axis divides S, or under
+sequence parallelism, where the slice is what the member holds; otherwise
+every member routes the same tokens),
 at a capacity of its own token count; a tiled ``all_to_all`` carries each
 expert's rows to the member that owns it (the fabric's many-to-many), the
 member runs its experts, and the mirrored ``all_to_all`` brings the rows
@@ -81,13 +82,16 @@ def mlp_param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
 
 def mlp(params, x, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """The gated MLP; under a policy, column-parallel ``w_gate`` / ``w_up``
-    and row-parallel ``w_down`` summed over the model axis."""
+    and row-parallel ``w_down`` summed over the model axis (under sequence
+    parallelism: S gathered before the first products, the sum scattered
+    on S after ``w_down``)."""
     cd = cfg.compute_dtype
     if is_sharded(policy):
         mb = Members(policy)
+        x = mb.gather_seq(x)
         h = F.silu(mb.mm(x, params["w_gate"].to(cd))) * mb.mm(x, params["w_up"].to(cd))
         out = mb.mm(h, params["w_down"].to(cd))
-        return mb.psum(out) if mb.split(mlp_param_specs(cfg, policy)["w_down"]) else out
+        return mb.row_out(out, mb.split(mlp_param_specs(cfg, policy)["w_down"]))
     h = F.silu(x @ params["w_gate"].to(cd))
     h = h * (x @ params["w_up"].to(cd))
     return h @ params["w_down"].to(cd)
@@ -242,24 +246,29 @@ def moe(params, x, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
 def _moe_tp_local(params, x, cfg: ModelConfig, mb: Members):
     """Each member's local MoE over its tokens; where the spec splits
     ``d_ff`` (experts that the model axis does not divide), each expert's
-    product is summed over the model axis."""
+    product is summed over the model axis.  Under sequence parallelism the
+    member routes the whole of S and keeps its block of the output."""
+    x = mb.gather_seq(x)
     B, S, d = x.shape[-3:]
     split_f = moe_param_specs(cfg, mb.policy)["w_down"][1] is not None
     xf = x.reshape(x.shape[:-3] + (B * S, d))
     out, aux = _moe_body(params, xf, cfg, moe_capacity(cfg, B * S),
                          reduce=mb.psum if split_f else None)
-    return out.reshape(x.shape), aux
+    return mb.row_out(out.reshape(x.shape), False), aux
 
 
 def _moe_ep(params, x, cfg: ModelConfig, policy: ShardingPolicy, esize: int):
     """Expert-parallel MoE over the batch and model axes (the reference's
-    shard_map): x (*lead, B, S, d), whole over the model axis, in and out."""
+    shard_map): x (*lead, B, S, d), whole over the model axis, in and out;
+    under sequence parallelism the member's block of S, in and out."""
     mb = Members(policy)
     axis = policy.model_axis
     B, S, d = x.shape[-3:]
-    want_shard = policy.seq_axis == axis or cfg.moe_token_shard
-    seq = want_shard and S % esize == 0
-    xs = mb.block(x, -2) if seq else x          # the member's tokens
+    if mb.seq:  # the member's tokens already: the reference's seq_axis == axis
+        seq, xs = True, x
+    else:
+        seq = cfg.moe_token_shard and S % esize == 0
+        xs = mb.block(x, -2) if seq else x      # the member's tokens
     Tl = B * xs.shape[-2]
 
     def exchange(buf, split, concat):
@@ -273,4 +282,4 @@ def _moe_ep(params, x, cfg: ModelConfig, policy: ShardingPolicy, esize: int):
     for a in tuple(policy.batch_axes) + ((axis,) if seq else ()):
         aux = M.psum(aux, a) / M.axis_size(a)
     out = combined.reshape(xs.shape)
-    return (mb.gather(out, -2) if seq else out), aux
+    return (mb.gather(out, -2) if seq and not mb.seq else out), aux

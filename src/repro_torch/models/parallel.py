@@ -9,18 +9,46 @@ the stacked mesh (``core.mesh.Mesh``), the member's block on a rank mesh
 (``RankMesh``).  Activations take the same form: ``(*lead, B, S, d)``,
 ``lead`` being the mesh dims (none on a rank mesh), each member holding its
 block of the batch over ``policy.batch_axes`` and the whole of it over the
-model axis (the reference's ``act_bsd`` without sequence parallelism).
+model axis (the reference's ``act_bsd``).  With sequence parallelism
+(``policy.seq_axis``, which must be the model axis) each member holds its
+block of S between the blocks instead.
 
 Between the two, a column-parallel product keeps its columns on the
 member; a row-parallel one ends in a ``psum`` over the model axis (the
 ``reduce_nway`` router); heads that a weight's spec splits mid-head, kv
 heads that do not cover the member's query heads, and the vocab-parallel
-logits are gathered over the model axis (``all_gather``).  Every body runs
-under ``with mesh:`` and reads the mesh from there.
+logits are gathered over the model axis (``all_gather``).  Under sequence
+parallelism the pair is the paper's own: S is gathered (a multicast)
+before attention's QKV and the MLP's first products, and the row-parallel
+``psum`` becomes a ``psum_scatter`` on S (an in-network reduction) that
+leaves each member its block of S.  Every body runs under ``with mesh:``
+and reads the mesh from there.
+
+Gradients.  Every axis function of ``core/mesh.py`` carries its transpose,
+the one ``shard_map`` uses: ``psum`` -> ``psum`` of the cotangents (the
+``reduce_nway`` kernel again), ``all_gather`` -> ``psum_scatter``,
+``psum_scatter`` -> ``all_gather``, ``all_to_all`` -> the mirrored
+``all_to_all``, ``ppermute`` -> the inverse permutation; ``pmax`` carries
+none (the loss detaches its shift).  So autograd gives the true
+derivative on both mesh kinds, under one convention:
+
+* the backward loss is the mean over the members of each member's (equal)
+  global loss: the mean over the mesh dims on the stacked mesh, a seed of
+  1/n on each of the n ranks of a rank mesh (:meth:`Members.backward_loss`),
+  so that every rank runs the same program;
+* the global gradient of a parameter is the adjoint of ``core.mesh.shard``:
+  its copies along the mesh axes that its spec does not name are summed
+  (``core.mesh.sum_copies``: a ``psum`` over each such axis; over the
+  batch axes this is the data-parallel all-reduce).  Every copy then holds
+  its block of the global gradient, and AdamW on the laid-out parameters
+  keeps the copies equal.
 """
 
 from __future__ import annotations
 
+import math
+
+import torch
 
 from repro_torch.core import mesh as M
 from repro_torch.models.common import REPLICATED, ShardingPolicy
@@ -60,9 +88,10 @@ def check_layout(model, policy: ShardingPolicy):
                          "(models.convert.shard_model)")
     if model.policy != policy:
         raise ValueError(f"the model was laid out for {model.policy}, not {policy}")
-    if policy.seq_axis is not None:
-        raise NotImplementedError("sequence-parallel execution is not ported yet "
-                                  "(ROADMAP.md): it comes with the training half")
+    if policy.seq_axis is not None and policy.seq_axis != policy.model_axis:
+        raise NotImplementedError(
+            f"sequence parallelism over {policy.seq_axis!r}, not the model axis "
+            f"{policy.model_axis!r}, is not ported (ROADMAP.md)")
     return mesh
 
 
@@ -87,6 +116,7 @@ class Members:
         self.axis = policy.model_axis
         self.tp = self.mesh.size(self.axis) if self.axis else 1
         self.batch = tuple(policy.batch_axes)
+        self.seq = policy.seq_axis is not None and self.tp > 1
 
     def split(self, spec) -> bool:
         """Whether a parameter spec cuts a dim over the model axis."""
@@ -118,6 +148,30 @@ class Members:
     def index(self):
         return M.axis_index(self.axis)
 
+    # -- sequence parallelism (the S dim, local dim -2) --
+    def gather_seq(self, x):
+        """The whole of S from the members' blocks (before attention and the
+        MLP); ``x`` as it is without sequence parallelism."""
+        return self.gather(x, -2) if self.seq else x
+
+    def row_out(self, x, split: bool):
+        """The end of a product whose rows the spec may split (``split``):
+        the members' partial sums summed over the model axis, and under
+        sequence parallelism scattered on S (``psum_scatter``), or, for a
+        whole product, the member's block of S."""
+        if not self.seq:
+            return self.psum(x) if split else x
+        if not split:
+            return self.block(x, -2)
+        k = self.k
+        return M.psum_scatter(x.movedim(-2, k), self.axis, tiled=True).movedim(k, -2)
+
+    def check_seq(self, S: int):
+        """Under sequence parallelism S must split evenly over the model axis."""
+        if self.seq and S % self.tp:
+            raise ValueError(f"sequence parallelism over {self.tp} members needs S divisible "
+                             f"by {self.tp}, got {S}")
+
     def block(self, x, dim: int):
         """This member's block of local dim ``dim`` of a replicated tensor."""
         dim = dim % x.ndim
@@ -139,3 +193,24 @@ class Members:
     def first(self, y):
         """Member 0's value of a per-member one (an unchecked ``P()`` output)."""
         return M.unshard(y, self.mesh, ())
+
+    def backward_loss(self, loss):
+        """The members' equal global ``loss`` (one value a member) as the
+        scalar to differentiate: its value, with each member's share of the
+        backward 1/n of the mesh's n members (the gradient convention above)."""
+        if self.k:
+            return loss.mean()
+        return _Share.apply(loss, math.prod(self.mesh.shape))
+
+
+class _Share(torch.autograd.Function):
+    """The identity, whose backward scales the cotangent by 1/n."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None

@@ -29,11 +29,18 @@ masked lookup of the member's rows, summed over the model axis); the
 head's logits are computed in f32 on the member's vocab slice and gathered
 over the model axis.  The KV cache stays sharded on the mesh: (*mesh dims,
 L, B / batch, S_max, kv, hd) with kv or hd split as ``policy.kv_dims``
-says (``cache_spec``).  Sequence parallelism (``seq_axis``) and the sharded
-loss come with the training half (ROADMAP.md) and raise.
+says (``cache_spec``).  With sequence parallelism (``seq_axis``, the model
+axis) the activations between blocks hold the member's block of S:
+the embedding's sum over the model axis becomes a ``psum_scatter`` on S,
+attention and the MLP gather S first and scatter their sums on S after,
+and ``decode_step`` (one token) runs as without it.  ``loss_fn`` under a
+policy is vocab-parallel and differentiable on both mesh kinds
+(``models/parallel.py`` states the gradient convention).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -204,7 +211,9 @@ def forward(model: Transformer, tokens, cfg: ModelConfig,
     mesh = check_layout(model, policy)
     if mesh is not None:
         with mesh:
-            return _forward_tp(model, tokens, cfg, Members(policy))
+            mb = Members(policy)
+            x, aux = _forward_tp(model, tokens, cfg, mb)
+            return mb.unshard_batch(mb.gather_seq(x)), mb.first(aux)
     B, S = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
     positions = _positions(B, S, x.device)
@@ -220,10 +229,22 @@ def forward(model: Transformer, tokens, cfg: ModelConfig,
 def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig,
             policy: ShardingPolicy = REPLICATED):
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))
-    plus 0.01 of the MoE's aux loss (zero without the MoE)."""
-    if check_layout(model, policy) is not None:
-        raise NotImplementedError("the vocab-parallel loss and sharded training are not "
-                                  "ported yet (ROADMAP.md)")
+    plus 0.01 of the MoE's aux loss (zero without the MoE).
+
+    Under a sharding policy the loss is vocab-parallel
+    (``chunked_cross_entropy`` on the member's rows of the head) and the
+    value is the global loss, set up for the backward as
+    ``Members.backward_loss`` says: the gradients of the laid-out
+    parameters are each copy's share, which ``core.mesh.sum_copies`` sums
+    into the global gradient."""
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            mb = Members(policy)
+            x, aux = _forward_tp(model, batch["tokens"], cfg, mb)
+            loss = chunked_cross_entropy(mb.gather_seq(x), model.head,
+                                         mb.shard_batch(batch["labels"]), cfg, mb)
+            return mb.backward_loss(loss + 0.01 * aux)
     hidden, aux = forward(model, batch["tokens"], cfg)
     loss = chunked_cross_entropy(hidden, model.head, batch["labels"], cfg)
     return loss + 0.01 * aux
@@ -269,7 +290,9 @@ def decode_step(model: Transformer, cache: KVCache, tokens, pos: int, cfg: Model
     mesh = check_layout(model, policy)
     if mesh is not None:
         with mesh:
-            return _decode_tp(model, cache, tokens, pos, cfg, Members(policy))
+            # one token: no sequence to split
+            return _decode_tp(model, cache, tokens, pos, cfg,
+                              Members(dataclasses.replace(policy, seq_axis=None)))
     x = model.embed[tokens].to(cfg.compute_dtype)
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows_list(cfg))):
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
@@ -287,9 +310,11 @@ def decode_step(model: Transformer, cache: KVCache, tokens, pos: int, cfg: Model
 
 
 def _embed_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
-    """The member's rows of the global ``tokens``: (*lead, B, S, d).  With
-    the vocab split over the model axis, each member looks up the tokens
-    of its own rows (zero elsewhere) and the members' rows are summed."""
+    """The member's rows of the global ``tokens``: (*lead, B, S, d), or the
+    member's block of S under sequence parallelism.  With the vocab split
+    over the model axis, each member looks up the tokens of its own rows
+    (zero elsewhere) and the members' rows are summed (and scattered on S)."""
+    mb.check_seq(tokens.shape[-1])
     tok = mb.shard_batch(tokens)
     table = model.embed
     lead, (V, d) = table.shape[:mb.k], table.shape[mb.k:]
@@ -302,13 +327,14 @@ def _embed_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
     base = (torch.arange(L, device=tok.device) * V).reshape(lead + (1,) * (tok.ndim - mb.k))
     rows = table.reshape(-1, d)[tok + base]
     if split:
-        rows = mb.psum(torch.where(inside[..., None], rows, 0))
-    return rows.to(cfg.compute_dtype)
+        rows = torch.where(inside[..., None], rows, 0)
+    return mb.row_out(rows, split).to(cfg.compute_dtype)
 
 
 def _logits_tp(model: Transformer, x, cfg: ModelConfig, mb: Members):
-    """The last token's global logits (B, padded vocab) in f32."""
-    x = x[..., -1, :]
+    """The last token's global logits (B, padded vocab) in f32; under
+    sequence parallelism the last token is the last member's."""
+    x = mb.gather_seq(x[..., -1:, :])[..., -1, :]
     x = rms_norm(x, mb.bcast(model.final_norm, x), cfg.norm_eps)
     logits = mb.mm(x.float(), model.head.float().transpose(-1, -2))
     if mb.split(mb.policy.embed(cfg.padded_vocab)):
@@ -320,25 +346,34 @@ def _norm(x, scale, cfg: ModelConfig, mb: Members):
     return rms_norm(x, mb.bcast(scale, x), cfg.norm_eps)
 
 
-def _forward_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
-    x = _embed_tp(model, tokens, cfg, mb)
-    positions = torch.arange(x.shape[-2], dtype=torch.int32, device=x.device)
-    aux = torch.zeros(x.shape[:mb.k], device=x.device)
-    for blk, window in zip(model.blocks, layer_windows_list(cfg)):
+def _layer_tp(blk: Block, x, positions, window: int, cfg: ModelConfig, mb: Members):
+    """One layer on the member's tensors: (x, aux (*lead)).  It enters the
+    mesh itself, since its remat recompute runs in the backward pass."""
+    with mb.mesh:
         h = _norm(x, blk.norm1, cfg, mb)
         x = x + attn_mod.attention(blk.attn, h, positions, cfg, window=window,
                                    policy=mb.policy)
         h, a = blk.ffn(_norm(x, blk.norm2, cfg, mb), cfg, mb.policy)
-        x = x + h
-        if a is not None:
-            aux = aux + a
-    x = _norm(x, model.final_norm, cfg, mb)
-    return mb.unshard_batch(x), mb.first(aux)
+        return x + h, torch.zeros(x.shape[:mb.k], device=x.device) if a is None else a
+
+
+def _forward_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
+    """The member's final hidden states (*lead, B, S or its block, d) and
+    aux loss (*lead), each layer recomputed in the backward pass when
+    ``cfg.remat``."""
+    x = _embed_tp(model, tokens, cfg, mb)
+    positions = torch.arange(tokens.shape[-1], dtype=torch.int32, device=x.device)
+    layer = maybe_remat(_layer_tp, cfg.remat)
+    aux = torch.zeros(x.shape[:mb.k], device=x.device)
+    for blk, window in zip(model.blocks, layer_windows_list(cfg)):
+        x, a = layer(blk, x, positions, window, cfg, mb)
+        aux = aux + a
+    return _norm(x, model.final_norm, cfg, mb), aux
 
 
 def _prefill_tp(model: Transformer, tokens, cfg: ModelConfig, max_len: int, mb: Members):
     x = _embed_tp(model, tokens, cfg, mb)
-    S = x.shape[-2]
+    S = tokens.shape[-1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     cache = None
     at = (slice(None),) * mb.k

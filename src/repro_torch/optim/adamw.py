@@ -18,6 +18,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import mesh as M
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -41,14 +43,32 @@ def adamw_init(params: dict) -> dict:
     }
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
+def global_norm(tree: dict, layout=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.
+
+    ``layout``, ``(mesh, specs by name)``, says that the leaves are laid
+    out on a mesh (``core.mesh.shard``), their copies equal: each global
+    element is then counted once, each block's sum divided by its number
+    of copies, and on a rank mesh the members' sums added over every axis.
+    """
+    if layout is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
+    mesh, specs = layout
+    total = sum(torch.sum(torch.square(g.float())) / M.copies(mesh, specs[k])
+                for k, g in tree.items())
+    if not mesh.stacked:
+        with mesh:
+            for name in mesh.axis_names:
+                total = M.psum(total, name)
+    return torch.sqrt(total)
 
 
-def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, lr_scale=1.0):
-    """Returns (new params, new state, metrics {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, lr_scale=1.0,
+                 layout=None):
+    """Returns (new params, new state, metrics {"grad_norm", "lr"}).  With
+    ``layout`` (:func:`global_norm`) the leaves are laid out on a mesh and
+    the clip takes the global gradient's norm."""
+    gnorm = global_norm(grads, layout)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     b1c = 1.0 - cfg.b1 ** step.float()

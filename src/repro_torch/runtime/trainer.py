@@ -23,6 +23,20 @@ runs its member.  As in the reference, whose ``out_specs=P()`` under
 to every member.  On a rank mesh only member 0 writes checkpoints; every
 rank restores.
 
+With a sharding policy (``policy=``, and the ``mesh`` it names) the step
+is the reference's jitted step under the policy: ``init_state`` lays the
+model out on the mesh (``models.convert.shard_model``), the step
+differentiates the family's ``loss_fn`` under the policy (the global loss,
+which it reports), sums each gradient's copies into the global gradient
+(``core.mesh.sum_copies``, once a step after the microbatches), and runs
+AdamW on the laid-out parameters, its clip on the global norm.  A
+parameter that gets no gradient raises, naming it.  Checkpoints hold the
+global parameters and moments, so a sharded run resumes unsharded and
+back.  Compressed gradients under a policy raise ``NotImplementedError``:
+the reference's compressed step takes its parameters replicated inside
+its ``shard_map``, so that its policy changes nothing for a dense model
+and its expert-parallel MoE fails to lower (ROADMAP.md).
+
 The training state is ``(model, opt_state, err_state)``: the model holds
 the parameters; ``opt_state`` is AdamW's (``step``, ``m``, ``v``) and
 ``err_state`` the compression residuals, keyed by the reference's leaf
@@ -46,8 +60,10 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import mesh as M
 from repro_torch.models import get_family
-from repro_torch.models.common import ModelConfig, resolve_device
-from repro_torch.models.convert import reference_leaves
+from repro_torch.models.common import REPLICATED, ModelConfig, ShardingPolicy, resolve_device
+from repro_torch.models.convert import (laid_out_specs, reference_leaves, shard_model,
+                                        unshard_tensors)
+from repro_torch.models.parallel import check_policy, is_sharded
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update, compressed_mean,
                                warmup_cosine)
 
@@ -98,16 +114,29 @@ def _by_param(leaves: dict, grouped: dict) -> dict:
 class Trainer:
     """Trains ``model_cfg`` on ``device`` (None means CUDA, and raises without
     a card), or on ``mesh``'s device.  ``model``, when given, is the initial
-    weights: ``init_state`` copies it instead of drawing new ones (its
-    device is then the trainer's).  ``mesh`` (a stacked ``Mesh`` or a
+    weights, unsharded: ``init_state`` copies it instead of drawing new ones
+    (its device is then the trainer's).  ``mesh`` (a stacked ``Mesh`` or a
     ``RankMesh``) is needed by the data-parallel step (``compress_grads``
-    with ``dp_axis``); without them the whole batch is one member's."""
+    with ``dp_axis``) and by a sharded ``policy`` (the reference's
+    ``Trainer(..., policy=, mesh=)``); without them the whole batch is one
+    member's."""
 
     def __init__(self, model_cfg: ModelConfig, tcfg: TrainerConfig, device=None, model=None,
-                 mesh=None):
+                 mesh=None, policy: ShardingPolicy = REPLICATED):
         self.dp = bool(tcfg.compress_grads and tcfg.dp_axis)
-        if self.dp and mesh is None:
-            raise ValueError("compressed data-parallel gradients run over a mesh: pass mesh=")
+        self.policy = policy
+        self.sharded = is_sharded(policy)
+        if (self.dp or self.sharded) and mesh is None:
+            raise ValueError("compressed data-parallel gradients and sharding policies run "
+                             "over a mesh: pass mesh=")
+        if self.sharded:
+            if tcfg.compress_grads:
+                raise NotImplementedError(
+                    "compressed gradients under a sharding policy are not ported: the "
+                    "reference's compressed step ignores its policy (ROADMAP.md)")
+            if getattr(model, "mesh", None) is not None:
+                raise ValueError("pass the initial model unsharded: the trainer lays it out")
+            check_policy(mesh, policy)
         if self.dp:
             mesh.dim(tcfg.dp_axis)
         self.model_cfg = model_cfg
@@ -127,22 +156,30 @@ class Trainer:
         self._ema_step_time: Optional[float] = None
         self.metrics_log: list[dict] = []
         self.state = None  # (model, opt_state, err_state) after ``fit``
+        self._layout = None  # (mesh, specs by name) of a laid-out model, from init_state
 
     # -- step ----------------------------------------------------------------
 
     def _loss(self, model, batch):
+        if self.sharded:
+            return self.family.loss_fn(model, batch, self.model_cfg, self.policy)
         return self.family.loss_fn(model, batch, self.model_cfg)
 
     def _grads(self, model, batch):
         """(loss, grads by name): one batch, or the mean over microbatches
-        (the gradients then accumulated in f32)."""
+        (the gradients then accumulated in f32).  Under a policy each is
+        the copies' shares of its laid-out parameter."""
         params = params_of(model)
 
         def value_and_grad(b):
             loss = self._loss(model, b)
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-            return loss.detach(), {k: torch.zeros_like(p) if g is None else g
-                                   for (k, p), g in zip(params.items(), grads)}
+            out = {}
+            for (k, p), g in zip(params.items(), grads):
+                if g is None and self.sharded:
+                    raise RuntimeError(f"the sharded loss gives {k} no gradient")
+                out[k] = torch.zeros_like(p) if g is None else g
+            return loss.detach(), out
 
         mb = self.tcfg.microbatches
         if mb == 1:
@@ -223,11 +260,14 @@ class Trainer:
             loss, grads, err_state = self._dp_grads(model, batch, err_state)
         else:
             loss, grads = self._grads(model, batch)
+        if self.sharded:  # each copy's share summed: the global gradient
+            specs = self._layout[1]
+            grads = {k: M.sum_copies(g, self.mesh, specs[k]) for k, g in grads.items()}
         lr_scale = warmup_cosine(opt_state["step"], warmup=self.tcfg.warmup,
                                  total=self.tcfg.total_steps)
         params = params_of(model)
         new, opt_state, metrics = adamw_update(params, grads, opt_state, self.tcfg.adamw,
-                                               lr_scale)
+                                               lr_scale, self._layout)
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(new[k])
@@ -244,6 +284,10 @@ class Trainer:
         else:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             model = self.family.init(gen, self.model_cfg, self.device, trainable=True)
+        self._layout = None
+        if self.sharded:
+            shard_model(model, self.mesh, self.policy).requires_grad_(True)
+            self._layout = (self.mesh, laid_out_specs(model))
         params = params_of(model)
         opt_state = adamw_init(params)
         err_state = {}
@@ -260,24 +304,32 @@ class Trainer:
         return self.mesh.shape[:self.mesh.stacked] if self.dp else ()
 
     def _flat(self, state) -> dict:
+        """The state as one flat dict of global tensors (a laid-out model's
+        parameters and moments unsharded: on a rank mesh every rank takes
+        part)."""
         model, opt_state, err_state = state
-        flat = {PARAMS + k: p.detach() for k, p in params_of(model).items()}
+        glob = (lambda d: unshard_tensors(model, d)) if self.sharded else (lambda d: d)
+        flat = {PARAMS + k: p for k, p in glob({k: p.detach()
+                                                  for k, p in params_of(model).items()}).items()}
         flat["opt/step"] = opt_state["step"]
         for part in ("m", "v"):
-            flat.update({f"opt/{part}/{k}": t for k, t in opt_state[part].items()})
+            flat.update({f"opt/{part}/{k}": t for k, t in glob(opt_state[part]).items()})
         first = (0,) * len(self._lead)  # member 0's residuals, as the reference saves
         flat.update({f"err/{k}": t[first] for k, t in err_state.items()})
         return flat
 
     def _load(self, state, flat: dict):
         """``state`` with every leaf replaced by ``flat``'s (the residuals
-        given to every member); the model's parameters are written in place."""
+        given to every member; a laid-out model's leaves laid out again);
+        the model's parameters are written in place."""
         model, opt_state, err_state = state
+        lay = (lambda k, t: M.shard(t, self.mesh, self._layout[1][k])) if self.sharded \
+            else (lambda k, t: t)
         with torch.no_grad():
             for k, p in params_of(model).items():
-                p.copy_(flat[PARAMS + k])
+                p.copy_(lay(k, flat[PARAMS + k]))
         opt_state = {"step": flat["opt/step"],
-                     **{part: {k: flat[f"opt/{part}/{k}"] for k in opt_state[part]}
+                     **{part: {k: lay(k, flat[f"opt/{part}/{k}"]) for k in opt_state[part]}
                         for part in ("m", "v")}}
         err = {k: flat[f"err/{k}"].expand(self._lead + flat[f"err/{k}"].shape).clone()
                for k in err_state}
@@ -315,12 +367,15 @@ class Trainer:
             self._watch_straggler(dt, step)
             step += 1
             self.metrics_log.append({"step": step, "loss": loss, "dt": dt})
-            if self.ckpt and self._writes and step % self.tcfg.ckpt_every == 0:
-                self.ckpt.save_async(step, self._flat((model, opt_state, err_state)),
-                                     metadata={"loss": loss})
+            if self.ckpt and step % self.tcfg.ckpt_every == 0:
+                flat = self._flat((model, opt_state, err_state))  # collective when sharded
+                if self._writes:
+                    self.ckpt.save_async(step, flat, metadata={"loss": loss})
         self.state = (model, opt_state, err_state)
-        if self.ckpt and self._writes:
-            self.ckpt.save(step, self._flat(self.state))
+        if self.ckpt:
+            flat = self._flat(self.state)
+            if self._writes:
+                self.ckpt.save(step, flat)
         if self.ckpt and self.ranked:
             self.mesh.barrier()  # every rank sees the last checkpoint
         return model, opt_state

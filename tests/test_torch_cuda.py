@@ -691,3 +691,85 @@ def test_sharded_smoke_prefill_on_a_stacked_mesh_on_card(card, arch):
     assert got.shape == (2, cfg.padded_vocab) and bool(torch.isfinite(got).all())
     assert (got - plain_logits).abs().max().item() <= 2e-4
     assert (got - want).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_reduce_nway_gradient_and_psum_backward_on_card(card, dt):
+    """The kernel's sum carries a gradient (the cotangent broadcast), and the
+    stacked mesh's psum runs the kernel again in its backward: both against
+    autograd through the plain sum, the backward launches counted apart."""
+    from repro_torch.core import mesh as M
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(2, 4, 96, 64, generator=gen, device=card).to(TDT[dt]).requires_grad_()
+    ct = torch.randn(2, 96, 64, generator=gen, device=card).to(TDT[dt])
+    before = reduce_nway.launches
+    y = reduce_nway(x, op="add", dim=1)
+    assert y.grad_fn is not None and reduce_nway.launches == before + 1
+    got, = torch.autograd.grad(y, x, ct)
+    assert torch.equal(got, ct[:, None].expand_as(x))
+    with M.Mesh((2, 4), ("data", "model"), device=card):
+        y = M.psum(x, "model")
+        ct = torch.randn(y.shape, generator=gen, device=card).to(TDT[dt])
+        launches, back = reduce_nway.launches, reduce_nway.backward_launches
+        got, = torch.autograd.grad(y, x, ct)
+        torch.cuda.synchronize()
+    assert reduce_nway.launches == launches + 1 and reduce_nway.backward_launches == back + 1
+    want = tref.reduce_nway_ref(ct, "add", 1).unsqueeze(1).expand_as(ct)
+    tol = 1e-6 if dt == "f32" else 2 ** -7
+    assert ((got.float() - want.float()).abs() <= tol * (1 + want.float().abs())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq_parallel", [False, True])
+def test_sharded_step_gradients_on_card_equal_the_plain_run(card, seq_parallel):
+    """qwen's smoke config on a stacked (2, 4) mesh on the card: the sharded
+    loss's global gradients through the kernels (flash; reduce_nway for
+    every psum, forward and backward) are non-zero and equal those with
+    both kernels replaced by their plain versions, and the unsharded
+    model's."""
+    from unittest import mock
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as M
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.convert import global_grads, reference_leaves, shard_model
+
+    cfg = get_smoke_config("qwen1_5_0_5b")
+    model = tt.init(torch.Generator(device=card).manual_seed(0), cfg, card, trainable=True)
+    tokens = torch.randint(0, cfg.vocab, (4, 17), generator=torch.Generator(device=card)
+                           .manual_seed(1), device=card)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    names = [n for n, _ in model.named_parameters()]
+    unsharded = dict(zip(names, torch.autograd.grad(tt.loss_fn(model, batch, cfg),
+                                                    list(model.parameters()))))
+    mesh = M.Mesh((2, 4), ("data", "model"), device=card)
+    policy = make_policy(cfg, mesh, seq_parallel=seq_parallel)
+    shard_model(model, mesh, policy).requires_grad_(True)
+
+    def grads():
+        loss = tt.loss_fn(model, batch, cfg, policy)
+        return global_grads(model, dict(zip(names, torch.autograd.grad(
+            loss, list(model.parameters())))))
+
+    launches, back = reduce_nway.launches, reduce_nway.backward_launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert reduce_nway.launches > launches and reduce_nway.backward_launches > back
+
+    def plain_flash(q, k, v, *, window=0, **_):
+        return tref.flash_attention_ref(q, k, v, window=window)
+
+    with mock.patch.object(attn_mod, "flash_attention", plain_flash), \
+            mock.patch.object(M, "reduce_nway", lambda x, op, dim: tref.reduce_nway_ref(x, op, dim)):
+        plain = grads()
+    want = {leaf: torch.stack([unsharded[n] for n in ns]) if "*" in leaf else unsharded[ns[0]]
+            for leaf, ns in reference_leaves(unsharded, cfg).items()}
+    for leaf, g in got.items():
+        scale = want[leaf].abs().max().item()
+        assert scale > 0 and g.abs().max().item() > 0, leaf
+        assert (g - plain[leaf]).abs().max().item() <= 2e-4 * scale, leaf
+        assert (g - want[leaf]).abs().max().item() <= 2e-4 * scale, leaf

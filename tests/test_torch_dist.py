@@ -31,6 +31,20 @@ stacked mesh: ``all_to_all`` moves bytes, and a rank mesh's f32 ``psum``
 sends each member its block of every member's rows (``all_to_all``),
 which it reduces with the ``reduce_nway`` router in member order, as the
 stacked mesh does, before the summed blocks are gathered.
+
+Sharded training: on the ``(2, 4)`` rank mesh each rank differentiates
+every collective (its transpose runs the mirrored collective on the ranks)
+and the sharded ``loss_fn`` of the dense and the MoE smoke model, with
+sequence parallelism off and on, and runs 2 steps of ``Trainer(policy=,
+mesh=)`` with a checkpoint of global leaves (a collective), then resumes
+it for a third.  The gradients (``global_grads``: the copies' shares
+summed by ``psum`` on the ranks, by the sum over the mesh dims on the
+stack) and losses must equal the stacked mesh's within 1e-6 (of each
+leaf's largest gradient; the two meshes seed the backward with 1/8 on each
+rank and by the mean over the stacked members, and autograd adds a
+gradient's contributions in its own order on each), and the parameters
+after 3 steps at the trainer tests' rtol 1e-4 / atol 1e-5 (AdamW scales
+each element's step to about ``lr``, whatever its gradient's size).
 """
 
 import dataclasses
@@ -48,7 +62,7 @@ from repro_torch.core import schedules as S
 from repro_torch.data import SyntheticLMSource
 from repro_torch.launch.steps import make_policy
 from repro_torch.models import get_family
-from repro_torch.models.convert import shard_model
+from repro_torch.models.convert import global_grads, shard_model, unshard_tensors
 from repro_torch.optim import AdamWConfig, compressed_mean
 from repro_torch.runtime.elastic import largest_pow2_mesh
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -126,6 +140,16 @@ A2A_CASES = {f"all_to_all {dt} {s}->{c}": (dt, s, c)
 A2A_LOCAL = (8, 8, 3)
 TP_ARCHS = ("yi_6b", "moonshot_v1_16b")
 TP_TOKENS = (4, 16)
+# the collectives whose gradients are held: name -> fn(x, axis)
+GRAD_CASES = {
+    "psum": lambda x, a: M.psum(x, a),
+    "psum_scatter": lambda x, a: M.psum_scatter(x, a, tiled=True),
+    "all_gather tiled": lambda x, a: M.all_gather(x, a, tiled=True),
+    "all_gather": lambda x, a: M.all_gather(x, a, tiled=False),
+    "all_to_all": lambda x, a: M.all_to_all(x, a, 0, 1),
+    "ppermute ring": lambda x, a: M.ppermute(x, a, _ring(M.axis_size(a))),
+}
+TRAIN_ARCH = "qwen1_5_0_5b"
 
 
 def _axes():
@@ -156,6 +180,46 @@ def _tp_prefill(arch: str, mesh):
     shard_model(model, mesh, policy)
     logits, cache = get_family(cfg).prefill(model, tokens, cfg, policy)
     return logits, cache
+
+
+def _grad_of(case: str, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The gradient of sum(y * cos(3 y)) (y held constant in the weight) for
+    y = the collective of ``x``: one cotangent that both meshes agree on."""
+    x = x.detach().requires_grad_()
+    y = GRAD_CASES[case](x, axis)
+    return torch.autograd.grad((y * torch.cos(3 * y.detach())).sum(), x)[0]
+
+
+def _tp_grads(arch: str, mesh, seq_parallel: bool):
+    """The sharded loss of ``arch`` on ``mesh`` and its global gradients by
+    reference leaf."""
+    cfg, model, tokens = _tp_model(arch)
+    policy = make_policy(cfg, mesh, seq_parallel=seq_parallel)
+    shard_model(model, mesh, policy).requires_grad_(True)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    loss = get_family(cfg).loss_fn(model, batch, cfg, policy)
+    names = [n for n, _ in model.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+    return loss.detach(), global_grads(model, grads)
+
+
+def _tp_trainer(mesh, **kw):
+    cfg = get_smoke_config(TRAIN_ARCH)
+    return Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=1e-3), warmup=1, total_steps=10, **kw),
+                   mesh=mesh, policy=make_policy(cfg, mesh, seq_parallel=True))
+
+
+def _tp_training(mesh, root: str):
+    """2 sharded steps with a checkpoint, then a new trainer resumed for a
+    third: (losses of both, the global parameters)."""
+    cfg = get_smoke_config(TRAIN_ARCH)
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=1)
+    first = _tp_trainer(mesh, ckpt_dir=root, ckpt_every=1)
+    first.fit(src, steps=2, resume=False)
+    again = _tp_trainer(mesh, ckpt_dir=root)
+    model, _ = again.fit(src, steps=3)
+    losses = [m["loss"] for m in first.metrics_log + again.metrics_log]
+    return losses, unshard_tensors(model, {k: p.detach() for k, p in model.named_parameters()})
 
 
 def _input(shape, case: str, dtype: str) -> np.ndarray:
@@ -210,6 +274,15 @@ def _rank_main(rank: int, root: str):
     tp_mesh = M.RankMesh((2, 4), ("data", "model"), device="cpu")
     for arch in TP_ARCHS:
         out[("tp", arch)] = _tp_prefill(arch, tp_mesh)
+    with tp_mesh:
+        for case in GRAD_CASES:
+            x = _torch(_grad_input(), "float32")[tp_mesh.coord]
+            for a in tp_mesh.axis_names:
+                out[("grad", a, case)] = _grad_of(case, x, a)
+    for arch in TP_ARCHS:
+        for sp in (False, True):
+            out[("tp grads", arch, sp)] = _tp_grads(arch, tp_mesh, sp)
+    out["tp training"] = _tp_training(tp_mesh, f"{root}/tp_ckpt")
     # 3 ranks lost: the survivors' (2, 2) mesh holds ranks 0-3; ranks 4-7
     # build it too (its groups are collective) and are not members
     survivors = largest_pow2_mesh(range(5), model_max=2, device="cpu", ranks=True)
@@ -252,6 +325,20 @@ def ranks(tmp_path_factory):
             p.join(5)
     print(f"8 gloo ranks took {time.perf_counter() - t0:.1f} s")
     return root, [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+
+
+def _grad_input() -> np.ndarray:
+    return np.random.default_rng(11).standard_normal((2, 4) + A2A_LOCAL).astype(np.float32)
+
+
+def _stacked_one_thread(fn, *args):
+    """``fn`` on the stacked mesh with one torch thread, the ranks' sums."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*args)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _coord(rank, shape):
@@ -361,3 +448,40 @@ def test_only_rank0_writes_and_every_rank_restores_member0s_residuals(ranks):
         assert (step, opt_step) == (STEPS, STEPS)
         for k, e in err.items():
             assert torch.equal(e, got[0]["err"][k]), (rank, k)  # member 0's, everywhere
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+@pytest.mark.parametrize("axis", ("data", "model"))
+def test_collective_gradients_on_ranks_equal_the_stacked_mesh(ranks, axis, case):
+    with M.Mesh((2, 4), ("data", "model"), device="cpu"):
+        want = _grad_of(case, _torch(_grad_input(), "float32"), axis)
+    for rank, out in enumerate(ranks[1]):
+        got, w = out[("grad", axis, case)], want[_coord(rank, (2, 4))]
+        assert got.shape == w.shape and (got - w).abs().max().item() <= 1e-6, rank
+
+
+@pytest.mark.parametrize("seq_parallel", (False, True))
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_sharded_gradients_on_ranks_equal_the_stacked_mesh(ranks, arch, seq_parallel):
+    loss, want = _stacked_one_thread(_tp_grads, arch, M.Mesh((2, 4), ("data", "model"),
+                                                             device="cpu"), seq_parallel)
+    for rank, out in enumerate(ranks[1]):
+        got_loss, got = out[("tp grads", arch, seq_parallel)]
+        assert abs(got_loss.item() - loss.item()) <= 1e-6 * abs(loss.item()), rank
+        assert sorted(got) == sorted(want)
+        for leaf, w in want.items():
+            scale = w.abs().max().item()
+            assert (got[leaf] - w).abs().max().item() <= 1e-6 * scale, (rank, leaf)
+
+
+def test_sharded_trainer_on_ranks_equals_the_stacked_trainer(ranks, tmp_path):
+    """2 steps with a checkpoint of global leaves and a resumed third, on
+    the ranks and on the stack: equal losses and global parameters."""
+    losses, params = _stacked_one_thread(
+        _tp_training, M.Mesh((2, 4), ("data", "model"), device="cpu"), str(tmp_path))
+    for rank, out in enumerate(ranks[1]):
+        got_losses, got = out["tp training"]
+        np.testing.assert_allclose(got_losses, losses, rtol=1e-6, err_msg=str(rank))
+        for k, w in params.items():  # the trainer tests' tolerance (AdamW normalises steps)
+            np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=f"rank {rank}: {k}")

@@ -11,7 +11,8 @@ subprocess on 8 spoofed XLA host devices (``XLA_FLAGS`` is set before JAX
 loads) under ``jax.set_mesh``, its weights placed with ``NamedSharding``
 by ``moe_param_specs``, jitted.  The cases: moonshot's and phi3.5-moe's
 smoke configs, with ``moe_token_shard`` on and off and with
-``seq_axis="model"``, at ``capacity_factor`` 1.25 (rows dropped) and 64
+``seq_axis="model"`` (the tokens laid out on S as the model holds them
+between blocks), at ``capacity_factor`` 1.25 (rows dropped) and 64
 (none), and a sequence that the model axis does not divide (every member
 routes the same tokens).  The subprocess also runs the reference's
 ``_route`` and ``_dispatch_indices`` in a ``shard_map`` with ``_moe_ep``'s
@@ -44,6 +45,7 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 SHAPE, NAMES = (2, 4), ("data", "model")
 B, S, S_ODD = 4, 16, 6
 BSPEC = (("data",), None, None)
+BSPEC_SEQ = (("data",), "model", None)  # sequence parallelism: S split too
 
 # name -> (arch, capacity_factor, moe_token_shard, seq_parallel, S)
 CASES = {}
@@ -123,8 +125,10 @@ def _cfg(arch, cf, shard):
 
 
 def _port_ep(ref_out, cfg, arch, seq_par, x, monkeypatch):
-    """The port's _moe_ep on the stacked (2, 4) mesh: (global y, member 0's
-    aux, aux of every member, routing records)."""
+    """The port's _moe_ep on the stacked (2, 4) mesh: (global y, aux of
+    every member, routing records, params).  Under sequence parallelism the
+    tokens are laid out as the model holds them between blocks, each
+    member with its block of S, and so is y."""
     mesh = M.Mesh(SHAPE, NAMES, device="cpu")
     pol = make_policy(cfg, mesh, seq_parallel=seq_par)
     specs = mlp.moe_param_specs(cfg, pol)
@@ -144,9 +148,10 @@ def _port_ep(ref_out, cfg, arch, seq_par, x, monkeypatch):
 
     monkeypatch.setattr(mlp, "_route", route)
     monkeypatch.setattr(mlp, "_dispatch_indices", dispatch)
+    spec = BSPEC_SEQ if seq_par else BSPEC
     with mesh:
-        y, aux = mlp._moe_ep(params, M.shard(torch.from_numpy(x), mesh, BSPEC), cfg, pol, 4)
-    return M.unshard(y, mesh, BSPEC), aux, record, params
+        y, aux = mlp._moe_ep(params, M.shard(torch.from_numpy(x), mesh, spec), cfg, pol, 4)
+    return M.unshard(y, mesh, spec), aux, record, params
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

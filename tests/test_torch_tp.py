@@ -16,7 +16,9 @@ reference.  Against the port's own unsharded model, the MoE configs run at
 ``capacity_factor`` 64, where no row is dropped and the expert-parallel MoE
 equals the local one.  ``Server(policy=, mesh=)`` serves the same tokens
 as the reference's ``Server`` under the mesh, and the three families whose
-sharded execution is not ported raise.
+sharded execution is not ported raise.  (Sharded training, the sharded loss
+and sequence parallelism are held against the reference in
+``tests/test_torch_tp_train.py``.)
 """
 
 import copy
@@ -209,18 +211,33 @@ def test_families_without_sharded_execution_raise(arch):
 
 
 def test_a_sharded_transformer_refuses_what_is_not_ported(pair):
+    """A sharded model needs its policy and an unsharded one takes none.
+    The sharded loss and sequence parallelism over the model axis, which
+    raised before the training half was ported, now run: the loss is
+    finite (a dense config's equal to the unsharded model's within 2e-4)
+    and the prefill logits with sequence parallelism equal those without;
+    sequence parallelism over another axis still raises."""
     arch, tc, model, sharded, mesh, policy = pair
-    tokens = torch.zeros((B, S), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tt.loss_fn(sharded, {"tokens": tokens, "labels": tokens}, tc, policy)
+    tokens = _tok(np.random.default_rng(6).integers(0, tc.vocab, (B, S)))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    with torch.no_grad():
+        loss = tt.loss_fn(sharded, batch, tc, policy)
+        assert loss.shape == () and bool(torch.isfinite(loss))
+        if not tc.n_experts:  # the MoE's aux is per member, as the reference's
+            np.testing.assert_allclose(loss.item(), tt.loss_fn(model, batch, tc).item(), **TOL)
+        want = tt.prefill(sharded, tokens, tc, policy)[0]
     with pytest.raises(ValueError):  # a sharded model needs its policy
         tt.prefill(sharded, tokens, tc)
     with pytest.raises(ValueError):  # and an unsharded one cannot take one
         tt.prefill(model, tokens, tc, policy)
     seq = dataclasses.replace(policy, seq_axis="model")
-    sharded.policy = seq
+    other = dataclasses.replace(policy, seq_axis="data")
     try:
+        sharded.policy = seq
+        got = tt.prefill(sharded, tokens, tc, seq)[0]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+        sharded.policy = other
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tt.prefill(sharded, tokens, tc, seq)
+            tt.prefill(sharded, tokens, tc, other)
     finally:
         sharded.policy = policy
