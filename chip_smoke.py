@@ -160,9 +160,33 @@ Phases, each of which raises on failure:
    sharded, 4 steps; (11c) the rank mesh under NCCL at world size 1: a
    smoke config's sharded loss, gradients and 2 trainer steps equal to the
    stacked mesh's;
-12. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
+12. sharded serving and training of the other three families, each laid
+   out by ``shard_model`` under ``make_policy`` on a stacked ("data",
+   "model") mesh: (12a) recurrentgemma-2b on (2, 4), rwkv6-3b on (1, 4) and
+   whisper-base on (2, 4), each with f32 gates at full width on a model
+   built apart (the hybrid at 3 layers, rwkv6 at 4, whisper at full
+   depth: sharded prefill logits with sequence parallelism off and on, and
+   a decode step after each, within SERVE_RTOL of max|logits| of the
+   unsharded model's), then the bf16 serve at full depth twice, equal
+   (the hybrid and rwkv6: phase 4's requests through ``Server(policy=,
+   mesh=)``; whisper: phase 6c's generation), with ``rglru_scan``, ``wkv``
+   and tensor-core flash launched their counts a prefill, ``reduce_nway``
+   launched, the peak under ``TP_PEAK_GIB``; prefill, decode, tokens/s,
+   peak, a profiled prefill and decode step, and the hybrid's ``xw``
+   gather and row-parallel psum beside their byte bounds; yi-6b's
+   sequence-parallel prefill at ``TP_CHECK_LAYERS`` against the same
+   without it; (12b) the f32 gradient gates on (2, 4), sequence
+   parallelism off and on (the hybrid at 3 layers, rwkv6 at 2, whisper at
+   full depth), each global gradient leaf within TRAIN_RTOL of its max|g|,
+   then bf16 ``Trainer(policy=, mesh=)`` on (1, 4), sequence-parallel: the
+   hybrid at 6 layers on one repeated batch with phase 7's learning gate,
+   rwkv6 at 4 layers, 4 steps; (12c) the rank mesh under NCCL at world
+   size 1: each family's smoke prefill, loss and gradients equal to the
+   stacked mesh's;
+13. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
    ``{"data_parallel": ...}`` line, the ``{"model_parallel": ...}`` line,
-   the ``{"model_parallel_training": ...}`` line, the ``{"kernels": [...]}``
+   the ``{"model_parallel_training": ...}`` line, the
+   ``{"model_parallel_families": ...}`` line, the ``{"kernels": [...]}``
    line, one entry per route of each kernel (with its gradient's method and
    times where it has one, and its launches in each model's phase,
    ``launches_by_model``), and, last, the ``{"ok": true, ...}`` line.
@@ -363,6 +387,39 @@ TP_RANK_TOKENS = (2, 64)
 MP_MESH, MP_MOE_MESH, MP_PEAK_GIB = (2, 4), (1, 4), 72.0
 MP_GATE_LAYERS, MP_GATE_TOKENS = 2, (2, 1024)
 MP_MOE_STEPS, MP_RANK_STEPS = 4, 2
+# Sharded execution of the other three families (phase 12), each on a
+# stacked ("data", "model") mesh on the card under make_policy.  12a: the
+# f32 gates on a model built apart at full width and FAMILY_SERVES'
+# check_layers (None: full depth; the hybrid's 3 hold one attention layer):
+# the sharded prefill logits, with sequence parallelism off and on, and a
+# decode step after each, within SERVE_RTOL of max|logits| of the
+# unsharded model's; yi-6b's sequence-parallel prefill at TP_CHECK_LAYERS
+# against the same without it; then the bf16 serve at full depth (the
+# hybrid and rwkv6: phase 4's requests through Server(policy=, mesh=);
+# whisper: phase 6c's generation through prefill / decode_step), twice,
+# equal, each kernel launched its count a prefill, the peak under
+# TP_PEAK_GIB.  12b: the f32 gradient gates on FAMILY_GRAD_MESH at
+# FAMILY_GRAD_LAYERS (each global leaf within TRAIN_RTOL of its max|g|),
+# sequence parallelism off and on; then bf16 Trainer(policy=, mesh=) runs
+# on FAMILY_TRAIN_MESH, sequence-parallel, on phase 7's RECURRENT_TOKENS:
+# the hybrid at 6 layers, LEARN_STEPS steps on one repeated batch with
+# phase 7's learning gate; rwkv6 at 4 layers, 4 steps.  (1, 4) keeps the
+# laid-out AdamW state at one copy of the model.  12c: the rank mesh under
+# NCCL at world size 1, each family's smoke config equal to the stacked
+# mesh.  The phase aims at FAMILY_BUDGET_S.
+FAMILY_SERVES = (
+    dict(arch="recurrentgemma_2b", mesh=(2, 4), tag="tp recurrentgemma-2b (2,4)",
+         check_layers=3, kernels={"rglru_scan": 18, "flash_attention": 8}),
+    dict(arch="rwkv6_3b", mesh=(1, 4), tag="tp rwkv6-3b (1,4)", check_layers=4,
+         kernels={"wkv": 32}),
+    dict(arch="whisper_base", mesh=(2, 4), tag="tp whisper-base (2,4)", check_layers=None,
+         kernels={"flash_attention": 6}),
+)
+FAMILY_GRAD_MESH, FAMILY_TRAIN_MESH = (2, 4), (1, 4)
+FAMILY_GRAD_LAYERS = {"recurrentgemma_2b": 3, "rwkv6_3b": 2, "whisper_base": None}
+FAMILY_TRAIN = (dict(arch="recurrentgemma_2b", n_layers=6, steps=LEARN_STEPS, learn=True),
+                dict(arch="rwkv6_3b", n_layers=4, steps=4, learn=False))
+FAMILY_BUDGET_S = 150.0
 # the served tokens of phases 4-6a whose full model drew the seed's first
 # weights (phase 10 builds the same model), for phase 10's agreement count
 SERVED_TOKENS = {}
@@ -2915,6 +2972,496 @@ def mp_phase(seed: int, phase7: dict, phase9: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: sharded serving and training of the hybrid, rwkv6 and whisper
+# ---------------------------------------------------------------------------
+
+
+def family_inputs(cfg, gen, B: int, S: int):
+    """(prompt of B x S tokens, the next token, a loss batch of the same
+    tokens): whisper's carry B sequences of frames (phase 6c's scale)."""
+    x = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device=DEVICE)
+    batch = {"tokens": x[:, :S], "labels": x[:, 1:]}
+    prompt = x[:, :S]
+    if cfg.family == "whisper":
+        frames = torch.randn(B, cfg.encoder_len, cfg.d_model, generator=gen, device=DEVICE) * 0.1
+        batch["frames"] = frames
+        prompt = {"frames": frames, "tokens": prompt}
+    return prompt, x[:, S:], batch
+
+
+def family_f32_gates(seed: int, cfg, mesh, check_layers, out: dict):
+    """12a's f32 gates: ``cfg`` at full width and ``check_layers`` (None:
+    full depth), built apart: the sharded prefill logits with sequence
+    parallelism off and on and a decode step after each, against the
+    unsharded model's, within SERVE_RTOL of max|logits|."""
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import get_family
+    from repro_torch.models.convert import shard_model
+
+    fam = get_family(cfg)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32,
+                                n_layers=check_layers or cfg.n_layers)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    model32, out["check_params"] = build_model(fam, cfg32, gen, "tp f32 checks")
+    B, S = (WHISPER_SEQS, WHISPER_TEXT_CTX) if cfg.family == "whisper" else (SLOTS, WAVE)
+    prompt, nxt, _ = family_inputs(cfg32, gen, B, S)
+    where = (f"{B} x {S}" + (f" over {cfg.encoder_len} frames" if cfg.family == "whisper" else "")
+             + f", {cfg32.n_layers} of {cfg.n_layers} layers")
+    with torch.inference_mode():
+        want, cache = fam.prefill(model32, prompt, cfg32, max_len=S + 1)
+        want_dec = fam.decode_step(model32, cache, nxt, S, cfg32)[0]
+        del cache
+        for sp in (False, True):
+            policy = make_policy(cfg32, mesh, seq_parallel=sp)
+            sharded = shard_model(copy.deepcopy(model32), mesh, policy)
+            got, cache = fam.prefill(sharded, prompt, cfg32, policy, max_len=S + 1)
+            got_dec = fam.decode_step(sharded, cache, nxt, S, cfg32, policy)[0]
+            del cache, sharded
+            mode = "sequence-parallel" if sp else "tensor-parallel"
+            logits_check(out, f"prefill_f32{'_sp' if sp else ''}",
+                         f"f32 prefill logits, {mode} on {mesh.shape} vs unsharded, {where}",
+                         got, want)
+            logits_check(out, f"decode_f32{'_sp' if sp else ''}",
+                         f"f32 decode at {S} after the {mode} prefill vs unsharded", got_dec,
+                         want_dec)
+            del got, got_dec
+    del model32, want, want_dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def yi_seq_parallel_check(seed: int) -> dict:
+    """The transformer's sequence-parallel prefill on the card: yi-6b at
+    full width and TP_CHECK_LAYERS in f32 on a stacked (2, 4) mesh, its
+    prefill logits with sequence parallelism against the same without it,
+    within SERVE_RTOL of max|logits|."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.convert import shard_model
+
+    cfg = dataclasses.replace(get_config("yi_6b"), param_dtype=torch.float32,
+                              compute_dtype=torch.float32, n_layers=TP_CHECK_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    model, _ = build_model(tt, cfg, gen, "tp f32 checks")
+    mesh = Mesh((2, 4), ("data", "model"), device=DEVICE)
+    x = torch.randint(0, cfg.vocab, (SLOTS, WAVE), generator=gen, device=DEVICE)
+    logits = {}
+    with torch.inference_mode():
+        for sp in (False, True):
+            policy = make_policy(cfg, mesh, seq_parallel=sp)
+            sharded = shard_model(copy.deepcopy(model), mesh, policy)
+            logits[sp] = tt.prefill(sharded, x, cfg, policy)[0]  # through _prefill_tp
+            del sharded
+    out = {}
+    logits_check(out, "prefill_f32_sp", f"yi-6b f32 _prefill_tp, sequence-parallel vs not, on "
+                 f"(2, 4), {SLOTS} x {WAVE}, {TP_CHECK_LAYERS} of 32 layers", logits[True],
+                 logits[False])
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xw_gather_cost(cfg, mesh, policy, B: int, S: int) -> dict:
+    """The hybrid's gather of the conv output over the model axis at a
+    prefill wave's shape, (*mesh, B / data, S, w / tp) bf16 -> (*mesh,
+    B / data, S, w) as the recurrent block calls it (``Members.gather``),
+    first held against the members' blocks in member order, then timed
+    with CUDA events beside its byte bound (every member's block read once,
+    every member's whole written)."""
+    from repro_torch.models.parallel import Members
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    tp, dp = mesh.size("model"), mesh.size("data")
+    w = cfg.lru_width or cfg.d_model
+    xw = torch.randn(mesh.shape + (B // dp, S, w // tp), generator=gen, device=DEVICE,
+                     dtype=torch.bfloat16)
+    with mesh:
+        mb = Members(policy)
+        got = mb.gather(xw, -1)
+        want = xw.movedim(1, -2).flatten(-2)  # column block j: member j's xw
+        if not torch.equal(got, want.unsqueeze(1).expand(got.shape)):
+            fail("the hybrid's xw gather is not the members' blocks in member order")
+        ms = time_ms(lambda: mb.gather(xw, -1), 10)
+    nbytes = xw.numel() * 2 * (1 + tp)
+    row = {"case": f"all_gather over model of {tuple(xw.shape)} bf16 on the last dim", "ms": ms,
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes}
+    print(f"  {row['case']} (held against the members' blocks): {ms:.4f} ms, byte bound "
+          f"{row['bound_ms']:.4f} ms ({nbytes / 2**20:.1f} MiB)", flush=True)
+    del xw, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def family_serve(seed: int, spec: dict, unsharded: dict) -> dict:
+    """12a for one family: the f32 gates, then the bf16 serve at full width
+    and depth on a stacked mesh (the hybrid and rwkv6 through
+    ``Server(policy=, mesh=)``, whisper's generation through ``prefill`` /
+    ``decode_step``), twice, equal; returns its numbers."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.kernels.reduce_nway import reduce_nway
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import get_family
+    from repro_torch.models.convert import shard_model
+    from repro_torch.runtime.server import Request, Server
+
+    arch, tag = spec["arch"], spec["tag"]
+    cfg = get_config(arch)
+    fam = get_family(cfg)
+    whisper = cfg.family == "whisper"
+    mesh = Mesh(spec["mesh"], ("data", "model"), device=DEVICE)
+    policy = make_policy(cfg, mesh)
+    out = {"arch": cfg.name, "mesh": list(spec["mesh"]), "n_layers": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    family_f32_gates(seed, cfg, mesh, spec["check_layers"], out)
+
+    # bf16 at full depth: the unsharded phase's weights, laid out, freed.
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model, out["n_params"] = build_model(fam, cfg, gen, tag)
+    t0 = time.perf_counter()
+    shard_model(model, mesh, policy)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 2**30
+    print(f"  laid out on {mesh!r} in {out['shard_s']:.2f} s: {resident:.2f} GiB resident",
+          flush=True)
+    times = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            return r
+        return call
+
+    if whisper:
+        B, plen, n_ctx = WHISPER_SEQS, WHISPER_PROMPT, WHISPER_TEXT_CTX
+        frames = torch.randn(B, cfg.encoder_len, cfg.d_model, generator=gen, device=DEVICE) * 0.1
+        prompt = {"frames": frames,
+                  "tokens": torch.randint(0, cfg.vocab, (B, plen), generator=gen, device=DEVICE)}
+        prefill_fn = timed(lambda: fam.prefill(model, prompt, cfg, policy, max_len=n_ctx),
+                           "prefill")
+        decode_fn = timed(lambda c, t, p: fam.decode_step(model, c, t, p, cfg, policy), "decode")
+
+        @torch.inference_mode()
+        def serve():
+            logits, cache = prefill_fn()
+            toks = [logits[:, :cfg.vocab].argmax(-1)]
+            for step in range(1, MAX_NEW):
+                logits, cache = decode_fn(cache, toks[-1][:, None], plen + step - 1)
+                toks.append(logits[:, :cfg.vocab].argmax(-1))
+            return torch.stack(toks, 1).tolist()
+        lens = [plen] * B
+    else:
+        rng = np.random.default_rng(seed)
+        lens = [int(n) for n in rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, REQUESTS)]
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
+        server = Server(cfg, model, max_len=MAX_LEN, device=DEVICE, policy=policy)
+        server._prefill = timed(server._prefill, "prefill")
+        server._decode = timed(server._decode, "decode")
+
+        def serve():
+            done = server.serve([Request(prompt=p, max_new=MAX_NEW) for p in prompts],
+                                batch_slots=SLOTS)
+            if not all(r.done and len(r.out) == MAX_NEW for r in done):
+                fail(f"{tag} serve: a request did not finish with its tokens")
+            return [r.out for r in done]
+
+    wrappers = {**model_kernels(), "reduce_nway": reduce_nway}
+    zero_counts(wrappers)
+    runs = []
+    for run in ("cold", "warm"):
+        for key in times:
+            times[key] = []
+        t = time.perf_counter()
+        tokens = serve()
+        wall = (time.perf_counter() - t) * 1e3
+        n_tok = sum(len(o) for o in tokens)
+        if not all(0 <= tok < cfg.vocab for o in tokens for tok in o):
+            fail(f"{tag} serve: a token outside [0, vocab)")
+        runs.append({"run": run, "wall_ms": wall, "tokens": n_tok,
+                     "tokens_per_s": n_tok / wall * 1e3, "prefill_ms": list(times["prefill"]),
+                     "decode_ms_per_step": sum(times["decode"]) / len(times["decode"]),
+                     "decode_steps": len(times["decode"]), "out": tokens})
+        print(f"  {tag} serve ({run}): {n_tok} tokens in {wall:.1f} ms ({n_tok / wall * 1e3:.1f} "
+              f"tok/s); prefill ms per wave {[round(m, 2) for m in times['prefill']]}, decode "
+              f"{runs[-1]['decode_ms_per_step']:.2f} ms per step over {len(times['decode'])} "
+              f"steps", flush=True)
+    counts = launch_counts(wrappers)
+    n_prefills = sum(len(r["prefill_ms"]) for r in runs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if runs[0]["out"] != runs[1]["out"]:
+        fail(f"{tag} serve: a second run gave other tokens")
+    for name, per in spec["kernels"].items():
+        want = per * n_prefills
+        if counts[name] != want or (name == "flash_attention"
+                                    and counts["flash_attention[tensor_core]"] != want):
+            fail(f"{tag} serve launched {name} {counts[name]} times over {n_prefills} prefills, "
+                 f"not {per} a prefill (flash on its tensor-core route): {counts}")
+    if counts["reduce_nway"] <= 0:
+        fail(f"{tag} serve never launched reduce_nway")
+    if peak > TP_PEAK_GIB:
+        fail(f"{tag}: peak device memory {peak:.2f} GiB above {TP_PEAK_GIB}")
+    launches = {"rglru_scan": counts["rglru_scan"], "wkv": counts["wkv"],
+                "flash_attention_wgmma": counts["flash_attention[tensor_core]"],
+                "flash_attention_mma_sync": counts["flash_attention[mma_sync]"],
+                "reduce_nway": counts["reduce_nway"]}
+    print(f"  served twice, same tokens; launches {launches} over {n_prefills} prefills; peak "
+          f"device memory {peak:.2f} GiB ({resident:.2f} GiB resident)", flush=True)
+
+    # One profiled prefill and decode step of the first wave, beside the
+    # unsharded phase's numbers on the same card.
+    if whisper:
+        wave, S, max_len = prompt, plen, n_ctx
+    else:
+        width = max(lens[:SLOTS])
+        wave = torch.tensor([[0] * (width - len(p)) + p for p in prompts[:SLOTS]],
+                            dtype=torch.int64, device=DEVICE)
+        S, max_len = width, MAX_LEN
+    state = {}
+
+    def prefill():
+        state.clear()  # one cache at a time
+        state["logits"], state["cache"] = fam.prefill(model, wave, cfg, policy, max_len=max_len)
+
+    def decode():
+        nxt = state["logits"].argmax(-1)[:, None]
+        fam.decode_step(model, state["cache"], nxt, S, cfg, policy)
+
+    profile_calls(out, {"prefill": prefill, "decode": decode})
+    for call in ("prefill", "decode"):
+        base = unsharded.get(f"profiled_{call}")
+        if base:
+            print(f"  {call}: device {out[f'profiled_{call}']['device_ms']:.2f} ms, idle "
+                  f"{out[f'profiled_{call}']['idle_share']:.1%} sharded; unsharded device "
+                  f"{base['device_ms']:.2f} ms, idle {base['idle_share']:.1%}", flush=True)
+    del state
+    if cfg.family == "rglru_hybrid":
+        out["collectives"] = collective_costs(cfg, mesh, policy, SLOTS, S)
+        out["collectives"]["xw gather"] = xw_gather_cost(cfg, mesh, policy, SLOTS, S)
+    for r in runs:
+        del r["out"]
+    out.update(runs=runs, launches=launches, prefills=n_prefills, peak_gib=peak,
+               resident_gib=resident, prompt_lens=lens)
+    del model
+    if not whisper:
+        del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_grad_gate(seed: int, arch: str, seq_parallel: bool) -> dict:
+    """12b: ``arch`` at full width, FAMILY_GRAD_LAYERS (None: full depth),
+    f32, on a stacked FAMILY_GRAD_MESH mesh: the sharded loss and each
+    global gradient leaf against the unsharded model's, within TRAIN_RTOL
+    of the leaf's max|g|."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import get_family
+    from repro_torch.models.convert import global_grads, reference_leaves, shard_model
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=FAMILY_GRAD_LAYERS[arch] or base.n_layers,
+                              param_dtype=torch.float32, compute_dtype=torch.float32)
+    fam = get_family(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    model = fam.init(gen, cfg, DEVICE, trainable=True)
+    B, S = (2, WHISPER_TEXT_CTX) if cfg.family == "whisper" else MP_GATE_TOKENS
+    _, _, batch = family_inputs(cfg, gen, B, S)
+    mesh = Mesh(FAMILY_GRAD_MESH, ("data", "model"), device=DEVICE)
+    policy = make_policy(cfg, mesh, seq_parallel=seq_parallel)
+    sharded = shard_model(copy.deepcopy(model), mesh, policy).requires_grad_(True)
+    names = [n for n, _ in sharded.named_parameters()]
+    loss = fam.loss_fn(sharded, batch, cfg, policy)
+    got = global_grads(sharded, dict(zip(names, torch.autograd.grad(
+        loss, list(sharded.parameters())))))
+    del sharded
+    want_loss = fam.loss_fn(model, batch, cfg)
+    plain = dict(zip(names, torch.autograd.grad(want_loss, list(model.parameters()))))
+    want = {leaf: torch.stack([plain[n] for n in ns]) if "*" in leaf else plain[ns[0]]
+            for leaf, ns in reference_leaves(plain, cfg).items()}
+    if not abs(loss.item() - want_loss.item()) <= TRAIN_RTOL * abs(want_loss.item()):
+        fail(f"{arch} sharded f32 gate: loss {loss.item()} against {want_loss.item()}")
+    worst, worst_leaf = 0.0, None
+    for leaf, g in got.items():
+        err, scale = (g - want[leaf]).abs().max().item(), want[leaf].abs().max().item()
+        if not bool(torch.isfinite(g).all()) or not err <= TRAIN_RTOL * scale:
+            fail(f"{arch} sharded f32 gate: gradient of {leaf} off by {err:.3e}, max|g_plain| "
+                 f"{scale:.3e}")
+        if scale and err / scale >= worst:
+            worst, worst_leaf = err / scale, leaf
+    print(f"  {arch} on {FAMILY_GRAD_MESH}, sequence parallelism "
+          f"{'on' if seq_parallel else 'off'} ({cfg.n_layers} layers, f32, {B} x {S}"
+          f"{f' over {cfg.encoder_len} frames' if cfg.family == 'whisper' else ''}): loss "
+          f"{loss.item():.6f} (unsharded {want_loss.item():.6f}); worst global gradient leaf "
+          f"{worst_leaf} at {worst:.3e} of its max|g_unsharded| (<= {TRAIN_RTOL})", flush=True)
+    out = {"arch": arch, "n_layers": cfg.n_layers, "mesh": list(FAMILY_GRAD_MESH),
+           "seq_parallel": seq_parallel, "loss": loss.item(), "unsharded_loss": want_loss.item(),
+           "worst_grad_rel": worst, "worst_leaf": worst_leaf}
+    del model, got, plain, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_training(seed: int, arch: str, n_layers: int, steps: int, learn: bool) -> dict:
+    """12b: ``arch`` at full width, ``n_layers`` layers, bf16, sequence-
+    parallel on a stacked FAMILY_TRAIN_MESH mesh through
+    ``Trainer(policy=, mesh=)`` on phase 7's RECURRENT_TOKENS; with
+    ``learn``, on one repeated batch with phase 7's learning gate."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.kernels.reduce_nway import reduce_nway
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    B, S = RECURRENT_TOKENS
+    mesh = Mesh(FAMILY_TRAIN_MESH, ("data", "model"), device=DEVICE)
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed + 1,
+                            branching=4)
+    if learn:
+        src = _Repeat(src)
+    batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in src.batch_at(0).items()}
+    wrappers = {**model_kernels(), "reduce_nway": reduce_nway}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=LEARN_LR if learn else 3e-4),
+                                         warmup=2, total_steps=steps), mesh=mesh,
+                      policy=make_policy(cfg, mesh, seq_parallel=True))
+    zero_counts(wrappers)
+    trainer.fit(src, steps=steps, seed=seed)
+    per_step = {k: v / steps for k, v in launch_counts(wrappers).items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    dts = [m["dt"] * 1e3 for m in trainer.metrics_log if "loss" in m]
+    tag = f"mp train {cfg.name} ({n_layers} layers, bf16, {B} x {S}) on {FAMILY_TRAIN_MESH}"
+    if not all(map(math.isfinite, losses)):
+        fail(f"{tag}: losses {losses}")
+    if learn and not losses[-1] <= losses[0] - LEARN_DROP:
+        fail(f"{tag}: losses {losses}, not {LEARN_DROP} nats lower in {steps} steps")
+    if not peak < MP_PEAK_GIB:
+        fail(f"{tag}: peak {peak:.2f} GiB, not under {MP_PEAK_GIB}")
+    kernel = "rglru_scan" if cfg.family == "rglru_hybrid" else "wkv"
+    if not per_step.get(kernel) or not per_step.get("reduce_nway[backward]"):
+        fail(f"{tag}: launches per step {per_step}")
+    step_ms = statistics.median(dts[1:])
+    out = {"arch": cfg.name, "n_layers": n_layers, "mesh": list(FAMILY_TRAIN_MESH),
+           "seq_parallel": True, "batch": B, "seq": S, "steps": steps, "losses": losses,
+           "step_ms": dts, "warm_step_ms": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+           "peak_gib": peak, "launches_per_step": per_step}
+    note = ""
+    if learn:
+        out["launch_split"] = split_launches(lambda: trainer._loss(trainer.state[0], batch),
+                                             list(trainer.state[0].parameters()))[0]
+        out["profiled_step"] = prof = profiled_step(trainer, batch)
+        top = ", ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in prof["top"][:5])
+        note = (f"; split {out['launch_split']}; profiled step: wall {prof['wall_ms']:.1f} ms, "
+                f"device {prof['device_ms']:.1f} ms (idle {prof['idle_share']:.1%}): {top}")
+    print(f"  {tag}, sequence-parallel: losses {[round(x, 4) for x in losses]}"
+          f"{f' (at least {LEARN_DROP} nats lower)' if learn else ''}; warm step {step_ms:.1f} "
+          f"ms (median of steps 2-{steps}), {out['tokens_per_s']:.0f} tokens/s; peak "
+          f"{peak:.2f} GiB (under {MP_PEAK_GIB}); launches per step {per_step}{note}", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_rank_backend(seed: int) -> dict:
+    """12c: the rank mesh under NCCL at world size 1 against the stacked
+    mesh of one member: each family's smoke config, its sharded prefill,
+    loss and global gradients, equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as M
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import get_family
+    from repro_torch.models.convert import global_grads, shard_model
+
+    t0 = time.perf_counter()
+    got = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_families_") as tmp:
+        ranked = M.RankMesh((1, 1), ("data", "model"), device=DEVICE,
+                            init_method=f"file://{tmp}/rendezvous", rank=0)
+        try:
+            stacked = M.Mesh((1, 1), ("data", "model"), device=DEVICE)
+            for spec in FAMILY_SERVES:
+                arch = spec["arch"]
+                cfg = get_smoke_config(arch)
+                fam = get_family(cfg)
+                base = fam.init(torch.Generator(device=DEVICE).manual_seed(seed), cfg, DEVICE)
+                gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+                prompt, _, batch = family_inputs(cfg, gen, *TP_RANK_TOKENS)
+                runs = {}
+                for kind, mesh in (("ranks", ranked), ("stacked", stacked)):
+                    policy = make_policy(cfg, mesh)
+                    model = shard_model(copy.deepcopy(base), mesh, policy).requires_grad_(True)
+                    with torch.no_grad():
+                        logits = fam.prefill(model, prompt, cfg, policy)[0]
+                    loss = fam.loss_fn(model, batch, cfg, policy)
+                    names = [n for n, _ in model.named_parameters()]
+                    grads = global_grads(model, dict(zip(names, torch.autograd.grad(
+                        loss, list(model.parameters())))))
+                    runs[kind] = (logits, loss.detach(), grads)
+                (lr, sr, gr), (ls, ss, gs) = runs["ranks"], runs["stacked"]
+                if not (torch.equal(lr, ls) and torch.equal(sr.reshape(()), ss.reshape(()))
+                        and all(torch.equal(g, gs[k]) for k, g in gr.items())):
+                    fail(f"rank mesh under NCCL: {arch}'s sharded prefill, loss or gradients "
+                         f"differ from the stacked mesh's (logits by "
+                         f"{(lr - ls).abs().max().item()}, loss {sr.item()} vs {ss.item()})")
+                got[arch] = {"max_logit": lr.abs().max().item(), "loss": sr.item(),
+                             "grad_leaves": len(gr)}
+        finally:
+            dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    print(f"  rank mesh (NCCL, 1 rank, (1, 1)): each family's sharded smoke prefill, loss and "
+          f"global gradients equal to the stacked mesh's {got}; {wall:.1f} s", flush=True)
+    return {"families": got, "wall_s": wall}
+
+
+def family_phase(seed: int, serving: dict, smi: str) -> dict:
+    """Phase 12 (``smi``: the card's name and power limit); returns its numbers."""
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    for spec in FAMILY_SERVES:
+        print(f"[mp families] 12a: {spec['tag']}, {spec['arch']} at full width and depth on a "
+              f"stacked {spec['mesh']} mesh; card {smi}", flush=True)
+        out[spec["tag"]] = family_serve(seed, spec, serving.get(spec["arch"], {}))
+    print(f"[mp families] 12a: yi-6b's sequence-parallel prefill; card {smi}", flush=True)
+    out["yi-6b sequence-parallel prefill"] = yi_seq_parallel_check(seed)
+    print(f"[mp families] 12b: f32 gradient gates at full width on {FAMILY_GRAD_MESH}; then "
+          f"bf16 training on {FAMILY_TRAIN_MESH}; card {smi}", flush=True)
+    out["f32_gates"] = [family_grad_gate(seed, spec["arch"], sp) for spec in FAMILY_SERVES
+                        for sp in (False, True)]
+    out["train"] = [family_training(seed, **spec) for spec in FAMILY_TRAIN]
+    print(f"[mp families] 12c: the rank mesh under NCCL; card {smi}", flush=True)
+    out["rank_backend"] = family_rank_backend(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[mp families] phase 12 took {out['wall_s']:.1f} s (aim: under "
+          f"{FAMILY_BUDGET_S:g} s; not gated); card {smi}", flush=True)
+    return out
+
+
 def _sha16(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
@@ -3511,7 +4058,22 @@ def main(argv=None) -> int:
         mp_launches["flash_attention[tensor_core]"]
     grad_rows[("reduce_nway", None)] = mpt["train"]["grad_row"]
 
-    # 12. Result lines.  Each route of a kernel is an entry of its own.
+    # 12. Sharded serving and training of the hybrid, rwkv6 and whisper; its
+    # launches are gated inside the phase and join launches_by_model.
+    fams = family_phase(args.seed, serving, smi)
+    for spec in FAMILY_SERVES:
+        for name, n in fams[spec["tag"]]["launches"].items():
+            if n and name != "flash_attention_mma_sync":
+                by_model.setdefault(name, {})["12a " + spec["tag"]] = n
+    for tr in fams["train"]:
+        tag = f"12b mp_train {tr['arch']} {tuple(tr['mesh'])} sp"
+        for name, key in (("rglru_scan", "rglru_scan"), ("wkv", "wkv"),
+                          ("flash_attention_wgmma", "flash_attention[tensor_core]"),
+                          ("reduce_nway", "reduce_nway")):
+            if tr["launches_per_step"].get(key):
+                by_model.setdefault(name, {})[tag] = tr["launches_per_step"][key] * tr["steps"]
+
+    # 13. Result lines.  Each route of a kernel is an entry of its own.
     def entry(name, source, replaces, rows, route=None):
         if route is not None:
             rows = [r for r in rows if r["route"] == route]
@@ -3543,7 +4105,7 @@ def main(argv=None) -> int:
         entry("wkv", "src/repro_torch/kernels/csrc/wkv.cu",
               "src/repro/kernels/rwkv6.py:54", wkv_rows),
     ]
-    print(f"[chip_smoke] phases 1-11 took {time.perf_counter() - started:.1f} s")
+    print(f"[chip_smoke] phases 1-12 took {time.perf_counter() - started:.1f} s")
     print(json.dumps({"main_path": walls}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -3551,6 +4113,7 @@ def main(argv=None) -> int:
     print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"model_parallel": mp}))
     print(json.dumps({"model_parallel_training": mpt}))
+    print(json.dumps({"model_parallel_families": fams}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

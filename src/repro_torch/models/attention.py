@@ -36,7 +36,9 @@ Under a sharding policy with a model axis (``models/parallel.py``) Q, K
 and V are column-parallel and ``wo`` row-parallel, its product summed over
 the model axis (under sequence parallelism: S gathered before QKV, the sum
 scattered on S after ``wo``).  Flash attention runs on the member's own query heads,
-with the mesh dims folded into the kernel's batch.  Where a weight's spec
+with the mesh dims folded into the kernel's batch; the unmasked
+attentions (whisper's bidirectional encoder and cross-attention,
+``unmasked_attention_tp``) take the plain path on the same heads.  Where a weight's spec
 splits a head between members (``n_heads`` or ``n_kv_heads`` not a
 multiple of the axis), the projections are gathered over the axis first,
 and a member whose kv heads do not cover its query heads' groups takes
@@ -203,10 +205,10 @@ def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0,
     """Self-attention over a full sequence (training / prefill): causal
     through the flash kernel, or bidirectional on the plain path."""
     if is_sharded(policy):
+        mb = Members(policy)
         if bidirectional:
-            raise NotImplementedError("sharded bidirectional attention (whisper) is not "
-                                      "ported yet (ROADMAP.md)")
-        return self_attention_tp(params, x, positions, cfg, window, Members(policy))[0]
+            return unmasked_attention_tp(params, x, None, cfg, mb)
+        return self_attention_tp(params, x, positions, cfg, window, mb)[0]
     if bidirectional:
         check_supported(cfg)
         S = x.shape[1]
@@ -218,9 +220,12 @@ def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0,
     return out @ params["wo"].to(cfg.compute_dtype)
 
 
-def cross_attention(params, x, memory, cfg: ModelConfig):
+def cross_attention(params, x, memory, cfg: ModelConfig,
+                    policy: ShardingPolicy = REPLICATED):
     """Decoder cross-attention onto encoder memory (whisper), unmasked."""
     check_supported(cfg)
+    if is_sharded(policy):
+        return unmasked_attention_tp(params, x, memory, cfg, Members(policy))
     B, Sq, _ = x.shape
     Sk = memory.shape[1]
     hd, cd = cfg.head_dim, cfg.compute_dtype
@@ -229,6 +234,15 @@ def cross_attention(params, x, memory, cfg: ModelConfig):
     v = (memory @ params["wv"].to(cd)).reshape(B, Sk, cfg.n_kv_heads, hd)
     mask = torch.ones((1, 1, Sq, Sk), dtype=torch.bool, device=x.device)
     return _sdpa(q, k, v, mask, cfg) @ params["wo"].to(cd)
+
+
+def rolling_valid(ki, pos: int, window: int):
+    """The slots ``ki`` of a rolling cache of ``window`` slots (position p
+    in slot ``p % window``) that hold one of the last ``window`` positions
+    up to ``pos``."""
+    slot = pos % window
+    abs_idx = torch.where(ki <= slot, pos - slot + ki, pos - slot - window + ki)
+    return abs_idx >= max(0, pos - window + 1)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
@@ -273,17 +287,19 @@ def attention_decode(params, x, layer_cache: KVCache, pos: int, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 
-def _qkv_tp(params, x, cfg: ModelConfig, mb: Members):
+def _qkv_tp(params, x, cfg: ModelConfig, mb: Members, memory=None):
     """The member's q, k, v: (*lead, B, S, heads, hd), and whether q and k
-    hold the member's own block of heads (else all of them)."""
+    hold the member's own block of heads (else all of them).  K and V are
+    projected from ``memory`` when it is given (cross-attention)."""
     cd, hd = cfg.compute_dtype, cfg.head_dim
     specs = attn_param_specs(cfg, mb.policy)
 
-    def proj(w, b):
-        y = mb.mm(x, params[w].to(cd))
+    def proj(w, b, src):
+        y = mb.mm(src, params[w].to(cd))
         return y + mb.bcast(params[b].to(cd), y) if cfg.qkv_bias else y
 
-    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+    kv_src = x if memory is None else memory
+    q, k, v = proj("wq", "bq", x), proj("wk", "bk", kv_src), proj("wv", "bv", kv_src)
     q_own = mb.split(specs["wq"]) and cfg.n_heads % mb.tp == 0
     kv_own = mb.split(specs["wk"]) and cfg.n_kv_heads % mb.tp == 0
     if mb.split(specs["wq"]) and not q_own:  # heads cut mid-head: all of them
@@ -342,15 +358,33 @@ def self_attention_tp(params, x, positions, cfg: ModelConfig, window: int, mb: M
     return out, _to_cache(k, kv_own, cfg, mb), _to_cache(v, kv_own, cfg, mb)
 
 
+def unmasked_attention_tp(params, x, memory, cfg: ModelConfig, mb: Members):
+    """Unmasked attention of the member's heads on the plain path, projected
+    by ``wo`` and summed over the model axis: bidirectional self-attention
+    (``memory`` None: whisper's encoder, no RoPE) or cross-attention onto
+    ``memory`` (*lead, B, Sk, d), which every member holds whole.  ``x``
+    as in :func:`self_attention_tp`: the member's block of S under sequence
+    parallelism is gathered first, and the sum scattered on S after."""
+    check_supported(cfg)
+    q, k, v, q_own, kv_own = _qkv_tp(params, mb.gather_seq(x), cfg, mb, memory)
+    fold = (lambda t: t.flatten(0, mb.k))  # the mesh dims into the batch
+    mask = torch.ones((1, 1, q.shape[-3], k.shape[-3]), dtype=torch.bool, device=x.device)
+    o = _sdpa(fold(q), fold(_kv_for_q(k, q_own, kv_own, cfg, mb)),
+              fold(_kv_for_q(v, q_own, kv_own, cfg, mb)), mask, cfg)
+    return _out_tp(o.reshape(q.shape[:-2] + (-1,)), params, cfg, mb, q_own)
+
+
 def _attention_decode_tp(params, x, layer_cache: KVCache, pos: int, cfg: ModelConfig,
-                         window: int, mb: Members):
+                         window: int, mb: Members, rolling: bool = False):
     """One-token decode of the member's heads against its cache block.
 
     x: (*lead, B, 1, d); the cache (*lead, B, S_max, kv, hd) in the layout
     of ``policy.kv_dims``.  On kv heads, each member attends over its own;
     on ``head_dim``, the members' partial logits are summed over the model
     axis and each member's slice of the output gathered; otherwise every
-    member attends over the whole cache.
+    member attends over the whole cache.  A ``rolling`` cache (the
+    hybrid's local attention) holds position p in slot ``p % S_max`` and
+    attends over the last ``S_max`` positions.
     """
     cd = cfg.compute_dtype
     q, k_new, v_new, q_own, kv_own = _qkv_tp(params, x, cfg, mb)
@@ -358,13 +392,17 @@ def _attention_decode_tp(params, x, layer_cache: KVCache, pos: int, cfg: ModelCo
     q = apply_rope(q, at, cfg.rope_theta)
     k_new = apply_rope(k_new, at, cfg.rope_theta)
     seq = mb.k + 1  # the cache's position dim
-    layer_cache.k.select(seq, pos).copy_(_to_cache(k_new, kv_own, cfg, mb).select(seq, 0))
-    layer_cache.v.select(seq, pos).copy_(_to_cache(v_new, kv_own, cfg, mb).select(seq, 0))
     S_max = layer_cache.k.shape[seq]
+    slot = pos % S_max if rolling else pos
+    layer_cache.k.select(seq, slot).copy_(_to_cache(k_new, kv_own, cfg, mb).select(seq, 0))
+    layer_cache.v.select(seq, slot).copy_(_to_cache(v_new, kv_own, cfg, mb).select(seq, 0))
     ki = torch.arange(S_max, device=x.device)
-    valid = ki <= pos
-    if window > 0:
-        valid = valid & (ki > pos - window)
+    if rolling:
+        valid = rolling_valid(ki, pos, S_max)
+    else:
+        valid = ki <= pos
+        if window > 0:
+            valid = valid & (ki > pos - window)
     kv_s, hd_s = mb.policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
     K, V = layer_cache.k.to(cd), layer_cache.v.to(cd)
     if kv_s is None and q_own:  # the cache holds every kv head: so must q

@@ -22,7 +22,10 @@ parallelism the pair is the paper's own: S is gathered (a multicast)
 before attention's QKV and the MLP's first products, and the row-parallel
 ``psum`` becomes a ``psum_scatter`` on S (an in-network reduction) that
 leaves each member its block of S.  Every body runs under ``with mesh:``
-and reads the mesh from there.
+and reads the mesh from there.  All four families have such bodies (the
+transformer, the recurrentgemma hybrid, rwkv6 and whisper); they share
+the vocab-parallel embedding and head (:func:`vocab_embed`,
+:func:`vocab_logits`).
 
 Gradients.  Every axis function of ``core/mesh.py`` carries its transpose,
 the one ``shard_map`` uses: ``psum`` -> ``psum`` of the cotangents (the
@@ -51,7 +54,7 @@ import math
 import torch
 
 from repro_torch.core import mesh as M
-from repro_torch.models.common import REPLICATED, ShardingPolicy
+from repro_torch.models.common import REPLICATED, ModelConfig, ShardingPolicy, rms_norm
 
 
 def is_sharded(policy: ShardingPolicy) -> bool:
@@ -59,19 +62,6 @@ def is_sharded(policy: ShardingPolicy) -> bool:
     if not isinstance(policy, ShardingPolicy):  # e.g. max_len passed where policy goes
         raise TypeError(f"a ShardingPolicy is expected, got {policy!r}")
     return policy.model_axis is not None or bool(policy.batch_axes)
-
-
-def model_axis_raise(family: str, policy: ShardingPolicy, model=None):
-    """The families whose sharded execution is not ported yet: a policy
-    with a model axis, or a model laid out on a mesh, raises."""
-    sharded = is_sharded(policy)
-    if policy.model_axis is not None or getattr(model, "mesh", None) is not None:
-        raise NotImplementedError(
-            f"sharded execution of the {family} family is not ported yet (ROADMAP.md); "
-            "only its param_specs are")
-    if sharded:
-        raise NotImplementedError(
-            f"a batch-sharded {family} is not ported yet (ROADMAP.md)")
 
 
 def check_layout(model, policy: ShardingPolicy):
@@ -214,3 +204,53 @@ class _Share(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g / ctx.n, None
+
+
+# ---------------------------------------------------------------------------
+# The vocab-parallel embedding and head, which every family shares
+# ---------------------------------------------------------------------------
+
+
+def vocab_embed(table, tokens, cfg: ModelConfig, mb: Members):
+    """The member's rows of the global ``tokens`` looked up in ``table``
+    (laid out as ``policy.embed``): (*lead, B, S, d) in the compute dtype,
+    or the member's block of S under sequence parallelism.  With the vocab
+    split over the model axis, each member looks up the tokens of its own
+    rows (zero elsewhere) and the members' rows are summed (and scattered
+    on S)."""
+    mb.check_seq(tokens.shape[-1])
+    tok = mb.shard_batch(tokens)
+    lead, (V, d) = table.shape[:mb.k], table.shape[mb.k:]
+    split = mb.split(mb.policy.embed(cfg.padded_vocab))
+    if split:
+        tok = tok - M.lift(mb.index(), tok) * V
+        inside = (tok >= 0) & (tok < V)
+        tok = torch.where(inside, tok, 0)
+    L = table[..., 0, 0].numel()
+    base = (torch.arange(L, device=tok.device) * V).reshape(lead + (1,) * (tok.ndim - mb.k))
+    rows = table.reshape(-1, d)[tok + base]
+    if split:
+        rows = torch.where(inside[..., None], rows, 0)
+    return mb.row_out(rows, split).to(cfg.compute_dtype)
+
+
+def vocab_logits(x, head, cfg: ModelConfig, mb: Members):
+    """The global logits (B, padded vocab) in f32 of the member's normed
+    last-token states ``x`` (*lead, B, d) against ``head`` (laid out as
+    ``policy.embed``): the member's vocab slice, gathered over the model
+    axis where the spec splits it."""
+    logits = mb.mm(x.float(), head.float().transpose(-1, -2))
+    if mb.split(mb.policy.embed(cfg.padded_vocab)):
+        logits = mb.gather(logits, -1)
+    return mb.unshard_batch(logits)
+
+
+def rms_norm_tp(x, scale, cfg: ModelConfig, mb: Members):
+    """``rms_norm`` of the member's ``x`` by its copy of ``scale``."""
+    return rms_norm(x, mb.bcast(scale, x), cfg.norm_eps)
+
+
+def last_token(x, mb: Members):
+    """The last position's states (*lead, B, d) of (*lead, B, S, d): under
+    sequence parallelism the last member's."""
+    return mb.gather_seq(x[..., -1:, :])[..., -1, :]

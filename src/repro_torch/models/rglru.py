@@ -30,13 +30,24 @@ place and replaces the recurrent and conv states in the cache's lists.
 ``param_specs`` (with ``rec_block_specs``) gives each parameter's layout
 under a ``ShardingPolicy``, keyed by the port's names
 (``layers.<i>.mixer.*`` for the reference's ``layers[i].rec`` or
-``.attn``).  The hybrid's sharded execution is not ported yet
-(ROADMAP.md): its passes raise on a sharded policy.
+``.attn``).  Under a sharded policy the passes run the partitioned bodies
+of ``models/parallel.py`` on a model laid out for it, as
+``models/transformer.py``'s do: every weight of the recurrent block is cut
+on the LRU width w, so each member runs the gate, ``x @ w_x``, the conv
+and the scan (``rglru_scan`` on the mesh dims and B folded) on its w / tp
+channels, gathers the whole conv output once for the two (w, w) gates
+(the paper's multicast), and ends in ``w_out``'s row-parallel sum; the
+local-attention layers are tensor-parallel attention with the rolling
+cache laid out by ``policy.kv_dims``; the embedding and tied head are
+vocab-parallel.  Under sequence parallelism S is gathered before each
+block.  ``cache_spec`` gives the cache's layout.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +70,8 @@ from repro_torch.models.common import (
     resolve_device,
     rms_norm,
 )
-from repro_torch.models.parallel import model_axis_raise
+from repro_torch.models.parallel import (Members, check_layout, last_token, rms_norm_tp,
+                                          vocab_embed, vocab_logits)
 from repro_torch.models.rope import apply_rope
 
 _C = 8.0  # the RG-LRU's "c" constant (Griffin paper)
@@ -190,18 +202,19 @@ def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
 
 
 def _causal_conv(x, conv_w, state=None):
-    """Depthwise causal conv along time.  x: (B, S, W); conv_w: (K, W);
-    state: the previous K - 1 inputs (B, K - 1, W) or None for zeros.
-    Returns (out, new state)."""
-    K = conv_w.shape[0]
+    """Depthwise causal conv along time.  x: (..., B, S, W); conv_w:
+    (..., K, W), its leading dims those of x before B (the mesh dims on a
+    stacked mesh); state: the previous K - 1 inputs (..., B, K - 1, W) or
+    None for zeros.  Returns (out, new state)."""
+    K = conv_w.shape[-2]
     if state is None:
-        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        pad = torch.zeros(x.shape[:-2] + (K - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
     else:
         pad = state.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1)
-    S = x.shape[1]
-    out = sum(xp[:, i:i + S] * conv_w[i][None, None] for i in range(K))
-    return out, (xp[:, -(K - 1):] if K > 1 else None)
+    xp = torch.cat([pad, x], dim=-2)
+    S = x.shape[-2]
+    out = sum(xp[..., i:i + S, :] * conv_w[..., i, None, None, :] for i in range(K))
+    return out, (xp[..., -(K - 1):, :] if K > 1 else None)
 
 
 def _rg_lru_coeffs(params, xw, cfg: ModelConfig):
@@ -277,7 +290,12 @@ def _block(layer: Layer, x, positions, cfg: ModelConfig):
 
 def forward(model: Hybrid, tokens, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """tokens: (B, S) -> (hidden (B, S, d), aux loss)."""
-    model_axis_raise("rglru_hybrid", policy, model)
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            mb = Members(policy)
+            x = _forward_tp(model, tokens, cfg, mb)
+            return mb.unshard_batch(mb.gather_seq(x)), torch.zeros((), device=x.device)
     B, S = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
     positions = _positions(B, S, x.device)
@@ -289,8 +307,16 @@ def forward(model: Hybrid, tokens, cfg: ModelConfig, policy: ShardingPolicy = RE
 
 
 def loss_fn(model: Hybrid, batch: dict, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
-    """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))."""
-    model_axis_raise("rglru_hybrid", policy, model)
+    """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S));
+    under a sharding policy vocab-parallel, as ``transformer.loss_fn``."""
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            mb = Members(policy)
+            x = _forward_tp(model, batch["tokens"], cfg, mb)
+            loss = chunked_cross_entropy(mb.gather_seq(x), model.embed,
+                                         mb.shard_batch(batch["labels"]), cfg, mb)
+            return mb.backward_loss(loss)
     hidden, _ = forward(model, batch["tokens"], cfg)
     return chunked_cross_entropy(hidden, model.embed, batch["labels"], cfg)
 
@@ -322,7 +348,10 @@ def prefill(model: Hybrid, tokens, cfg: ModelConfig, policy: ShardingPolicy = RE
     values of the last ``window`` positions, position p in slot
     ``p % window``, where decode looks for it.
     """
-    model_axis_raise("rglru_hybrid", policy, model)
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            return _prefill_tp(model, tokens, cfg, max_len or tokens.shape[-1], Members(policy))
     B, S = tokens.shape
     cd = cfg.compute_dtype
     x = model.embed[tokens].to(cd)
@@ -361,10 +390,9 @@ def _attn_decode(params, h, kv: KVCache, pos: int, cfg: ModelConfig):
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     kv.k[:, slot] = k_new[:, 0].to(kv.k.dtype)
     kv.v[:, slot] = v_new[:, 0].to(kv.v.dtype)
-    ki = torch.arange(window, device=h.device)
     # a slot is live if it holds one of the last ``window`` positions
-    abs_idx = torch.where(ki <= slot, pos - slot + ki, pos - slot - window + ki)
-    mask = (abs_idx >= max(0, pos - window + 1))[None, None, None, :]
+    mask = attn_mod.rolling_valid(torch.arange(window, device=h.device), pos,
+                                  window)[None, None, None, :]
     Hkv = kv.k.shape[2]
     q5 = q.reshape(B, 1, Hkv, cfg.n_heads // Hkv, cfg.head_dim)
     out = attn_mod._sdpa_block(q5, kv.k.to(cd), kv.v.to(cd), mask, cfg)
@@ -375,7 +403,12 @@ def decode_step(model: Hybrid, cache: HybridCache, tokens, pos: int, cfg: ModelC
                 policy: ShardingPolicy = REPLICATED):
     """One-token decode at position ``pos``.  tokens: (B, 1).  Returns
     (logits, cache)."""
-    model_axis_raise("rglru_hybrid", policy, model)
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            # one token: no sequence to split
+            return _decode_tp(model, cache, tokens, pos, cfg,
+                              Members(dataclasses.replace(policy, seq_axis=None)))
     x = model.embed[tokens].to(cfg.compute_dtype)
     rec_h, conv = list(cache.rec_h), list(cache.conv)
     for i, layer in enumerate(model.layers):
@@ -388,3 +421,138 @@ def decode_step(model: Hybrid, cache: HybridCache, tokens, pos: int, cfg: ModelC
         h = rms_norm(x, layer.norm2, cfg.norm_eps)
         x = x + mlp_mod.mlp(layer.mlp, h, cfg)
     return _logits(model, x, cfg), HybridCache(rec_h=rec_h, conv=conv, attn=cache.attn)
+
+
+# ---------------------------------------------------------------------------
+# Under a sharding policy (models/parallel.py): the member's tensors
+# ---------------------------------------------------------------------------
+
+
+def cache_spec(cfg: ModelConfig, policy: ShardingPolicy) -> HybridCache:
+    """The layout of each layer's cache entries: ``rec_h`` (B, w) and
+    ``conv`` (B, K - 1, w) on the LRU width w, the attention layers' k and v
+    (B, window, kv, hd) as ``policy.kv_dims`` says (the reference's
+    ``launch/steps.py`` layout)."""
+    w_s = policy._model_if_divisible(_lru_width(cfg))
+    kv_s, hd_s = policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
+    b = policy.batch_axes or None
+    kv = (b, None, kv_s, hd_s)
+    kinds = _kinds(cfg)
+    return HybridCache(rec_h=[(b, w_s) if k == "rec" else None for k in kinds],
+                       conv=[(b, None, w_s) if k == "rec" else None for k in kinds],
+                       attn=[None if k == "rec" else KVCache(kv, kv) for k in kinds])
+
+
+
+def _rec_block_tp(params, x, cfg: ModelConfig, mb: Members, state=None, conv_state=None):
+    """The recurrent block on the member's block of the LRU width w:
+    (out, (h_last, conv_state)), the states on the member's w / tp.
+
+    x: (*lead, B, S, d), or the member's block of S under sequence
+    parallelism, gathered first (the scan needs the whole of S).  The
+    gate, ``x @ w_x`` and the depthwise conv run on the member's channels;
+    the two (w, w) gates, cut by columns, take the whole conv output,
+    gathered over the model axis in the compute dtype and cast to f32
+    after (the reference computes them in f32); ``w_out``'s rows end in
+    ``row_out``.  With ``state`` (decode, one token) the recurrence is one
+    plain step, else the scan kernel over the mesh dims and B folded."""
+    cd = cfg.compute_dtype
+    split = mb.split(rec_block_specs(cfg, mb.policy)["w_x"])
+    x = mb.gather_seq(x)
+    gate = F.gelu(mb.mm(x, params["w_gate"].to(cd)), approximate="tanh")
+    xw = mb.mm(x, params["w_x"].to(cd))
+    xw, new_conv = _causal_conv(xw, params["conv_w"].to(cd), conv_state)
+    # the paper's multicast; contiguous, so that both mesh kinds hand the
+    # gates' products one operand layout (and cuBLAS one kernel)
+    x_all = (mb.gather(xw, -1) if split else xw).contiguous().float()
+    r = torch.sigmoid(mb.mm(x_all, params["w_a_gate"].float()))
+    i = torch.sigmoid(mb.mm(x_all, params["w_input_gate"].float()))
+    log_a = -_C * F.softplus(mb.bcast(params["lambda"].float(), r)) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * i * xw.float()
+    if state is None:
+        h = _lru_scan(a.flatten(0, mb.k), b.flatten(0, mb.k)).reshape(a.shape)
+    else:
+        h = (a[..., 0, :] * state + b[..., 0, :])[..., None, :]
+    out = mb.row_out(mb.mm(h.to(cd) * gate, params["w_out"].to(cd)), split)
+    return out, (h[..., -1, :].clone(), None if new_conv is None else new_conv.clone())
+
+
+def _logits_tp(model: Hybrid, x, cfg: ModelConfig, mb: Members):
+    """The last token's global logits (B, padded vocab) in f32 (tied embed)."""
+    x = last_token(x, mb)
+    return vocab_logits(rms_norm_tp(x, model.final_norm, cfg, mb), model.embed, cfg, mb)
+
+
+def _layer_tp(layer: Layer, x, positions, cfg: ModelConfig, mb: Members):
+    """One layer on the member's tensors.  It enters the mesh itself, since
+    its remat recompute runs in the backward pass."""
+    with mb.mesh:
+        h = rms_norm_tp(x, layer.norm1, cfg, mb)
+        if layer.kind == "rec":
+            h = _rec_block_tp(layer.mixer, h, cfg, mb)[0]
+        else:
+            h = attn_mod.self_attention_tp(layer.mixer, h, positions, cfg, cfg.attn_window,
+                                           mb)[0]
+        x = x + h
+        return x + mlp_mod.mlp(layer.mlp, rms_norm_tp(x, layer.norm2, cfg, mb), cfg, mb.policy)
+
+
+def _forward_tp(model: Hybrid, tokens, cfg: ModelConfig, mb: Members):
+    """The member's final hidden states (*lead, B, S or its block, d), each
+    layer recomputed in the backward pass when ``cfg.remat``."""
+    x = vocab_embed(model.embed, tokens, cfg, mb)
+    positions = torch.arange(tokens.shape[-1], dtype=torch.int32, device=x.device)
+    layer_fn = maybe_remat(_layer_tp, cfg.remat)
+    for layer in model.layers:
+        x = layer_fn(layer, x, positions, cfg, mb)
+    return rms_norm_tp(x, model.final_norm, cfg, mb)
+
+
+def _prefill_tp(model: Hybrid, tokens, cfg: ModelConfig, max_len: int, mb: Members):
+    """The sharded prefill: the cache in the layout of :func:`cache_spec`,
+    each attention layer's rolling cache filled at ``p % window``."""
+    x = vocab_embed(model.embed, tokens, cfg, mb)
+    S = tokens.shape[-1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    window = max(1, min(cfg.attn_window or max_len, max_len))
+    take = min(window, S)
+    slots = torch.arange(S - take, S, device=x.device) % window
+    seq = mb.k + 1  # the position dim of (*lead, B, S, kv, hd)
+    rec_h, conv, attn = [], [], []
+    for layer in model.layers:
+        h = rms_norm_tp(x, layer.norm1, cfg, mb)
+        if layer.kind == "rec":
+            h, (h_last, conv_state) = _rec_block_tp(layer.mixer, h, cfg, mb)
+            rec_h.append(h_last)
+            conv.append(conv_state)
+            attn.append(None)
+        else:
+            h, kr, v = attn_mod.self_attention_tp(layer.mixer, h, positions, cfg,
+                                                  cfg.attn_window, mb)
+            shape = kr.shape[:seq] + (window,) + kr.shape[seq + 1:]
+            kc, vc = kr.new_zeros(shape), v.new_zeros(shape)
+            kc.index_copy_(seq, slots, kr.narrow(seq, S - take, take))
+            vc.index_copy_(seq, slots, v.narrow(seq, S - take, take))
+            rec_h.append(None)
+            conv.append(None)
+            attn.append(KVCache(k=kc, v=vc))
+        x = x + h
+        x = x + mlp_mod.mlp(layer.mlp, rms_norm_tp(x, layer.norm2, cfg, mb), cfg, mb.policy)
+    return _logits_tp(model, x, cfg, mb), HybridCache(rec_h=rec_h, conv=conv, attn=attn)
+
+
+def _decode_tp(model: Hybrid, cache: HybridCache, tokens, pos: int, cfg: ModelConfig,
+               mb: Members):
+    x = vocab_embed(model.embed, tokens, cfg, mb)
+    rec_h, conv = list(cache.rec_h), list(cache.conv)
+    for i, layer in enumerate(model.layers):
+        h = rms_norm_tp(x, layer.norm1, cfg, mb)
+        if layer.kind == "rec":
+            h, (rec_h[i], conv[i]) = _rec_block_tp(layer.mixer, h, cfg, mb, rec_h[i], conv[i])
+        else:
+            h = attn_mod._attention_decode_tp(layer.mixer, h, cache.attn[i], pos, cfg,
+                                              cfg.attn_window, mb, rolling=True)[0]
+        x = x + h
+        x = x + mlp_mod.mlp(layer.mlp, rms_norm_tp(x, layer.norm2, cfg, mb), cfg, mb.policy)
+    return _logits_tp(model, x, cfg, mb), HybridCache(rec_h=rec_h, conv=conv, attn=cache.attn)

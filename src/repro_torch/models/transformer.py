@@ -45,7 +45,6 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.core import mesh as M
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import KVCache
@@ -61,7 +60,8 @@ from repro_torch.models.common import (
     resolve_device,
     rms_norm,
 )
-from repro_torch.models.parallel import Members, check_layout
+from repro_torch.models.parallel import (Members, check_layout, last_token, rms_norm_tp,
+                                          vocab_embed, vocab_logits)
 
 
 def layer_windows_list(cfg: ModelConfig) -> list[int]:
@@ -309,51 +309,20 @@ def decode_step(model: Transformer, cache: KVCache, tokens, pos: int, cfg: Model
 # ---------------------------------------------------------------------------
 
 
-def _embed_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
-    """The member's rows of the global ``tokens``: (*lead, B, S, d), or the
-    member's block of S under sequence parallelism.  With the vocab split
-    over the model axis, each member looks up the tokens of its own rows
-    (zero elsewhere) and the members' rows are summed (and scattered on S)."""
-    mb.check_seq(tokens.shape[-1])
-    tok = mb.shard_batch(tokens)
-    table = model.embed
-    lead, (V, d) = table.shape[:mb.k], table.shape[mb.k:]
-    split = mb.split(mb.policy.embed(cfg.padded_vocab))
-    if split:
-        tok = tok - M.lift(mb.index(), tok) * V
-        inside = (tok >= 0) & (tok < V)
-        tok = torch.where(inside, tok, 0)
-    L = table[..., 0, 0].numel()
-    base = (torch.arange(L, device=tok.device) * V).reshape(lead + (1,) * (tok.ndim - mb.k))
-    rows = table.reshape(-1, d)[tok + base]
-    if split:
-        rows = torch.where(inside[..., None], rows, 0)
-    return mb.row_out(rows, split).to(cfg.compute_dtype)
-
-
 def _logits_tp(model: Transformer, x, cfg: ModelConfig, mb: Members):
-    """The last token's global logits (B, padded vocab) in f32; under
-    sequence parallelism the last token is the last member's."""
-    x = mb.gather_seq(x[..., -1:, :])[..., -1, :]
-    x = rms_norm(x, mb.bcast(model.final_norm, x), cfg.norm_eps)
-    logits = mb.mm(x.float(), model.head.float().transpose(-1, -2))
-    if mb.split(mb.policy.embed(cfg.padded_vocab)):
-        logits = mb.gather(logits, -1)
-    return mb.unshard_batch(logits)
-
-
-def _norm(x, scale, cfg: ModelConfig, mb: Members):
-    return rms_norm(x, mb.bcast(scale, x), cfg.norm_eps)
+    """The last token's global logits (B, padded vocab) in f32."""
+    x = last_token(x, mb)
+    return vocab_logits(rms_norm_tp(x, model.final_norm, cfg, mb), model.head, cfg, mb)
 
 
 def _layer_tp(blk: Block, x, positions, window: int, cfg: ModelConfig, mb: Members):
     """One layer on the member's tensors: (x, aux (*lead)).  It enters the
     mesh itself, since its remat recompute runs in the backward pass."""
     with mb.mesh:
-        h = _norm(x, blk.norm1, cfg, mb)
+        h = rms_norm_tp(x, blk.norm1, cfg, mb)
         x = x + attn_mod.attention(blk.attn, h, positions, cfg, window=window,
                                    policy=mb.policy)
-        h, a = blk.ffn(_norm(x, blk.norm2, cfg, mb), cfg, mb.policy)
+        h, a = blk.ffn(rms_norm_tp(x, blk.norm2, cfg, mb), cfg, mb.policy)
         return x + h, torch.zeros(x.shape[:mb.k], device=x.device) if a is None else a
 
 
@@ -361,27 +330,27 @@ def _forward_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
     """The member's final hidden states (*lead, B, S or its block, d) and
     aux loss (*lead), each layer recomputed in the backward pass when
     ``cfg.remat``."""
-    x = _embed_tp(model, tokens, cfg, mb)
+    x = vocab_embed(model.embed, tokens, cfg, mb)
     positions = torch.arange(tokens.shape[-1], dtype=torch.int32, device=x.device)
     layer = maybe_remat(_layer_tp, cfg.remat)
     aux = torch.zeros(x.shape[:mb.k], device=x.device)
     for blk, window in zip(model.blocks, layer_windows_list(cfg)):
         x, a = layer(blk, x, positions, window, cfg, mb)
         aux = aux + a
-    return _norm(x, model.final_norm, cfg, mb), aux
+    return rms_norm_tp(x, model.final_norm, cfg, mb), aux
 
 
 def _prefill_tp(model: Transformer, tokens, cfg: ModelConfig, max_len: int, mb: Members):
-    x = _embed_tp(model, tokens, cfg, mb)
+    x = vocab_embed(model.embed, tokens, cfg, mb)
     S = tokens.shape[-1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     cache = None
     at = (slice(None),) * mb.k
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows_list(cfg))):
-        h = _norm(x, blk.norm1, cfg, mb)
+        h = rms_norm_tp(x, blk.norm1, cfg, mb)
         o, kr, v = attn_mod.self_attention_tp(blk.attn, h, positions, cfg, window, mb)
         x = x + o
-        x = x + blk.ffn(_norm(x, blk.norm2, cfg, mb), cfg, mb.policy)[0]
+        x = x + blk.ffn(rms_norm_tp(x, blk.norm2, cfg, mb), cfg, mb.policy)[0]
         if cache is None:  # (*lead, L, B, max_len, kv, hd), kv or hd the member's
             shape = kr.shape[:mb.k] + (cfg.n_layers, kr.shape[mb.k], max_len) + kr.shape[-2:]
             cache = KVCache(k=kr.new_zeros(shape), v=v.new_zeros(shape))
@@ -392,12 +361,12 @@ def _prefill_tp(model: Transformer, tokens, cfg: ModelConfig, max_len: int, mb: 
 
 def _decode_tp(model: Transformer, cache: KVCache, tokens, pos: int, cfg: ModelConfig,
                mb: Members):
-    x = _embed_tp(model, tokens, cfg, mb)
+    x = vocab_embed(model.embed, tokens, cfg, mb)
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows_list(cfg))):
-        h = _norm(x, blk.norm1, cfg, mb)
+        h = rms_norm_tp(x, blk.norm1, cfg, mb)
         o, _ = attn_mod.attention_decode(
             blk.attn, h, KVCache(cache.k.select(mb.k, i), cache.v.select(mb.k, i)), pos, cfg,
             window=window, policy=mb.policy)
         x = x + o
-        x = x + blk.ffn(_norm(x, blk.norm2, cfg, mb), cfg, mb.policy)[0]
+        x = x + blk.ffn(rms_norm_tp(x, blk.norm2, cfg, mb), cfg, mb.policy)[0]
     return _logits_tp(model, x, cfg, mb), cache

@@ -23,12 +23,21 @@ driven through ``prefill`` and ``decode_step`` directly, not served.
 
 ``param_specs`` (with ``_mlp_specs``) gives each parameter's layout under
 a ``ShardingPolicy`` by the port's names (``enc_layers.*.attn.wq``,
-``norms.enc_norm.scale``, ...).  Whisper's sharded execution is not
-ported yet (ROADMAP.md): its passes raise on a sharded policy.
+``norms.enc_norm.scale``, ...).  Under a sharded policy the passes run
+the partitioned bodies of ``models/parallel.py`` on a model laid out for
+it: every attention (the encoder's bidirectional, the decoder's causal
+self- and its cross-attention) runs on the member's heads and ends in
+``wo``'s row-parallel sum; the MLPs are column-parallel in ``w1`` / ``b1``
+and row-parallel in ``w2``, ``b2`` added once after the sum; the norms
+and ``enc_pos`` are replicated and ``dec_embed`` is vocab-parallel.  Under
+sequence parallelism the encoder's S is the frames.  The cache keeps the
+whole ``memory`` on every model member, gathered once per prefill, and
+its self-attention k and v by ``policy.kv_dims`` (``cache_spec``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -50,7 +59,8 @@ from repro_torch.models.common import (
     param,
     resolve_device,
 )
-from repro_torch.models.parallel import model_axis_raise
+from repro_torch.models.parallel import (Members, check_layout, last_token, vocab_embed,
+                                          vocab_logits)
 
 
 class WhisperCache(NamedTuple):
@@ -185,7 +195,11 @@ def _enc_layer(lp, x, cfg: ModelConfig):
 
 def encode(model: Whisper, frames, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """frames: (B, enc_len, d_model) precomputed conv-frontend embeddings."""
-    model_axis_raise("whisper", policy, model)
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            mb = Members(policy)
+            return mb.unshard_batch(mb.gather_seq(_encode_tp(model, frames, cfg, mb)))
     cd = cfg.compute_dtype
     x = frames.to(cd) + model.enc_pos.to(cd)[None]
     layer = maybe_remat(_enc_layer, cfg.remat)
@@ -220,8 +234,17 @@ def _decoder(model: Whisper, tokens, memory, cfg: ModelConfig, cache: KVCache | 
 
 def loss_fn(model: Whisper, batch: dict, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
     """Mean next-token loss of ``batch`` (``frames`` (B, enc_len, d),
-    ``tokens`` and ``labels`` (B, S)) against the tied ``dec_embed``."""
-    model_axis_raise("whisper", policy, model)
+    ``tokens`` and ``labels`` (B, S)) against the tied ``dec_embed``; under
+    a sharding policy vocab-parallel, as ``transformer.loss_fn``."""
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            mb = Members(policy)
+            memory = mb.gather_seq(_encode_tp(model, batch["frames"], cfg, mb))
+            x = _decoder_tp(model, batch["tokens"], memory, cfg, mb)
+            loss = chunked_cross_entropy(mb.gather_seq(x), model.dec_embed,
+                                         mb.shard_batch(batch["labels"]), cfg, mb)
+            return mb.backward_loss(loss)
     memory = encode(model, batch["frames"], cfg)
     hidden = _decoder(model, batch["tokens"], memory, cfg)
     return chunked_cross_entropy(hidden, model.dec_embed, batch["labels"], cfg)
@@ -236,12 +259,15 @@ def prefill(model: Whisper, batch: dict, cfg: ModelConfig, policy: ShardingPolic
     """batch: {frames, tokens} -> (last logits, WhisperCache).  The cache
     holds the self-attention keys after RoPE and the values for positions
     ``[0, S)``, zero up to ``max_len``."""
-    model_axis_raise("whisper", policy, model)
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
     if S > max_len:
         raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            return _prefill_tp(model, batch, cfg, max_len, Members(policy))
     memory = encode(model, batch["frames"], cfg)
     cache = attn_mod.init_cache(cfg, B, max_len, cfg.n_layers, device=memory.device)
     hidden = _decoder(model, tokens, memory, cfg, cache)
@@ -252,7 +278,12 @@ def decode_step(model: Whisper, cache: WhisperCache, tokens, pos: int, cfg: Mode
                 policy: ShardingPolicy = REPLICATED):
     """One decode step.  tokens: (B, 1); pos: the current position.  Writes
     the self-attention cache at ``pos`` in place; returns (logits, cache)."""
-    model_axis_raise("whisper", policy, model)
+    mesh = check_layout(model, policy)
+    if mesh is not None:
+        with mesh:
+            # one token: no sequence to split
+            return _decode_tp(model, cache, tokens, pos, cfg,
+                              Members(dataclasses.replace(policy, seq_axis=None)))
     x = model.dec_embed[tokens].to(cfg.compute_dtype)
     k, v = cache.self_kv
     for i, lp in enumerate(model.dec_layers):
@@ -264,3 +295,114 @@ def decode_step(model: Whisper, cache: WhisperCache, tokens, pos: int, cfg: Mode
         x = x + _mlp(lp["mlp"], _ln(x, lp["ln3"]), cfg)
     x = _ln(x, model.norms["dec_norm"])
     return _logits(model, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Under a sharding policy (models/parallel.py): the member's tensors
+# ---------------------------------------------------------------------------
+
+
+def cache_spec(cfg: ModelConfig, policy: ShardingPolicy) -> WhisperCache:
+    """The cache's layout: the self-attention k and v (L, B, S_max, kv, hd)
+    as ``policy.kv_dims`` says, ``memory`` (B, enc_len, d) whole on each
+    model member (the reference's ``P(bspec, None, None)``)."""
+    b = policy.batch_axes or None
+    kv_s, hd_s = policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
+    kv = (None, b, None, kv_s, hd_s)
+    return WhisperCache(self_kv=KVCache(kv, kv), memory=(b, None, None))
+
+
+def _ln_tp(x, p, mb: Members):
+    return layer_norm(x, mb.bcast(p["scale"], x), mb.bcast(p["bias"], x))
+
+
+def _mlp_tp(p, x, cfg: ModelConfig, mb: Members):
+    """``w1`` / ``b1`` column-parallel and ``w2`` row-parallel, its sum over
+    the model axis taken before ``b2`` is added, once (under sequence
+    parallelism: S gathered first, the sum scattered on S)."""
+    cd = cfg.compute_dtype
+    x = mb.gather_seq(x)
+    h = mb.mm(x, p["w1"].to(cd))
+    h = F.gelu(h + mb.bcast(p["b1"].to(cd), h), approximate="tanh")
+    out = mb.row_out(mb.mm(h, p["w2"].to(cd)), mb.split(_mlp_specs(cfg, mb.policy)["w2"]))
+    return out + mb.bcast(p["b2"].to(cd), out)
+
+
+def _enc_layer_tp(lp, x, cfg: ModelConfig, mb: Members):
+    """One encoder layer on the member's tensors (its block of the frames
+    under sequence parallelism).  It enters the mesh itself, since its
+    remat recompute runs in the backward pass."""
+    with mb.mesh:
+        h = _ln_tp(x, lp["ln1"], mb)
+        x = x + attn_mod.unmasked_attention_tp(lp["attn"], h, None, cfg, mb)
+        return x + _mlp_tp(lp["mlp"], _ln_tp(x, lp["ln2"], mb), cfg, mb)
+
+
+def _encode_tp(model: Whisper, frames, cfg: ModelConfig, mb: Members):
+    """The member's encoded frames (*lead, B, enc_len or its block, d)."""
+    cd = cfg.compute_dtype
+    mb.check_seq(frames.shape[-2])
+    x = mb.row_out(mb.shard_batch(frames).to(cd) + model.enc_pos.to(cd).unsqueeze(mb.k), False)
+    layer = maybe_remat(_enc_layer_tp, cfg.remat)
+    for lp in model.enc_layers:
+        x = layer(lp, x, cfg, mb)
+    return _ln_tp(x, model.norms["enc_norm"], mb)
+
+
+def _dec_layer_tp(lp, x, positions, memory, cfg: ModelConfig, mb: Members):
+    """One decoder layer: (x, k after RoPE, v), the last two in the cache
+    layout over the whole of S.  ``memory`` is whole on every member."""
+    with mb.mesh:
+        h = _ln_tp(x, lp["ln1"], mb)
+        o, kr, v = attn_mod.self_attention_tp(lp["self_attn"], h, positions, cfg, 0, mb)
+        x = x + o
+        x = x + attn_mod.unmasked_attention_tp(lp["cross_attn"], _ln_tp(x, lp["ln2"], mb),
+                                               memory, cfg, mb)
+        return x + _mlp_tp(lp["mlp"], _ln_tp(x, lp["ln3"], mb), cfg, mb), kr, v
+
+
+def _decoder_tp(model: Whisper, tokens, memory, cfg: ModelConfig, mb: Members, cache=None):
+    """The member's normed decoder states (*lead, B, S or its block, d);
+    writes each layer's keys and values into ``cache`` at [0, S) when one
+    is given."""
+    x = vocab_embed(model.dec_embed, tokens, cfg, mb)
+    S = tokens.shape[-1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    layer = _dec_layer_tp if cache is not None else maybe_remat(_dec_layer_tp, cfg.remat)
+    at = (slice(None),) * mb.k
+    for i, lp in enumerate(model.dec_layers):
+        x, kr, v = layer(lp, x, positions, memory, cfg, mb)
+        if cache is not None:
+            cache.k[at + (i, slice(None), slice(0, S))] = kr
+            cache.v[at + (i, slice(None), slice(0, S))] = v
+    return _ln_tp(x, model.norms["dec_norm"], mb)
+
+
+def _prefill_tp(model: Whisper, batch: dict, cfg: ModelConfig, max_len: int, mb: Members):
+    """The sharded prefill: the encoder's output gathered once into the
+    cache's whole ``memory``, the cache in the layout of :func:`cache_spec`."""
+    memory = mb.gather_seq(_encode_tp(model, batch["frames"], cfg, mb))
+    kv_s, hd_s = mb.policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
+    shape = memory.shape[:mb.k + 1] + (max_len, cfg.n_kv_heads // (mb.tp if kv_s else 1),
+                                       cfg.head_dim // (mb.tp if hd_s else 1))
+    shape = shape[:mb.k] + (cfg.n_layers,) + shape[mb.k:]
+    cache = KVCache(k=memory.new_zeros(shape), v=memory.new_zeros(shape))
+    x = _decoder_tp(model, batch["tokens"], memory, cfg, mb, cache)
+    logits = vocab_logits(last_token(x, mb), model.dec_embed, cfg, mb)
+    return logits, WhisperCache(self_kv=cache, memory=memory)
+
+
+def _decode_tp(model: Whisper, cache: WhisperCache, tokens, pos: int, cfg: ModelConfig,
+               mb: Members):
+    x = vocab_embed(model.dec_embed, tokens, cfg, mb)
+    k, v = cache.self_kv
+    for i, lp in enumerate(model.dec_layers):
+        o, _ = attn_mod._attention_decode_tp(
+            lp["self_attn"], _ln_tp(x, lp["ln1"], mb),
+            KVCache(k.select(mb.k, i), v.select(mb.k, i)), pos, cfg, 0, mb)
+        x = x + o
+        x = x + attn_mod.unmasked_attention_tp(lp["cross_attn"], _ln_tp(x, lp["ln2"], mb),
+                                               cache.memory, cfg, mb)
+        x = x + _mlp_tp(lp["mlp"], _ln_tp(x, lp["ln3"], mb), cfg, mb)
+    x = _ln_tp(x, model.norms["dec_norm"], mb)
+    return vocab_logits(x[..., -1, :], model.dec_embed, cfg, mb), cache

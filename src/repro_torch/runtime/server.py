@@ -7,8 +7,8 @@ wave's longest prompt, so they share one length; the padded vocab tail is
 stripped before sampling; sampling is greedy, or at ``temperature > 0``
 draws from a numpy ``Generator(seed)``.  It runs eagerly, one
 ``decode_step`` per token, on the model's device.  It serves any ported
-family through ``models.get_family``: the dense transformers, the
-recurrentgemma hybrid and RWKV-6.
+family through ``models.get_family``: the dense and MoE transformers, the
+recurrentgemma hybrid and RWKV-6, unsharded or under a sharding policy.
 
 With a sharding policy (the reference's ``policy`` argument) the server
 runs the family's partitioned passes: ``mesh`` lays an unsharded model

@@ -773,3 +773,49 @@ def test_sharded_step_gradients_on_card_equal_the_plain_run(card, seq_parallel):
         assert scale > 0 and g.abs().max().item() > 0, leaf
         assert (g - plain[leaf]).abs().max().item() <= 2e-4 * scale, leaf
         assert (g - want[leaf]).abs().max().item() <= 2e-4 * scale, leaf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq_parallel", [False, True], ids=["sp=False", "sp=True"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_3b", "whisper_base"])
+def test_sharded_family_smoke_prefill_on_card_matches_the_host(card, arch, seq_parallel):
+    """A smoke model of the hybrid, rwkv6 or whisper laid out on a stacked
+    (2, 4) mesh on the card, with sequence parallelism off and on: its
+    sharded prefill through the kernels (``rglru_scan`` and flash, ``wkv``,
+    or flash; ``reduce_nway`` for every psum) and a decode step after it
+    against the same sharded run on the host (the plain versions)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as M
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import get_family
+    from repro_torch.models.convert import shard_model
+
+    cfg = get_smoke_config(arch)
+    fam = get_family(cfg)
+    host = fam.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 17), generator=gen)
+    frames = torch.randn(4, cfg.encoder_len, cfg.d_model, generator=gen)
+
+    def run(device):
+        model = copy.deepcopy(host).to(device)
+        mesh = M.Mesh((2, 4), ("data", "model"), device=device)
+        policy = make_policy(cfg, mesh, seq_parallel=seq_parallel)
+        shard_model(model, mesh, policy)
+        prompt = tokens[:, :16].to(device)
+        if cfg.family == "whisper":
+            prompt = {"frames": frames.to(device), "tokens": prompt}
+        logits, cache = fam.prefill(model, prompt, cfg, policy, max_len=17)
+        dec, _ = fam.decode_step(model, cache, tokens[:, 16:].to(device), 16, cfg, policy)
+        return logits.cpu(), dec.cpu()
+
+    counters = {"recurrentgemma_2b": [rglru_scan, flash_attention], "rwkv6_3b": [wkv],
+                "whisper_base": [flash_attention]}[arch] + [reduce_nway]
+    before = [c.launches for c in counters]
+    got, got_dec = run(card)
+    torch.cuda.synchronize()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    want, want_dec = run("cpu")
+    assert got.shape == (4, cfg.padded_vocab) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-4
+    assert (got_dec - want_dec).abs().max().item() <= 2e-4

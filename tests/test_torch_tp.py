@@ -15,10 +15,13 @@ JAX loads), its parameters placed with ``NamedSharding`` by its
 reference.  Against the port's own unsharded model, the MoE configs run at
 ``capacity_factor`` 64, where no row is dropped and the expert-parallel MoE
 equals the local one.  ``Server(policy=, mesh=)`` serves the same tokens
-as the reference's ``Server`` under the mesh, and the three families whose
-sharded execution is not ported raise.  (Sharded training, the sharded loss
-and sequence parallelism are held against the reference in
-``tests/test_torch_tp_train.py``.)
+as the reference's ``Server`` under the mesh.  A sharded model of any
+family refuses to run without its policy, an unsharded one with a policy,
+and sequence parallelism over another axis than the model axis.
+(Sharded training, the sharded loss and sequence parallelism are held
+against the reference in ``tests/test_torch_tp_train.py``; the other three
+families' sharded serving and training in ``tests/test_torch_tp_families.py``
+and ``tests/test_torch_tp_train_families.py``.)
 """
 
 import copy
@@ -192,7 +195,11 @@ def test_server_under_a_mesh_serves_the_reference_tokens(reference, arch):
 
 
 @pytest.mark.parametrize("arch", ("recurrentgemma_2b", "rwkv6_3b", "whisper_base"))
-def test_families_without_sharded_execution_raise(arch):
+def test_a_sharded_family_refuses_what_is_not_ported(arch):
+    """The other three families' sharded passes (held against the reference
+    in ``tests/test_torch_tp_families.py``) refuse as the transformer's do:
+    a sharded model needs its policy, an unsharded one takes none, and
+    sequence parallelism over another axis than the model axis raises."""
     cfg = tconfigs.get_smoke_config(arch)
     fam = get_family(cfg)
     model = fam.init(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -201,13 +208,18 @@ def test_families_without_sharded_execution_raise(arch):
     tokens = torch.zeros((B, S), dtype=torch.int64)
     batch = {"frames": torch.zeros((B, cfg.encoder_len, cfg.d_model)), "tokens": tokens} \
         if cfg.family == "whisper" else tokens
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError):  # an unsharded model cannot take a policy
         fam.prefill(model, batch, cfg, policy)
-    shard_model(model, mesh, policy)  # the specs lay the model out
+    sharded = shard_model(copy.deepcopy(model), mesh, policy)
+    with pytest.raises(ValueError):  # a sharded model needs its policy
+        fam.prefill(sharded, batch, cfg)
+    if cfg.family != "whisper":
+        with pytest.raises(ValueError):
+            Server(cfg, sharded, device="cpu")._prefill(tokens)
+    other = dataclasses.replace(policy, seq_axis="data")
+    sharded.policy = other
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fam.prefill(model, batch, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Server(cfg, model, device="cpu", policy=policy)._prefill(tokens)
+        fam.prefill(sharded, batch, cfg, other)
 
 
 def test_a_sharded_transformer_refuses_what_is_not_ported(pair):
