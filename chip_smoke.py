@@ -183,10 +183,33 @@ Phases, each of which raises on failure:
    rwkv6 at 4 layers, 4 steps; (12c) the rank mesh under NCCL at world
    size 1: each family's smoke prefill, loss and gradients equal to the
    stacked mesh's;
-13. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
+13. the launch dry run (``launch/``): (13a) the nine cells of
+   ``tests/progs/dryrun_smoke_prog.py`` at full size on the production
+   mesh (16, 16), the train cells on (2, 16, 16) too, traced on the
+   kernels' path (meta tensors, each kernel through its op): status,
+   bottleneck, roofline fraction on the H100's constants, bytes a member,
+   FLOPs, collective bytes by kind, predicted launches, trace seconds;
+   every cell must trace with FLOPs and bytes above zero; (13b)
+   qwen1.5-0.5b's ``train_4k`` at full width and depth cut to 8 x 2048 on a
+   stacked (2, 4) mesh through ``build_cell``: 3 real bf16 steps (step ms,
+   a profiled step's device busy and idle, peak), then the same cell
+   traced, whose FLOPs must equal a ``FlopCounterMode`` count of a real
+   step, whose input bytes a member (from the specs) the real inputs'
+   over the members, and whose predicted ``flash_attention`` and
+   ``reduce_nway`` launches a real step's counters; the H100 roofline
+   terms and the predicted peak are printed beside the card's numbers;
+   (13c) gemma3-12b at full width and 4 layers, f32, batch 1, a cache of
+   32768 cut on its sequence over "data" on a stacked (4, 2) mesh: decode
+   after a prefill within 1e-5 of max|logits| of the unsplit decode, its
+   ms a step; (13d) yi-6b at full width and 4 layers, one bf16 prefill of
+   4 x 2048 with ``attn_bf16_logits`` (the plain bf16-logit path) and
+   without it (the wgmma flash route), logits within 2e-2 of max|logits|,
+   both prefill ms and peaks;
+14. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
    ``{"data_parallel": ...}`` line, the ``{"model_parallel": ...}`` line,
    the ``{"model_parallel_training": ...}`` line, the
-   ``{"model_parallel_families": ...}`` line, the ``{"kernels": [...]}``
+   ``{"model_parallel_families": ...}`` line, the ``{"launch": ...}`` line,
+   the ``{"kernels": [...]}``
    line, one entry per route of each kernel (with its gradient's method and
    times where it has one, and its launches in each model's phase,
    ``launches_by_model``), and, last, the ``{"ok": true, ...}`` line.
@@ -3462,6 +3485,286 @@ def family_phase(seed: int, serving: dict, smi: str) -> dict:
     return out
 
 
+# Phase 13: the launch dry run (``launch/``).  13a traces the cells of
+# tests/progs/dryrun_smoke_prog.py at full size on the production meshes;
+# 13b sets one cell's trace against a real run of it; 13c is the
+# sequence-split long-context decode, 13d ``attn_bf16_logits``.
+DRY_CASES = (("qwen1_5_0_5b", "train_4k"), ("qwen1_5_0_5b", "decode_32k"),
+             ("phi3_5_moe", "train_4k"), ("gemma3_12b", "prefill_32k"),
+             ("gemma3_12b", "long_500k"), ("rwkv6_3b", "long_500k"),
+             ("recurrentgemma_2b", "decode_32k"), ("whisper_base", "train_4k"),
+             ("whisper_base", "decode_32k"))
+DRY_CELL = ("qwen1_5_0_5b", "train_4k", 2048, 8)  # 13b: arch, shape, cut to seq x batch
+DRY_MESH, DRY_STEPS = (2, 4), 3
+SEQ_ARCH, SEQ_LAYERS, SEQ_CACHE, SEQ_MESH = "gemma3_12b", 4, 32768, (4, 2)
+SEQ_PROMPT, SEQ_DECODES, SEQ_RTOL = 8192 + 300, 4, 1e-5  # the window spans two blocks
+BF16_ARCH, BF16_LAYERS, BF16_WAVE, BF16_RTOL = "yi_6b", 4, (4, 2048), 2e-2
+LAUNCH_BUDGET_S = 150.0
+
+
+def dry_cells(smi: str) -> list:
+    """13a: every DRY_CASES cell on (16, 16), the train cells on (2, 16, 16)
+    too, traced on the card's path (meta tensors, the kernels' ops)."""
+    from repro_torch.launch import dryrun
+
+    jobs = [(a, s, False) for a, s in DRY_CASES] + \
+        [(a, s, True) for a, s in DRY_CASES if s == "train_4k"]
+    rows = []
+    for arch, shape, multi in jobs:
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi, verbose=False)
+        if rec["status"] != "ok":
+            fail(f"dry run {arch} x {shape} ({rec['mesh']}): {rec.get('error', rec)}")
+        if not (rec["hlo_flops"] > 0 and rec["hlo_bytes"] > 0 and rec["bytes_per_device"] > 0):
+            fail(f"dry run {arch} x {shape} ({rec['mesh']}): no FLOPs or bytes: {rec}")
+        coll = {k: f"{v / 2**30:.2f} GiB" for k, v in sorted(rec["coll_breakdown"].items())}
+        print(f"  [{rec['mesh']}] {arch} x {shape}: {rec['status']}, {rec['bottleneck']}-bound, "
+              f"roofline fraction {rec['roofline_fraction']:.3f}, "
+              f"{rec['bytes_per_device'] / 2**30:.2f} GiB a member, "
+              f"{rec['hlo_flops'] / 1e15:.3f} PFLOP, {rec['hlo_bytes'] / 1e12:.2f} TB moved, "
+              f"collectives {coll}, launches {rec['launches']}, traced in {rec['trace_s']} s; "
+              f"H100 terms {rec['t_compute'] * 1e3:.1f} / {rec['t_memory'] * 1e3:.1f} / "
+              f"{rec['t_collective'] * 1e3:.1f} ms", flush=True)
+        rows.append(rec)
+    return rows
+
+
+def _input_bytes(inputs) -> int:
+    """The bytes of a cell's laid-out inputs (a Python int counts as int32)."""
+    from repro_torch.launch.dryrun import _tensors
+
+    return sum(t.numel() * t.element_size() for t in _tensors(inputs)) + \
+        sum(4 for x in inputs if isinstance(x, int))
+
+
+def dry_vs_card(seed: int) -> dict:
+    """13b: DRY_CELL built by ``build_cell`` on a stacked DRY_MESH, run for
+    real (bf16) and traced; the trace's FLOPs, input bytes and launches
+    against the real step's."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.reduce_nway import reduce_nway
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.steps import build_cell
+
+    arch, shape, S, B = DRY_CELL
+    cfg = get_config(arch)
+    saved = shapes.SHAPES[shape]
+    shapes.SHAPES[shape] = shapes.ShapeCell(shape, "train", S, B)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = Mesh(DRY_MESH, ("data", "model"), device=DEVICE)
+        built = build_cell(cfg, shape, mesh)
+        model, opt_state, batch = built["make_inputs"](seed=seed)
+        members = math.prod(DRY_MESH)
+        real_bytes = _input_bytes((model, opt_state, batch)) / members
+        wrappers = {"flash_attention": flash_attention, "reduce_nway": reduce_nway}
+        losses, walls, launches = [], [], None
+        for i in range(DRY_STEPS):
+            zero_counts(wrappers)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model, opt_state, metrics = built["step_fn"](model, opt_state, batch)
+            losses.append(float(metrics["loss"]))
+            walls.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                launches = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model, opt_state, metrics = built["step_fn"](model, opt_state, batch)
+            torch.cuda.synchronize()
+            profiled_wall = (time.perf_counter() - t) * 1e3
+        busy = device_breakdown(prof)
+        with FlopCounterMode(display=False) as counter:
+            model, opt_state, metrics = built["step_fn"](model, opt_state, batch)
+        torch.cuda.synchronize()
+        real_flops = counter.get_total_flops()
+        losses.append(float(metrics["loss"]))
+        del model, opt_state, batch, built, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh=mesh, mesh_name="x".join(map(str, DRY_MESH)),
+                              verbose=False, device=DEVICE)  # the path the real steps took
+        trace_s = time.perf_counter() - t
+    finally:
+        shapes.SHAPES[shape] = saved
+    if rec["status"] != "ok":
+        fail(f"13b: the trace failed: {rec.get('error')}")
+    if rec["hlo_flops"] != real_flops:
+        fail(f"13b: the trace counts {rec['hlo_flops']} FLOPs, a real step {real_flops}")
+    if rec["input_bytes_per_member"] != real_bytes:
+        fail(f"13b: the specs give {rec['input_bytes_per_member']} input bytes a member, the "
+             f"real inputs {real_bytes}")
+    want = {k: rec["launches"].get(k, 0) for k in wrappers}
+    if want != launches:
+        fail(f"13b: the trace predicts launches {want}, a real step made {launches}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"13b: losses {losses}")
+    step_ms = walls[-1]
+    out = {"arch": cfg.name, "mesh": list(DRY_MESH), "batch": B, "seq": S, "losses": losses,
+           "step_ms": walls, "profiled_wall_ms": profiled_wall, "device_ms": busy["device_ms"],
+           "idle_share": 1 - busy["device_ms"] / step_ms, "peak_gib": peak,
+           "flops": real_flops, "input_bytes_per_member": real_bytes, "launches": launches,
+           "trace_s": trace_s, "t_compute_ms": rec["t_compute"] * 1e3,
+           "t_memory_ms": rec["t_memory"] * 1e3, "t_collective_ms": rec["t_collective"] * 1e3,
+           "predicted_peak_gib_x_members": rec["bytes_per_device"] * members / 2**30,
+           "device_over_t_compute": busy["device_ms"] / (rec["t_compute"] * 1e3),
+           "record": rec}
+    top = ", ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in busy["top"][:5])
+    print(f"  13b {cfg.name} full ({cfg.n_layers} layers, bf16), {B} x {S} on a stacked "
+          f"{DRY_MESH}: steps {[round(w, 1) for w in walls]} ms, losses "
+          f"{[round(x, 4) for x in losses]}; profiled step wall {profiled_wall:.1f} ms, device "
+          f"{busy['device_ms']:.1f} ms (idle {out['idle_share']:.1%} of the last step's "
+          f"wall): {top}; peak {peak:.2f} GiB", flush=True)
+    print(f"  13b gates held: FLOPs {real_flops} (trace = real step, FlopCounterMode), input "
+          f"bytes a member {real_bytes:.0f} (specs = real inputs), launches {launches} (trace = "
+          f"counters); traced in {trace_s:.1f} s", flush=True)
+    print(f"  13b the roofline on the H100's constants against the card: t_compute "
+          f"{out['t_compute_ms']:.2f} ms, t_memory {out['t_memory_ms']:.2f} ms, t_collective "
+          f"{out['t_collective_ms']:.2f} ms ({rec['bottleneck']}-bound) against {busy['device_ms']:.1f} "
+          f"device ms ({out['device_over_t_compute']:.1f}x t_compute); predicted peak x "
+          f"{members} members {out['predicted_peak_gib_x_members']:.2f} GiB against "
+          f"{peak:.2f} GiB allocated (not gated)", flush=True)
+    return out
+
+
+def seq_split_decode(seed: int) -> dict:
+    """13c: SEQ_ARCH at full width and SEQ_LAYERS layers, f32, batch 1, a
+    cache of SEQ_CACHE cut over "data" on a stacked SEQ_MESH, against the
+    unsplit decode on the same weights."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.convert import shard_model
+
+    cfg = dataclasses.replace(get_config(SEQ_ARCH), n_layers=SEQ_LAYERS,
+                              param_dtype=torch.float32, compute_dtype=torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = tt.init(gen, cfg, DEVICE)
+    tokens = torch.randint(0, cfg.vocab, (1, SEQ_PROMPT + SEQ_DECODES), generator=gen,
+                           device=DEVICE)
+    mesh = Mesh(SEQ_MESH, ("data", "model"), device=DEVICE)
+    policy = dataclasses.replace(make_policy(cfg, mesh, shard_batch=False),
+                                 cache_seq_axis="data")
+    split = shard_model(copy.deepcopy(model), mesh, policy)
+    want, got, ms = [], [], []
+    with torch.no_grad():
+        _, cache = tt.prefill(model, tokens[:, :SEQ_PROMPT], cfg, max_len=SEQ_CACHE)
+        for t in range(SEQ_DECODES):
+            want.append(tt.decode_step(model, cache, tokens[:, SEQ_PROMPT + t:SEQ_PROMPT + t + 1],
+                                       SEQ_PROMPT + t, cfg)[0])
+        del cache
+        _, cache = tt.prefill(split, tokens[:, :SEQ_PROMPT], cfg, policy, max_len=SEQ_CACHE)
+        for t in range(SEQ_DECODES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = tt.decode_step(split, cache,
+                                           tokens[:, SEQ_PROMPT + t:SEQ_PROMPT + t + 1],
+                                           SEQ_PROMPT + t, cfg, policy)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.append(logits)
+    errs = [rel_err(g, w)[1] for g, w in zip(got, want)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cache_shape = list(cache.k.shape)
+    del model, split, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not max(errs) <= SEQ_RTOL:
+        fail(f"13c: the sequence-split decode is {max(errs):.3g} of max|logits| off the "
+             f"unsplit one (gate {SEQ_RTOL})")
+    out = {"arch": cfg.name, "n_layers": SEQ_LAYERS, "mesh": list(SEQ_MESH), "cache": SEQ_CACHE,
+           "prompt": SEQ_PROMPT, "cache_shape": cache_shape, "rel_errs": errs,
+           "decode_ms": ms, "peak_gib": peak}
+    print(f"  13c {cfg.name} full width, {SEQ_LAYERS} layers, f32, batch 1: a cache of "
+          f"{SEQ_CACHE} laid out {cache_shape} (sequence over \"data\") on a stacked {SEQ_MESH}; "
+          f"prefill {SEQ_PROMPT}, {SEQ_DECODES} decodes within {max(errs):.2e} of max|logits| "
+          f"of the unsplit decode (gate {SEQ_RTOL}); decode "
+          f"{[round(x, 2) for x in ms]} ms a step; peak {peak:.2f} GiB", flush=True)
+    return out
+
+
+def bf16_logits_prefill(seed: int) -> dict:
+    """13d: BF16_ARCH at full width and BF16_LAYERS layers, one bf16 prefill
+    wave with ``attn_bf16_logits`` and without it (the flash kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tt
+
+    B, S = BF16_WAVE
+    base = dataclasses.replace(get_config(BF16_ARCH), n_layers=BF16_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = tt.init(gen, base, DEVICE)
+    tokens = torch.randint(0, base.vocab, (B, S), generator=gen, device=DEVICE)
+    out, logits = {"arch": base.name, "n_layers": BF16_LAYERS, "wave": list(BF16_WAVE)}, {}
+    for flag in (False, True):
+        cfg = dataclasses.replace(base, attn_bf16_logits=flag)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts({"flash_attention": flash_attention})
+        with torch.no_grad():
+            ms = time_ms(lambda: tt.prefill(model, tokens, cfg), 3)
+            logits[flag] = tt.prefill(model, tokens, cfg)[0]
+        key = "bf16_logits" if flag else "flash"
+        out[key] = {"prefill_ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "flash_launches": dict(flash_attention.route_launches)}
+    err = rel_err(logits[True], logits[False])[1]
+    out["rel_err"] = err
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not err <= BF16_RTOL:
+        fail(f"13d: bf16 logits are {err:.3g} of max|logits| off the flash kernel's "
+             f"(gate {BF16_RTOL})")
+    if out["bf16_logits"]["flash_launches"]["tensor_core"] or \
+            not out["flash"]["flash_launches"]["tensor_core"]:
+        fail(f"13d: flash launches {out['flash']['flash_launches']} without the flag, "
+             f"{out['bf16_logits']['flash_launches']} with it")
+    f, b = out["flash"], out["bf16_logits"]
+    print(f"  13d {base.name} full width, {BF16_LAYERS} layers, bf16 prefill of {B} x {S}: "
+          f"flash (wgmma) {f['prefill_ms']:.1f} ms, peak {f['peak_gib']:.2f} GiB; bf16 logits "
+          f"(plain, (B, H, S, S) scores) {b['prefill_ms']:.1f} ms, peak {b['peak_gib']:.2f} GiB; "
+          f"logits within {err:.2e} of max|logits| (gate {BF16_RTOL})", flush=True)
+    return out
+
+
+def launch_phase(seed: int, smi: str) -> dict:
+    """Phase 13 (``smi``: the card's name and power limit); returns its numbers."""
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    print(f"[launch] 13a: the dry run of {len(DRY_CASES)} cells at full size on (16, 16), the "
+          f"train cells on (2, 16, 16) too, traced on the kernels' path; card {smi}", flush=True)
+    out["dry_run"] = dry_cells(smi)
+    out["dry_run_s"] = time.perf_counter() - t0
+    print(f"[launch] 13a took {out['dry_run_s']:.1f} s; 13b: {DRY_CELL[0]} {DRY_CELL[1]} cut to "
+          f"{DRY_CELL[3]} x {DRY_CELL[2]} on {DRY_MESH}, real against traced; card {smi}",
+          flush=True)
+    out["against_the_card"] = dry_vs_card(seed)
+    print(f"[launch] 13c: the sequence-split decode; card {smi}", flush=True)
+    out["seq_split_decode"] = seq_split_decode(seed)
+    print(f"[launch] 13d: attn_bf16_logits; card {smi}", flush=True)
+    out["bf16_logits"] = bf16_logits_prefill(seed)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[launch] phase 13 took {out['wall_s']:.1f} s (aim: under {LAUNCH_BUDGET_S:g} s; "
+          f"not gated); card {smi}", flush=True)
+    return out
+
+
 def _sha16(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
@@ -4073,7 +4376,14 @@ def main(argv=None) -> int:
             if tr["launches_per_step"].get(key):
                 by_model.setdefault(name, {})[tag] = tr["launches_per_step"][key] * tr["steps"]
 
-    # 13. Result lines.  Each route of a kernel is an entry of its own.
+    # 13. The launch dry run, its roofline against the card, the
+    # sequence-split decode and bf16 logits; gated inside the phase.
+    launch = launch_phase(args.seed, smi)
+    tag = f"13b dry-run cell {DRY_CELL[0]} {DRY_MESH}"
+    for name, key in (("reduce_nway", "reduce_nway"), ("flash_attention_wgmma", "flash_attention")):
+        by_model.setdefault(name, {})[tag] = launch["against_the_card"]["launches"][key]
+
+    # 14. Result lines.  Each route of a kernel is an entry of its own.
     def entry(name, source, replaces, rows, route=None):
         if route is not None:
             rows = [r for r in rows if r["route"] == route]
@@ -4105,7 +4415,7 @@ def main(argv=None) -> int:
         entry("wkv", "src/repro_torch/kernels/csrc/wkv.cu",
               "src/repro/kernels/rwkv6.py:54", wkv_rows),
     ]
-    print(f"[chip_smoke] phases 1-12 took {time.perf_counter() - started:.1f} s")
+    print(f"[chip_smoke] phases 1-13 took {time.perf_counter() - started:.1f} s")
     print(json.dumps({"main_path": walls}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -4114,6 +4424,7 @@ def main(argv=None) -> int:
     print(json.dumps({"model_parallel": mp}))
     print(json.dumps({"model_parallel_training": mpt}))
     print(json.dumps({"model_parallel_families": fams}))
+    print(json.dumps({"launch": launch}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

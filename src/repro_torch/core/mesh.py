@@ -32,7 +32,8 @@ find the mesh from the enclosing ``with mesh:`` block:
   kernel; ``all_to_all_single`` on a rank mesh);
 * ``take`` and ``put``: a per-member index into a local dim, in place of
   ``jnp.take`` / ``dynamic_slice`` / ``dynamic_update_slice`` with a
-  traced index.
+  traced index; ``block_of`` and ``gather_blocks``: a member's block of a
+  dim that it holds whole, and back (ZeRO-1's update, ``optim/adamw.py``).
 
 ``shard`` / ``unshard`` lay a global array out exactly as ``shard_map``
 hands blocks to devices under ``PartitionSpec(*spec)`` (an entry may be a
@@ -48,10 +49,19 @@ the sums run the ``reduce_nway`` kernel in the backward as in the forward
 collective is an ``autograd.Function`` whose backward is the transposed
 collective.  The launches that a backward makes are also counted in
 ``reduce_nway.backward_launches``.  ``pmax`` and integer sums carry none.
+
+Counting: inside ``with count_collectives() as counts:`` every axis
+function adds the bytes of its result, all members' together, to
+``counts`` under its HLO name (``psum`` and ``pmax`` as ``all-reduce``,
+``psum_scatter`` as ``reduce-scatter``, then ``all-gather``,
+``all-to-all``, ``ppermute`` as ``collective-permute``), and so does each
+transpose in a backward pass; the dry run (``launch/dryrun.py``) reads
+them.  Outside it the cost is one test of a module global per call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import math
 
@@ -63,6 +73,28 @@ from repro_torch.kernels.reduce_nway import reduce_nway
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh")
 _INTS = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+# {HLO name: result bytes} while ``count_collectives`` is on; a module
+# global, not a context variable, so that autograd's threads see it too.
+_COUNTS = None
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the collectives' result bytes by kind into the yielded dict."""
+    global _COUNTS
+    outer, _COUNTS = _COUNTS, {}
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = outer
+
+
+def _count(kind: str, result: torch.Tensor, mesh) -> None:
+    """Add ``result``'s bytes, all members' (one member's times the mesh's
+    size on a rank mesh), to the counts under ``kind``."""
+    if _COUNTS is not None:
+        n = result.numel() * result.element_size()
+        _COUNTS[kind] = _COUNTS.get(kind, 0) + (n if mesh.stacked else n * math.prod(mesh.shape))
 
 
 class _Axes:
@@ -175,6 +207,7 @@ def ppermute(x: torch.Tensor, name: str, perm) -> torch.Tensor:
     Its gradient is the inverse permutation of the cotangents."""
     mesh = current()
     src = _sources(mesh.size(name), name, perm)
+    _count("collective-permute", x, mesh)
     if isinstance(mesh, RankMesh):
         return _on_ranks(_RankPpermute, x, mesh, name, tuple(src))
     index = torch.tensor(src, device=x.device)
@@ -220,19 +253,24 @@ class _Broadcast(torch.autograd.Function):
     ``psum`` does."""
 
     @staticmethod
-    def forward(ctx, y, d, n):
-        ctx.d = d
+    def forward(ctx, y, d, n, kind):
+        ctx.d, ctx.kind, ctx.mesh = d, kind, current()
         y = y.unsqueeze(d)
         return y.expand(y.shape[:d] + (n,) + y.shape[d + 1:])
 
     @staticmethod
     def backward(ctx, g):
-        return _counted(axis_sum, g.contiguous(), ctx.d), None, None
+        out = _counted(axis_sum, g.contiguous(), ctx.d)
+        _count(ctx.kind, g if ctx.kind == "all-reduce" else out, ctx.mesh)
+        return out, None, None, None
 
 
-def _broadcast(y: torch.Tensor, d: int, n: int) -> torch.Tensor:
+def _broadcast(y: torch.Tensor, d: int, n: int, kind: str) -> torch.Tensor:
+    """``y`` copied to the ``n`` members along dim ``d``; ``kind`` names
+    its transpose for the counts: ``all-reduce`` (the transpose of
+    ``psum``) or ``reduce-scatter`` (of ``all_gather``)."""
     if y.is_floating_point():
-        return _Broadcast.apply(y, d, n)
+        return _Broadcast.apply(y, d, n, kind)
     y = y.unsqueeze(d)
     return y.expand(y.shape[:d] + (n,) + y.shape[d + 1:])
 
@@ -241,10 +279,11 @@ def psum(x: torch.Tensor, name: str) -> torch.Tensor:
     """Sum over the axis (:func:`axis_sum`), replicated to every member.
     Its gradient is the ``psum`` of the cotangents (integers carry none)."""
     mesh = current()
+    _count("all-reduce", x, mesh)
     if isinstance(mesh, RankMesh):
         return _on_ranks(_RankPsum, x, mesh, name)
     d = mesh.dim(name)
-    return _broadcast(axis_sum(x, d), d, x.shape[d])
+    return _broadcast(axis_sum(x, d), d, x.shape[d], "all-reduce")
 
 
 def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -254,6 +293,7 @@ def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
         raise ValueError("pmax carries no gradient; detach its input")
     mesh = current()
+    _count("all-reduce", x, mesh)
     if isinstance(mesh, RankMesh):
         return mesh.pmax(x, name)
     d = mesh.dim(name)
@@ -272,10 +312,12 @@ def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor
         raise ValueError(f"psum_scatter(tiled=False) needs dim 0 of size {n}, got {rows}")
     if isinstance(mesh, RankMesh):
         out = _on_ranks(_RankPsumScatter, x, mesh, name)
+        _count("reduce-scatter", out, mesh)
         return out if tiled else out.squeeze(0)
     d = mesh.dim(name)
     total = axis_sum(x, d)  # member dim 0 is now k-1
     parts = total.unflatten(k - 1, (n, rows // n)).movedim(k - 1, d)
+    _count("reduce-scatter", parts, mesh)
     return parts if tiled else parts.squeeze(k)
 
 
@@ -286,12 +328,15 @@ def all_gather(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
     mesh = current()
     if isinstance(mesh, RankMesh):
         g = _on_ranks(_RankAllGather, x, mesh, name)
+        _count("all-gather", g, mesh)
         return g.flatten(0, 1) if tiled else g
     d, k, n = mesh.dim(name), mesh.stacked, mesh.size(name)
     g = x.movedim(d, k - 1)  # the axis' members, just before the member dims
     if tiled:
         g = g.flatten(k - 1, k)
-    return _broadcast(g, d, n)
+    out = _broadcast(g, d, n, "reduce-scatter")
+    _count("all-gather", out, mesh)
+    return out
 
 
 def all_to_all(x: torch.Tensor, name: str, split_axis: int, concat_axis: int,
@@ -313,6 +358,7 @@ def all_to_all(x: torch.Tensor, name: str, split_axis: int, concat_axis: int,
     rows = x.shape[k + split_axis]
     if rows % n:
         raise ValueError(f"all_to_all: dim of size {rows} not divisible by {n}")
+    _count("all-to-all", x, mesh)
     if isinstance(mesh, RankMesh):
         return _on_ranks(_RankAllToAll, x, mesh, name, split_axis, concat_axis)
     d, s = mesh.dim(name), k + split_axis
@@ -337,6 +383,30 @@ def put(x: torch.Tensor, i: torch.Tensor, v: torch.Tensor, dim: int) -> torch.Te
     """A copy of ``x`` with position ``i`` (per member) along ``dim`` set to ``v``."""
     v = v.unsqueeze(dim)
     return x.scatter(dim, lift(i, x).expand(v.shape), v)
+
+
+def block_of(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This member's block of its local dim ``dim`` (counted from
+    ``mesh.stacked``) of a tensor that every member along ``axes`` holds
+    whole: block ``j`` for the member whose indices along ``axes`` (major
+    to minor) give ``j``, the layout that :func:`shard` gives a dim split
+    over them.  Local: nothing moves between members."""
+    mesh = current()
+    d = mesh.stacked + dim
+    n, index = 1, 0
+    for a in axes:
+        n, index = n * mesh.size(a), index * mesh.size(a) + axis_index(a)
+    return take(x.unflatten(d, (n, -1)), index, d)
+
+
+def gather_blocks(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """The inverse of :func:`block_of`: the members' blocks along ``axes``
+    concatenated on local dim ``dim`` (an ``all_gather`` over each axis,
+    minor first)."""
+    k = current().stacked
+    for a in reversed(tuple(axes)):
+        x = all_gather(x.movedim(k + dim, k), a, tiled=True).movedim(k, k + dim)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +615,7 @@ class _RankPsum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _count("all-reduce", g, ctx.mesh)
         return _counted(ctx.mesh.psum, g.contiguous(), ctx.name), None, None
 
 
@@ -558,7 +629,9 @@ class _RankPsumScatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.all_gather(g.contiguous(), ctx.name).flatten(0, 1), None, None
+        out = ctx.mesh.all_gather(g.contiguous(), ctx.name).flatten(0, 1)
+        _count("all-gather", out, ctx.mesh)
+        return out, None, None
 
 
 class _RankAllGather(torch.autograd.Function):
@@ -571,7 +644,9 @@ class _RankAllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):  # (n, *x.shape) -> this member's summed row
-        return _counted(ctx.mesh.psum_scatter, g.contiguous(), ctx.name)[0], None, None
+        out = _counted(ctx.mesh.psum_scatter, g.contiguous(), ctx.name)[0]
+        _count("reduce-scatter", out, ctx.mesh)
+        return out, None, None
 
 
 class _RankAllToAll(torch.autograd.Function):
@@ -585,6 +660,7 @@ class _RankAllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         split_axis, concat_axis = ctx.axes
+        _count("all-to-all", g, ctx.mesh)
         return (ctx.mesh.all_to_all(g.contiguous(), ctx.name, concat_axis, split_axis),
                 None, None, None, None)
 
@@ -600,6 +676,7 @@ class _RankPpermute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         inverse = [ctx.src.index(i) for i in range(len(ctx.src))]
+        _count("collective-permute", g, ctx.mesh)
         return ctx.mesh.ppermute(g.contiguous(), ctx.name, inverse), None, None, None
 
 

@@ -11,6 +11,13 @@ under the repository root, where the hash covers the sources, the headers
 and the flags: a changed source builds anew, an unchanged one is loaded as
 it is.  Nothing is built on import; the first kernel launch on a CUDA
 tensor calls :func:`library`.
+
+Each kernel is also a ``torch.library`` op (``torch.ops.repro_torch.*``)
+with a fake implementation and a FLOP formula, which a trace reads
+(``launch/dryrun.py``).  :func:`traced` tells a trace's call from a run's:
+a run calls the op's CUDA implementation itself, since a call through the
+dispatcher adds the op's Python autograd and backend wrappers to the host
+time of every launch (every psum of a sharded step).
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -132,3 +142,15 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+
+
+_PLAIN = (torch.Tensor, torch.nn.Parameter)
+
+
+def traced(*tensors) -> bool:
+    """Whether a kernel's call on tensors off the CPU belongs to a trace: a
+    dispatch mode is on (``FakeTensorMode``, ``FlopCounterMode``, the dry
+    run's counters) or an operand is a fake or meta tensor.  Such a call
+    goes through the kernel's op; any other launches the kernel."""
+    return is_in_torch_dispatch_mode() or any(
+        type(t) not in _PLAIN or t.device.type != "cuda" for t in tensors if t is not None)

@@ -38,11 +38,25 @@ its signature without changing the result.
 Gradient: :class:`FlashAttention` runs the kernel forward and
 differentiates the plain version in the backward (the JAX package has no
 backward kernel either).
+
+Binding: the kernel is also the opaque op ``torch.ops.repro_torch.flash_attention``
+(``torch.library.custom_op``), whose CUDA implementation is the launch
+(the route picked) that a run calls directly (``_build.traced``); a trace
+goes through the op, whose fake implementation gives the output's
+shape, so a trace under ``FakeTensorMode`` or on meta tensors (the dry
+run, ``launch/dryrun.py``) never reaches ``data_ptr()`` or the library,
+and its FLOP formula (``torch.utils.flop_counter``) is the bound's
+convention: 4 * d per live (query, key) pair of the causal, windowed mask
+(:func:`causal_pairs`), per head.  ``flash_attention.launches`` and
+``.route_launches`` count real launches only.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
@@ -73,7 +87,9 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
     Operands of mixed float dtypes are cast to float32 (exact from
     bfloat16) and take the float32 route, as the reference casts each block
     to f32 on load.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel that :func:`flash_route` names, or raises.
+    launches the kernel that :func:`flash_route` names, or raises (a fake or
+    meta tensor of a trace gets the output's shape from the op, and nothing
+    launches).
     ``_route`` forces one route, for timing the two against each other on
     the card; a call outside the forced route's rule raises.  The output
     carries a gradient (:class:`FlashAttention`).
@@ -90,9 +106,11 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         return flash_attention(q.float(), k.float(), v.float(), window=window,
                                _route=_route).to(q.dtype)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.device.type == "cuda":
+    if _route is not None and (_route not in ROUTES or (
+            _route == "tensor_core" and flash_route(q.dtype, q.shape[2]) != _route)):
+        raise ValueError(f"flash_attention: route {_route!r} does not take {q.dtype} "
+                         f"d={q.shape[2]}")
+    if q.device.type != "cpu":
         if q.shape[2] not in HEAD_DIMS:
             raise ValueError(f"flash_attention: head dim {q.shape[2]} not in {HEAD_DIMS}")
         if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -101,32 +119,66 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
 
 
 def _forward(q, k, v, window: int, _route):
-    """The plain version on the CPU; on the card, the kernel."""
+    """The plain version on the CPU; on the card, the kernel (its op under a
+    trace)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window)
+    launch = torch.ops.repro_torch.flash_attention if _build.traced(q, k, v) else _launch
+    return launch(q, k, v, window, _route)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+            route: Optional[str]) -> torch.Tensor:
+    """The launch on the card: the kernel that :func:`flash_route` names, or
+    the forced ``route``."""
     BH, S, d = q.shape
     # Both kernels copy by 16 bytes: an operand that is a view at an
     # unaligned offset is copied to a fresh (aligned) tensor.
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
-    route = flash_route(q.dtype, d, ptrs)
-    if _route is not None:
-        if _route not in ROUTES or (_route == "tensor_core" and route != _route):
-            raise ValueError(f"flash_attention: route {_route!r} does not take {q.dtype} "
+    chosen = flash_route(q.dtype, d, ptrs)
+    if route is not None:
+        if route == "tensor_core" and chosen != route:
+            raise ValueError(f"flash_attention: route {route!r} does not take {q.dtype} "
                              f"d={d} at these addresses")
-        route = _route
+        chosen = route
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if route == "tensor_core":
+        if chosen == "tensor_core":
             rc = _build.library().repro_flash_attention_wgmma(*ptrs, BH, S, d, window, stream)
         else:
             rc = _build.library().repro_flash_attention(*ptrs, DTYPES[q.dtype], BH, S, d,
                                                         window, stream)
-    _build.check(rc, f"flash_attention ({route})")
+    _build.check(rc, f"flash_attention ({chosen})")
     flash_attention.launches += 1
-    flash_attention.route_launches[route] += 1
+    flash_attention.route_launches[chosen] += 1
     return out
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                                    device_types="cuda")(_launch)
+
+
+@_flash_op.register_fake
+def _(q, k, v, window, route):
+    return torch.empty_like(q)
+
+
+def causal_pairs(S: int, window: int) -> int:
+    """Live (query, key) pairs of a causal mask over S, within ``window``
+    when > 0."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_attention_flops(q_shape, k_shape=None, v_shape=None, window=0, route=None, *,
+                          out_shape=None, **_) -> int:
+    """4 * d per live (query, key) pair, per head: Q K^T and P V."""
+    BH, S, d = q_shape
+    return 4 * d * BH * causal_pairs(S, window)
 
 
 # The backward's plain attention holds (slice, S, S) f32 scores and as many
@@ -158,18 +210,27 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_grad(q, k, v, g, *, window: int = 0):
     """(dq, dk, dv) of ``flash_attention_ref(q, k, v, window)`` against the
     output's gradient ``g``, by autograd through the plain version, over
-    slices of BH of at most ``GRAD_SCORES`` scores each."""
-    S = q.shape[1]
-    step = max(1, GRAD_SCORES // (S * S))
+    the slices of BH that :func:`grad_parts` plans."""
     grads = tuple(torch.empty_like(t) for t in (q, k, v))
-    for i in range(0, q.shape[0], step):
-        part = slice(i, i + step)
-        with torch.enable_grad():
-            qs, ks, vs = (t[part].detach().requires_grad_() for t in (q, k, v))
-            out = flash_attention_ref(qs, ks, vs, window=window)
-            for whole, d in zip(grads, torch.autograd.grad(out, (qs, ks, vs), g[part])):
-                whole[part] = d
+    for part in grad_parts(*q.shape[:2]):
+        grad_part(q, k, v, g, window, part, grads)
     return grads
+
+
+def grad_parts(BH: int, S: int) -> list[slice]:
+    """The backward's slices of BH, of at most ``GRAD_SCORES`` scores each:
+    equal ones, then a ragged last one where BH does not divide."""
+    step = max(1, GRAD_SCORES // (S * S))
+    return [slice(i, min(i + step, BH)) for i in range(0, BH, step)]
+
+
+def grad_part(q, k, v, g, window: int, part: slice, grads):
+    """Write the gradients of slice ``part`` of BH into ``grads``."""
+    with torch.enable_grad():
+        qs, ks, vs = (t[part].detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_ref(qs, ks, vs, window=window)
+        for whole, d in zip(grads, torch.autograd.grad(out, (qs, ks, vs), g[part])):
+            whole[part] = d
 
 
 flash_attention.launches = 0  # every launch

@@ -26,14 +26,25 @@ TPU's divisibility assert is not kept; ``bm/bn/bk`` are accepted for the
 reference's signature and do not change the result.  Leading batch
 dimensions are the mesh members of a stacked mesh: one launch covers them
 all (the counterpart of ``vmap(gemm)``).
+
+Binding: the kernel is also the opaque op ``torch.ops.repro_torch.gemm``
+(``torch.library.custom_op``), whose CUDA implementation is the launch
+that a run calls directly (``_build.traced``); a trace goes through the
+op, whose fake implementation gives the output's shape, so a trace
+under ``FakeTensorMode`` or on meta tensors (the dry run,
+``launch/dryrun.py``) never reaches ``data_ptr()`` or the library, and
+its FLOP formula (``torch.utils.flop_counter``) is 2 * batch * M * N * K.
+``gemm.launches`` counts real launches only.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gemm_ref
@@ -93,7 +104,8 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
     from bfloat16) and take the float32 route, as the reference casts each
     block to f32 on load; the result is cast to a's dtype.  A CPU tensor
     runs the plain version; a CUDA tensor launches the kernel that
-    :func:`gemm_route` names, or raises.
+    :func:`gemm_route` names, or raises (a fake or meta tensor of a trace
+    gets the output's shape from the op, and nothing launches).
     ``_route`` forces one route, for timing the two against each other on
     the card; a shape outside the forced route's rule raises.
     """
@@ -119,23 +131,33 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
                     _route=_route).to(a.dtype)
     if a.device.type == "cpu":
         return gemm_ref(a, b, c, accumulate=c is not None)
-    if a.device.type != "cuda":
-        raise ValueError(f"gemm: unsupported device {a.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gemm: operands must be contiguous")
+    if _route is not None and (_route not in ROUTES or (
+            _route == "tensor_core" and gemm_route(a.dtype, K, N) != _route)):
+        raise ValueError(f"gemm: route {_route!r} does not take {a.dtype} K={K} N={N}")
+    return (torch.ops.repro_torch.gemm if _build.traced(*tensors) else _launch)(a, b, c, _route)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
+            route: Optional[str]) -> torch.Tensor:
+    """The launch on the card: the kernel that :func:`gemm_route` names, or
+    the forced ``route``."""
+    batch, (M, K), N = a.shape[:-2], a.shape[-2:], b.shape[-1]
     out = torch.empty((*batch, M, N), dtype=a.dtype, device=a.device)
     nb = math.prod(batch)
+    tensors = (a, b) if c is None else (a, b, c)
     ptrs = [t.data_ptr() for t in (*tensors, out)]
-    route = gemm_route(a.dtype, K, N, ptrs)
-    if _route is not None:
-        if _route not in ROUTES or (_route == "tensor_core" and route != _route):
-            raise ValueError(f"gemm: route {_route!r} does not take {a.dtype} "
+    chosen = gemm_route(a.dtype, K, N, ptrs)
+    if route is not None:
+        if route == "tensor_core" and chosen != route:
+            raise ValueError(f"gemm: route {route!r} does not take {a.dtype} "
                              f"K={K} N={N} at these addresses")
-        route = _route
+        chosen = route
     c_ptr = None if c is None else c.data_ptr()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        if route == "tensor_core":
+        if chosen == "tensor_core":
             rc = _build.library().repro_gemm_wgmma(
                 a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), nb, M, N, K, stream)
         else:
@@ -143,10 +165,25 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
             rc = _build.library().repro_gemm(
                 a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), DTYPES[a.dtype], nb, M, N, K,
                 M * K, K * N, M * N, M * N, tile, int(vector), stream)
-    _build.check(rc, f"gemm ({route})")
+    _build.check(rc, f"gemm ({chosen})")
     gemm.launches += 1
-    gemm.route_launches[route] += 1
+    gemm.route_launches[chosen] += 1
     return out
+
+
+_gemm_op = torch.library.custom_op("repro_torch::gemm", mutates_args=(),
+                                   device_types="cuda")(_launch)
+
+
+@_gemm_op.register_fake
+def _(a, b, c, route):
+    return a.new_empty(a.shape[:-1] + b.shape[-1:])
+
+
+@register_flop_formula(torch.ops.repro_torch.gemm)
+def gemm_flops(a_shape, b_shape, c_shape=None, route=None, *, out_shape=None, **_) -> int:
+    """2 * batch * M * N * K: the products' multiply-adds."""
+    return 2 * math.prod(a_shape[:-1]) * a_shape[-1] * b_shape[-1]
 
 
 gemm.launches = 0  # every launch

@@ -23,6 +23,15 @@ detaches it first, as ``jax.nn.logsumexp`` stops the gradient of its
 max).  ``reduce_nway.backward_launches`` counts, apart from the forward's,
 the launches made by a backward pass: the transposes of the mesh's
 collectives that end in a sum (``core/mesh.py``) add them there.
+
+Binding: the kernel is also the opaque op ``torch.ops.repro_torch.reduce_nway``
+(``torch.library.custom_op``), whose CUDA implementation is the launch
+that a run calls directly (``_build.traced``); a trace goes through the
+op, whose fake implementation gives the output's shape, so a trace
+under ``FakeTensorMode`` or on meta tensors (the dry run,
+``launch/dryrun.py``) never reaches ``data_ptr()`` or the library, and
+its FLOP formula (``torch.utils.flop_counter``) is (N - 1) * M for N rows
+of M.  ``reduce_nway.launches`` counts real launches only.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import reduce_nway_ref
@@ -48,7 +58,8 @@ def reduce_nway(x, *, op: str = "add", bs: int = 512, dim: int = 0):
     mesh's ``psum`` reduces a middle dim in place, with no transpose).
     ``bs`` is the TPU's column tile and does not change the result.  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel or
-    raises.
+    raises (a fake or meta tensor of a trace gets the output's shape from
+    the op, and nothing launches).
     """
     del bs
     if op not in OPS:
@@ -66,15 +77,19 @@ def reduce_nway(x, *, op: str = "add", bs: int = 512, dim: int = 0):
 
 
 def _reduce(x, op: str, dim: int):
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    """The kernel on a CUDA tensor (its op under a trace), the plain version on
+    a CPU one."""
     if x.dtype == torch.bool:
         return _reduce(x.to(torch.int32), op, dim).to(torch.bool)
     if x.device.type == "cpu":
         return reduce_nway_ref(x, op, dim)
-    if x.device.type != "cuda":
-        raise ValueError(f"reduce_nway: unsupported device {x.device}")
     if not x.is_contiguous():
         raise ValueError("reduce_nway: input must be contiguous")
+    return (torch.ops.repro_torch.reduce_nway if _build.traced(x) else _launch)(x, op, dim)
+
+
+def _launch(x: torch.Tensor, op: str, dim: int) -> torch.Tensor:
+    """The launch on the card."""
     shape = x.shape
     out = torch.empty(shape[:dim] + shape[dim + 1:], dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -85,6 +100,22 @@ def _reduce(x, op: str, dim: int):
     _build.check(rc, "reduce_nway")
     reduce_nway.launches += 1
     return out
+
+
+_reduce_op = torch.library.custom_op("repro_torch::reduce_nway", mutates_args=(),
+                                     device_types="cuda")(_launch)
+
+
+@_reduce_op.register_fake
+def _(x, op, dim):
+    return x.new_empty(x.shape[:dim] + x.shape[dim + 1:])
+
+
+@register_flop_formula(torch.ops.repro_torch.reduce_nway)
+def reduce_nway_flops(x_shape, op=None, dim=0, *, out_shape=None, **_) -> int:
+    """(N - 1) * M: one add (max, and) per element of each row but the first."""
+    n = x_shape[dim]
+    return (n - 1) * (math.prod(x_shape) // n)
 
 
 class ReduceAdd(torch.autograd.Function):

@@ -24,11 +24,22 @@ assert is not kept (serving pads each wave to its longest prompt), and
 
 Gradient: :class:`RglruScan`; its backward is the same kernel run over
 reversed time.
+
+Binding: the kernel is also the opaque op ``torch.ops.repro_torch.rglru_scan``
+(``torch.library.custom_op``), whose CUDA implementation is the launch
+that a run calls directly (``_build.traced``); a trace goes through the
+op, whose fake implementation gives the output's shape, so a trace
+under ``FakeTensorMode`` or on meta tensors (the dry run,
+``launch/dryrun.py``) never reaches ``data_ptr()`` or the library, and
+its FLOP formula (``torch.utils.flop_counter``) is the recurrence's
+multiply and add, 2 * B * S * W.  ``rglru_scan.launches`` counts real
+launches only.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rglru_scan_ref, wide
@@ -59,7 +70,9 @@ def rglru_scan(a, b, *, chunk: int = 128):
 
     a and b of mixed float dtypes are cast to float32 (exact from
     bfloat16), as the reference casts both to f32 on load.  A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernel or raises.
+    runs the plain version; a CUDA tensor launches the kernel or raises (a
+    fake or meta tensor of a trace gets the output's shape from the op, and
+    nothing launches).
     The output carries a gradient (:class:`RglruScan`).
     """
     del chunk  # the TPU's chunk; the CUDA kernel tiles itself
@@ -73,17 +86,21 @@ def rglru_scan(a, b, *, chunk: int = 128):
                         "need float32 or bfloat16 for both")
     if b.dtype != a.dtype:
         return rglru_scan(a.float(), b.float()).to(a.dtype)
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rglru_scan: unsupported device {a.device}")
-    if a.device.type == "cuda" and not (a.is_contiguous() and b.is_contiguous()):
+    if a.device.type != "cpu" and not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("rglru_scan: operands must be contiguous")
     return RglruScan.apply(a, b)
 
 
 def _scan(a, b):
-    """The plain version on the CPU; on the card, the kernel."""
+    """The plain version on the CPU; on the card, the kernel (its op under a
+    trace)."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
+    return (torch.ops.repro_torch.rglru_scan if _build.traced(a, b) else _launch)(a, b)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The launch on the card."""
     B, S, W = a.shape
     out = torch.empty_like(a)
     dtype = DTYPES[a.dtype]
@@ -96,6 +113,22 @@ def _scan(a, b):
     _build.check(rc, "rglru_scan")
     rglru_scan.launches += 1
     return out
+
+
+_scan_op = torch.library.custom_op("repro_torch::rglru_scan", mutates_args=(),
+                                   device_types="cuda")(_launch)
+
+
+@_scan_op.register_fake
+def _(a, b):
+    return torch.empty_like(a)
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def rglru_scan_flops(a_shape, b_shape=None, *, out_shape=None, **_) -> int:
+    """2 * B * S * W: h_t = a_t h_{t-1} + b_t, one multiply and one add."""
+    B, S, W = a_shape
+    return 2 * B * S * W
 
 
 class RglruScan(torch.autograd.Function):
@@ -124,9 +157,9 @@ def rglru_scan_grad(a, h, g):
     """(da, db) of h = rglru_scan(a, b) against h's gradient ``g``, in a's dtype."""
     a32 = wide(a)
     a_next = torch.cat([a32[:, 1:], torch.zeros_like(a32[:, :1])], dim=1)
+    before = rglru_scan.launches
     gp = _scan(a_next.flip(1), wide(g).flip(1)).flip(1)
-    if a.device.type == "cuda":
-        rglru_scan.backward_launches += 1
+    rglru_scan.backward_launches += rglru_scan.launches - before
     h_prev = torch.cat([torch.zeros_like(gp[:, :1]), wide(h)[:, :-1]], dim=1)
     return (gp * h_prev).to(a.dtype), gp.to(a.dtype)
 

@@ -27,13 +27,24 @@ recurrence there.  The last chunk may be ragged: the reference's
 
 Gradient: :class:`Wkv` runs the kernel forward and differentiates a
 chunked plain form that stays finite over the whole decay range.
+
+Binding: the kernel is also the opaque op ``torch.ops.repro_torch.wkv``
+(``torch.library.custom_op``), whose CUDA implementation is the launch
+that a run calls directly (``_build.traced``); a trace goes through the
+op, whose fake implementation gives the outputs' shapes, so a trace
+under ``FakeTensorMode`` or on meta tensors (the dry run,
+``launch/dryrun.py``) never reaches ``data_ptr()`` or the library, and
+its FLOP formula (``torch.utils.flop_counter``) is the bound's count,
+:func:`wkv_flops`.  ``wkv.launches`` counts real launches only.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import wkv_chunked_ref, wkv_ref
@@ -48,7 +59,8 @@ def wkv(r, k, v, logw, u, state0=None):
 
     Returns (out (B, S, H, hd) in r's dtype, final state (B, H, hd, hd)
     f32).  A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel or raises.  Both outputs carry gradients (:class:`Wkv`).
+    kernel or raises (a fake or meta tensor of a trace gets the outputs'
+    shapes from the op, and nothing launches).  Both outputs carry gradients (:class:`Wkv`).
     """
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"wkv: r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
@@ -66,9 +78,7 @@ def wkv(r, k, v, logw, u, state0=None):
                         "need one of float32, bfloat16 for all three")
     if logw.dtype != torch.float32 or (state0 is not None and state0.dtype != torch.float32):
         raise TypeError("wkv: logw and state0 must be float32")
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"wkv: unsupported device {r.device}")
-    if r.device.type == "cuda":
+    if r.device.type != "cpu":
         if hd not in HEAD_DIMS:
             raise ValueError(f"wkv: head dim {hd} not in {HEAD_DIMS}")
         if not all(t.is_contiguous() for t in (r,) + operands):
@@ -77,9 +87,17 @@ def wkv(r, k, v, logw, u, state0=None):
 
 
 def _wkv(r, k, v, logw, u, state0):
-    """The plain version on the CPU; on the card, the kernel."""
+    """The plain version on the CPU; on the card, the kernel (its op under a
+    trace)."""
     if r.device.type == "cpu":
         return wkv_ref(r, k, v, logw, u, state0)
+    launch = torch.ops.repro_torch.wkv if _build.traced(r, k, v, logw, u, state0) else _launch
+    return launch(r, k, v, logw, u, state0)
+
+
+def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+            u: torch.Tensor, state0: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launch on the card."""
     B, S, H, hd = r.shape
     # The kernel stages its operands by 16-byte copies: an operand that is a
     # view at an unaligned offset is copied to a fresh (aligned) tensor.
@@ -95,6 +113,32 @@ def _wkv(r, k, v, logw, u, state0):
     _build.check(rc, "wkv")
     wkv.launches += 1
     return out, state
+
+
+_wkv_op = torch.library.custom_op("repro_torch::wkv", mutates_args=(),
+                                 device_types="cuda")(_launch)
+
+
+@_wkv_op.register_fake
+def _(r, k, v, logw, u, state0):
+    B, S, H, hd = r.shape
+    return torch.empty_like(r), r.new_empty((B, H, hd, hd), dtype=torch.float32)
+
+
+def wkv_flops(B: int, S: int, H: int, hd: int) -> int:
+    """Flops of the chunked WKV: per chunk of n tokens (64, the last one
+    ragged), 4 hd per live pair s <= t (the decayed r . k and P @ V) and
+    4 hd^2 per token (r . state and the state update)."""
+    total = 0
+    for t0 in range(0, S, 64):
+        n = min(64, S - t0)
+        total += 2 * hd * n * (n + 1) + 4 * hd * hd * n
+    return B * H * total
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv)
+def _wkv_op_flops(r_shape, *args, out_shape=None, **_) -> int:
+    return wkv_flops(*r_shape)
 
 
 class Wkv(torch.autograd.Function):

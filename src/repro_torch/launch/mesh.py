@@ -1,12 +1,25 @@
 """Mesh helpers of the launch tooling (``src/repro/launch/mesh.py``).
 
-``batch_axes`` and ``axis_sizes`` read either of the port's meshes
-(``core.mesh.Mesh`` or ``RankMesh``): its ``axis_names`` and ``shape``.
-The production mesh constructor comes with the dry-run tooling
-(ROADMAP.md).
+``make_production_mesh`` is a function, not a module-level constant, as in
+the reference: it builds a stacked ``core.mesh.Mesh``, which allocates
+nothing; the dry run traces over it on meta or fake tensors, so its 256 or
+512 members cost no memory.  ``batch_axes`` and ``axis_sizes`` read either
+of the port's meshes (``core.mesh.Mesh`` or ``RankMesh``): its
+``axis_names`` and ``shape``.
 """
 
 from __future__ import annotations
+
+from repro_torch.core.mesh import Mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """16x16 = 256 members per pod; multi_pod adds a leading 2-pod axis.
+    ``device`` as ``Mesh`` takes it (None means CUDA, and raises without a
+    card)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, device=device)
 
 
 def batch_axes(mesh) -> tuple[str, ...]:

@@ -27,6 +27,14 @@ before ``P @ V``; the kernel, like the TPU kernel, keeps them in f32.  In
 bf16 the port therefore differs from the reference model by one rounding
 per layer; in f32 (the CPU tests' smoke configs) the two agree.
 
+``cfg.attn_bf16_logits`` (the reference's lever): the logits are a bf16
+product, scaled by the scale rounded to bf16, masked with -3e38 and
+softmaxed in bf16 (``_sdpa_block``, ``_sdpa_flat``); causal
+self-attention then takes that plain path (``_sdpa`` under the causal,
+windowed mask), unsharded and in the ``_tp`` bodies, as the reference
+does, since the flash kernel softmaxes in f32.  It writes (B, H, S, S)
+scores.
+
 The decode cache is updated in place (``KVCache`` tensors are written at
 ``pos``), where the reference's ``dynamic_update_slice`` returns a new
 array: the returned cache holds the same tensors, and no copy of the cache
@@ -46,17 +54,27 @@ them from the gathered K and V.  The cache is laid out by
 ``policy.kv_dims`` (the reference's ``launch/steps.py:_kv_dim_specs``): on
 kv heads, else on ``head_dim``, where decode sums the members' partial
 logits over the axis.
+
+The long-context decode (``policy.cache_seq_axis``, the transformer's
+``long_500k`` cell): the cache's sequence dim is cut over that axis too,
+member j holding positions [j S_l, (j + 1) S_l).  The new k and v go into
+the member that owns slot ``pos``; each member attends over its block
+and the blocks merge by their log-sum-exp: the row maximum by a ``pmax``
+over the axis, then a ``psum`` of the denominators and of the weighted
+values.
 """
 
 from __future__ import annotations
 
 import math
+import struct
 from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import mesh as M
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import (REPLICATED, ModelConfig, ShardingPolicy, check_supported,
+from repro_torch.models.common import (REPLICATED, ModelConfig, ShardingPolicy,
                                        dense_init)
 from repro_torch.models.parallel import Members, is_sharded
 from repro_torch.models.rope import apply_rope
@@ -120,15 +138,34 @@ def _scale(hd: int) -> float:
     return 1.0 / math.sqrt(hd)
 
 
+def _bf16(x: float) -> float:
+    """``x`` rounded to bfloat16 (to nearest, ties to even), as a float."""
+    bits = struct.unpack("<I", struct.pack("<f", x))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+BF16_NEG_INF = -3.0e38  # the reference's mask value of bf16 logits
+
+
+def _masked_logits(eq: str, q, k, mask, cfg: ModelConfig):
+    """``einsum(eq, q, k)`` times the scale, under ``mask``: in f32, or in
+    bf16 with the scale rounded to bf16 under ``cfg.attn_bf16_logits``."""
+    hd = q.shape[-1]
+    if cfg.attn_bf16_logits:
+        logits = torch.einsum(eq, q.bfloat16(), k.bfloat16()) * _bf16(_scale(hd))
+        return torch.where(mask, logits, BF16_NEG_INF)
+    logits = torch.einsum(eq, q.float(), k.float()) * _scale(hd)
+    return torch.where(mask, logits, NEG_INF)
+
+
 def _sdpa_block(q5, k, v, mask, cfg: ModelConfig):
     """Grouped-query attention without repeating K/V (the decode path).
 
     q5: (B, Sq, Hkv, G, hd); k, v: (B, Sk, Hkv, hd); mask: (B|1, 1, Sq, Sk).
     """
     B, Sq, Hkv, G, hd = q5.shape
-    logits = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k.float()) * _scale(hd)
-    logits = torch.where(mask[:, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(_masked_logits("bqkgd,bskd->bkgqs", q5, k, mask[:, None], cfg), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(cfg.compute_dtype), v)
     return out.reshape(B, Sq, Hkv * G * hd)
 
@@ -154,15 +191,14 @@ def _causal_flash(q, k, v, window: int):
 
 def _sdpa_flat(q, k, v, mask, cfg: ModelConfig):
     """Repeat-KV attention with flat heads, plain (the bidirectional and
-    cross-attention path).  q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd);
-    mask: (B|1, 1, Sq, Sk) bool.  Returns (B, Sq, H * hd)."""
+    cross-attention path, and causal attention with bf16 logits).
+    q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd); mask: (B|1, 1, Sq, Sk) bool.
+    Returns (B, Sq, H * hd)."""
     B, Sq, H, hd = q.shape
     group = H // k.shape[2]
     k = k.repeat_interleave(group, dim=2)
     v = v.repeat_interleave(group, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(hd)
-    logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(_masked_logits("bqhd,bkhd->bhqk", q, k, mask, cfg), dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.compute_dtype), v)
     return out.reshape(B, Sq, H * hd)
 
@@ -187,17 +223,26 @@ def causal_window_mask(Sq: int, Sk: int, window: int, offset: int = 0, device=No
     return m[None, None]
 
 
+def _causal(q, k, v, window: int, cfg: ModelConfig):
+    """Causal self-attention (B, S, H * hd): the flash kernel, or with
+    ``cfg.attn_bf16_logits`` the plain bf16-logit path under the causal,
+    windowed mask, as the reference computes it."""
+    if cfg.attn_bf16_logits:
+        S = q.shape[1]
+        return _sdpa(q, k, v, causal_window_mask(S, S, window, device=q.device), cfg)
+    return _causal_flash(q, k, v, window)
+
+
 def self_attention(params, x, positions, cfg: ModelConfig, *, window: int = 0):
     """Causal self-attention before the output projection.
 
     Returns (out (B, S, H * hd), k after RoPE, v), the last two for the
     prefill's cache.
     """
-    check_supported(cfg)
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return _causal_flash(q, k, v, window), k, v
+    return _causal(q, k, v, window, cfg), k, v
 
 
 def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0,
@@ -210,7 +255,6 @@ def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0,
             return unmasked_attention_tp(params, x, None, cfg, mb)
         return self_attention_tp(params, x, positions, cfg, window, mb)[0]
     if bidirectional:
-        check_supported(cfg)
         S = x.shape[1]
         q, k, v = _qkv(params, x, cfg)
         mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
@@ -223,7 +267,6 @@ def attention(params, x, positions, cfg: ModelConfig, *, window: int = 0,
 def cross_attention(params, x, memory, cfg: ModelConfig,
                     policy: ShardingPolicy = REPLICATED):
     """Decoder cross-attention onto encoder memory (whisper), unmasked."""
-    check_supported(cfg)
     if is_sharded(policy):
         return unmasked_attention_tp(params, x, memory, cfg, Members(policy))
     B, Sq, _ = x.shape
@@ -259,7 +302,6 @@ def attention_decode(params, x, layer_cache: KVCache, pos: int, cfg: ModelConfig
 
     x: (B, 1, d); layer_cache k/v: (B, S_max, n_kv, hd).  Returns (out, cache).
     """
-    check_supported(cfg)
     if is_sharded(policy):
         return _attention_decode_tp(params, x, layer_cache, pos, cfg, window, Members(policy))
     B = x.shape[0]
@@ -346,13 +388,12 @@ def self_attention_tp(params, x, positions, cfg: ModelConfig, window: int, mb: M
     again by the reduction after ``wo``.  Returns (out, k after RoPE, v),
     the last two in the cache layout, over the whole of S.
     """
-    check_supported(cfg)
     q, k, v, q_own, kv_own = _qkv_tp(params, mb.gather_seq(x), cfg, mb)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     fold = (lambda t: t.flatten(0, mb.k))  # the mesh dims into the batch
-    o = _causal_flash(fold(q), fold(_kv_for_q(k, q_own, kv_own, cfg, mb)),
-                      fold(_kv_for_q(v, q_own, kv_own, cfg, mb)), window)
+    o = _causal(fold(q), fold(_kv_for_q(k, q_own, kv_own, cfg, mb)),
+                fold(_kv_for_q(v, q_own, kv_own, cfg, mb)), window, cfg)
     o = o.reshape(q.shape[:-2] + (-1,))
     out = _out_tp(o, params, cfg, mb, q_own)
     return out, _to_cache(k, kv_own, cfg, mb), _to_cache(v, kv_own, cfg, mb)
@@ -365,7 +406,6 @@ def unmasked_attention_tp(params, x, memory, cfg: ModelConfig, mb: Members):
     ``memory`` (*lead, B, Sk, d), which every member holds whole.  ``x``
     as in :func:`self_attention_tp`: the member's block of S under sequence
     parallelism is gathered first, and the sum scattered on S after."""
-    check_supported(cfg)
     q, k, v, q_own, kv_own = _qkv_tp(params, mb.gather_seq(x), cfg, mb, memory)
     fold = (lambda t: t.flatten(0, mb.k))  # the mesh dims into the batch
     mask = torch.ones((1, 1, q.shape[-3], k.shape[-3]), dtype=torch.bool, device=x.device)
@@ -384,7 +424,9 @@ def _attention_decode_tp(params, x, layer_cache: KVCache, pos: int, cfg: ModelCo
     axis and each member's slice of the output gathered; otherwise every
     member attends over the whole cache.  A ``rolling`` cache (the
     hybrid's local attention) holds position p in slot ``p % S_max`` and
-    attends over the last ``S_max`` positions.
+    attends over the last ``S_max`` positions.  With
+    ``policy.cache_seq_axis`` the cache holds the member's block of the
+    positions along that axis (:func:`_seq_split_attend`).
     """
     cd = cfg.compute_dtype
     q, k_new, v_new, q_own, kv_own = _qkv_tp(params, x, cfg, mb)
@@ -393,16 +435,29 @@ def _attention_decode_tp(params, x, layer_cache: KVCache, pos: int, cfg: ModelCo
     k_new = apply_rope(k_new, at, cfg.rope_theta)
     seq = mb.k + 1  # the cache's position dim
     S_max = layer_cache.k.shape[seq]
-    slot = pos % S_max if rolling else pos
-    layer_cache.k.select(seq, slot).copy_(_to_cache(k_new, kv_own, cfg, mb).select(seq, 0))
-    layer_cache.v.select(seq, slot).copy_(_to_cache(v_new, kv_own, cfg, mb).select(seq, 0))
     ki = torch.arange(S_max, device=x.device)
+    split = mb.policy.cache_seq_axis
+    k_new, v_new = (_to_cache(t, kv_own, cfg, mb).select(seq, 0) for t in (k_new, v_new))
+    if split is not None:  # slot pos on its owner, the others' slots as they are
+        if rolling:
+            raise NotImplementedError("a rolling cache is not cut on its sequence")
+        owner, slot = divmod(pos, S_max)
+        mine = M.axis_index(split) == owner
+        for cache, new in ((layer_cache.k, k_new), (layer_cache.v, v_new)):
+            old = cache.select(seq, slot)
+            old.copy_(torch.where(M.lift(mine, old), new, old))
+        ki = (M.axis_index(split) * S_max)[..., None] + ki  # global positions
+    else:
+        slot = pos % S_max if rolling else pos
+        layer_cache.k.select(seq, slot).copy_(k_new)
+        layer_cache.v.select(seq, slot).copy_(v_new)
     if rolling:
         valid = rolling_valid(ki, pos, S_max)
     else:
         valid = ki <= pos
         if window > 0:
             valid = valid & (ki > pos - window)
+    valid = valid.reshape(valid.shape[:-1] + (1, 1, 1, 1) + valid.shape[-1:])  # (*lead, .., S)
     kv_s, hd_s = mb.policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
     K, V = layer_cache.k.to(cd), layer_cache.v.to(cd)
     if kv_s is None and q_own:  # the cache holds every kv head: so must q
@@ -410,16 +465,34 @@ def _attention_decode_tp(params, x, layer_cache: KVCache, pos: int, cfg: ModelCo
         q_own = False
     Hkv = K.shape[-2]
     q5 = q.unflatten(-2, (Hkv, -1))  # (*lead, B, 1, Hkv, G, hd)
+    eq = "...qkgd,...skd->...kgqs"
     if kv_s is None and hd_s is not None:
-        part = torch.einsum("...qkgd,...skd->...kgqs", mb.block(q5, -1).float(), K.float())
+        part = torch.einsum(eq, mb.block(q5, -1).float(), K.float())
         logits = mb.psum(part) * _scale(cfg.head_dim)
+        if cfg.attn_bf16_logits:
+            logits = logits.bfloat16()
+        logits = torch.where(valid, logits, BF16_NEG_INF if cfg.attn_bf16_logits else NEG_INF)
     else:
-        logits = torch.einsum("...qkgd,...skd->...kgqs", q5.float(), K.float()) \
-            * _scale(cfg.head_dim)
-    logits = torch.where(valid, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    o = torch.einsum("...kgqs,...skd->...qkgd", probs.to(cd), V)
+        logits = _masked_logits(eq, q5, K, valid, cfg)
+    if split is None:
+        probs = torch.softmax(logits, dim=-1)
+        o = torch.einsum("...kgqs,...skd->...qkgd", probs.to(cd), V)
+    else:
+        o = _seq_split_attend(logits, V, split).to(cd)
     if kv_s is None and hd_s is not None:
         o = mb.gather(o, -1)
     out = _out_tp(o.flatten(-3), params, cfg, mb, q_own)
     return out, layer_cache
+
+
+def _seq_split_attend(logits, V, axis: str):
+    """softmax(logits) @ V over a key dim cut over ``axis``: each member's
+    logits (*lead, B, kv, g, 1, S_l) and values (*lead, B, S_l, kv, hd)
+    are its block of the keys.  The row maximum is a ``pmax`` over the
+    axis, the denominators and the weighted values are ``psum``'d: the
+    log-sum-exp merge, in f32.  Returns (*lead, B, 1, kv, g, hd)."""
+    shift = M.pmax(logits.detach().amax(-1, keepdim=True), axis)
+    p = torch.exp((logits - shift).float())
+    den = M.psum(p.sum(-1), axis)                                       # (..., kv, g, 1)
+    o = M.psum(torch.einsum("...kgqs,...skd->...qkgd", p, V.float()), axis)
+    return o / den.movedim(-1, -3)[..., None]

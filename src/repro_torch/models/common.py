@@ -6,9 +6,10 @@ layer in the backward pass (:func:`maybe_remat`, ``torch.utils.checkpoint``
 in place of ``jax.checkpoint``); the JAX-only knob ``scan_layers`` is
 accepted and changes nothing (the port runs its layers in a Python loop);
 ``attn_q_chunk`` only bounds memory in the reference, and the flash kernel
-already works in blocks, so it is ignored too.  ``attn_bf16_logits``
-changes the numbers and is not ported: a model built with it raises
-``NotImplementedError``.
+already works in blocks, so it is ignored too.  ``attn_bf16_logits`` is
+the reference's: attention logits, their scale, mask and softmax in bf16
+(``models/attention.py``); causal self-attention then takes the plain
+bf16-logit path in place of the flash kernel, which softmaxes in f32.
 ``ShardingPolicy`` and ``REPLICATED`` are the reference's, with a spec as
 the plain tuple that ``core.mesh.shard`` / ``unshard`` take (an entry is
 ``None``, an axis name or a tuple of names) in place of ``PartitionSpec``.
@@ -65,7 +66,7 @@ class ModelConfig:
     encoder_len: int = 1500
     # memory-only in the reference; ignored here (the kernel is blockwise)
     attn_q_chunk: int = 0
-    # bf16 logits change the numbers; not ported (raises)
+    # attention logits and softmax in bf16 (the plain path, not the kernel)
     attn_bf16_logits: bool = False
     moe_token_shard: bool = True
     # numerics
@@ -159,6 +160,12 @@ class ShardingPolicy:
     # reads it; it is kept for the dry-run tooling (ROADMAP.md), whose
     # reference steps and hill-climb set it through ``make_policy``.
     align_decode_cache: bool = False
+    # The port's own: the KV cache's sequence dim laid out over this axis
+    # (the long-context decode cell, where the reference's
+    # ``launch/steps.py:cache_specs`` lays the cache out so and GSPMD does
+    # the rest): each member attends over its block of the cache, and the
+    # blocks merge by their log-sum-exp (``models/attention.py``).
+    cache_seq_axis: Optional[str] = None
 
     def kv_dims(self, n_kv: int, head_dim: int):
         """(kv_spec, hd_spec) for cache dims: prefer kv heads, else head_dim."""
@@ -212,12 +219,6 @@ class ShardingPolicy:
 
 
 REPLICATED = ShardingPolicy(batch_axes=(), model_axis=None)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config field whose numbers the port does not reproduce."""
-    if cfg.attn_bf16_logits:
-        raise NotImplementedError("attn_bf16_logits is not ported (see ROADMAP.md)")
 
 
 def rms_norm(x, scale, eps: float = 1e-6):

@@ -61,7 +61,6 @@ from repro_torch.models.common import (
     REPLICATED,
     ModelConfig,
     ShardingPolicy,
-    check_supported,
     chunked_cross_entropy,
     dense_init,
     embed_init,
@@ -114,7 +113,6 @@ class Hybrid(nn.Module):
     def __init__(self, cfg: ModelConfig, embed, layers: list[Layer], final_norm,
                  trainable: bool = False):
         super().__init__()
-        check_supported(cfg)
         if [layer.kind for layer in layers] != _kinds(cfg):
             raise ValueError(f"layer kinds {[layer.kind for layer in layers]} do not follow "
                              f"the pattern {_kinds(cfg)}")

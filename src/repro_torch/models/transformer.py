@@ -45,6 +45,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch.core import mesh as M
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import KVCache
@@ -52,7 +53,6 @@ from repro_torch.models.common import (
     REPLICATED,
     ModelConfig,
     ShardingPolicy,
-    check_supported,
     chunked_cross_entropy,
     embed_init,
     maybe_remat,
@@ -105,7 +105,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, embed, blocks: list[Block], final_norm,
                  lm_head=None, trainable: bool = False):
         super().__init__()
-        check_supported(cfg)
         if len(blocks) != cfg.n_layers:
             raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
         if (lm_head is None) != cfg.tie_embeddings:
@@ -176,9 +175,10 @@ def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
 
 
 def cache_spec(cfg: ModelConfig, policy: ShardingPolicy) -> tuple:
-    """The layout of the KV cache's k and v, (L, B, S_max, kv, hd)."""
+    """The layout of the KV cache's k and v, (L, B, S_max, kv, hd): the
+    sequence over ``policy.cache_seq_axis`` (the long-context decode)."""
     kv_s, hd_s = policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
-    return (None, policy.batch_axes or None, None, kv_s, hd_s)
+    return (None, policy.batch_axes or None, policy.cache_seq_axis, kv_s, hd_s)
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +344,7 @@ def _prefill_tp(model: Transformer, tokens, cfg: ModelConfig, max_len: int, mb: 
     x = vocab_embed(model.embed, tokens, cfg, mb)
     S = tokens.shape[-1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    split = mb.policy.cache_seq_axis
     cache = None
     at = (slice(None),) * mb.k
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows_list(cfg))):
@@ -351,12 +352,23 @@ def _prefill_tp(model: Transformer, tokens, cfg: ModelConfig, max_len: int, mb: 
         o, kr, v = attn_mod.self_attention_tp(blk.attn, h, positions, cfg, window, mb)
         x = x + o
         x = x + blk.ffn(rms_norm_tp(x, blk.norm2, cfg, mb), cfg, mb.policy)[0]
-        if cache is None:  # (*lead, L, B, max_len, kv, hd), kv or hd the member's
+        if split is not None:  # the member's block of [0, max_len) along ``split``
+            kr, v = (M.block_of(_pad_seq(t, max_len), (split,), 1) for t in (kr, v))
+        if cache is None:  # (*lead, L, B, S_l, kv, hd), kv or hd the member's
             shape = kr.shape[:mb.k] + (cfg.n_layers, kr.shape[mb.k], max_len) + kr.shape[-2:]
+            if split is not None:
+                shape = shape[:-3] + kr.shape[-3:]
             cache = KVCache(k=kr.new_zeros(shape), v=v.new_zeros(shape))
-        cache.k[at + (i, slice(None), slice(0, S))] = kr
-        cache.v[at + (i, slice(None), slice(0, S))] = v
+        end = kr.shape[-3]
+        cache.k[at + (i, slice(None), slice(0, end))] = kr
+        cache.v[at + (i, slice(None), slice(0, end))] = v
     return _logits_tp(model, x, cfg, mb), cache
+
+
+def _pad_seq(t, length: int):
+    """(*lead, B, S, kv, hd) zero-padded on S to ``length``."""
+    return torch.cat([t, t.new_zeros(t.shape[:-3] + (length - t.shape[-3],) + t.shape[-2:])],
+                     dim=-3)
 
 
 def _decode_tp(model: Transformer, cache: KVCache, tokens, pos: int, cfg: ModelConfig,

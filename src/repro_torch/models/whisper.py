@@ -50,7 +50,6 @@ from repro_torch.models.common import (
     REPLICATED,
     ModelConfig,
     ShardingPolicy,
-    check_supported,
     chunked_cross_entropy,
     dense_init,
     embed_init,
@@ -86,7 +85,6 @@ class Whisper(nn.Module):
                  dec_layers: list[dict], enc_norm: dict, dec_norm: dict,
                  trainable: bool = False):
         super().__init__()
-        check_supported(cfg)
         if cfg.family != "whisper":
             raise ValueError(f"a whisper model from a {cfg.family!r} config")
         if len(enc_layers) != (cfg.encoder_layers or cfg.n_layers) or \
@@ -199,7 +197,7 @@ def encode(model: Whisper, frames, cfg: ModelConfig, policy: ShardingPolicy = RE
     if mesh is not None:
         with mesh:
             mb = Members(policy)
-            return mb.unshard_batch(mb.gather_seq(_encode_tp(model, frames, cfg, mb)))
+            return mb.unshard_batch(_memory_tp(model, frames, cfg, mb))
     cd = cfg.compute_dtype
     x = frames.to(cd) + model.enc_pos.to(cd)[None]
     layer = maybe_remat(_enc_layer, cfg.remat)
@@ -240,7 +238,7 @@ def loss_fn(model: Whisper, batch: dict, cfg: ModelConfig, policy: ShardingPolic
     if mesh is not None:
         with mesh:
             mb = Members(policy)
-            memory = mb.gather_seq(_encode_tp(model, batch["frames"], cfg, mb))
+            memory = _memory_tp(model, batch["frames"], cfg, mb)
             x = _decoder_tp(model, batch["tokens"], memory, cfg, mb)
             loss = chunked_cross_entropy(mb.gather_seq(x), model.dec_embed,
                                          mb.shard_batch(batch["labels"]), cfg, mb)
@@ -349,6 +347,17 @@ def _encode_tp(model: Whisper, frames, cfg: ModelConfig, mb: Members):
     return _ln_tp(x, model.norms["enc_norm"], mb)
 
 
+def _memory_tp(model: Whisper, frames, cfg: ModelConfig, mb: Members):
+    """The encoder's whole output on every member (*lead, B, enc_len, d).
+    Under sequence parallelism the encoder runs on the member's block of
+    the frames, then gathered, where the model axis divides ``enc_len``;
+    else (1500 frames over 16 members) on all of them: the reference's
+    GSPMD pads an uneven split, which the port's layouts do not take."""
+    if mb.seq and frames.shape[-2] % mb.tp:
+        mb = Members(dataclasses.replace(mb.policy, seq_axis=None))
+    return mb.gather_seq(_encode_tp(model, frames, cfg, mb))
+
+
 def _dec_layer_tp(lp, x, positions, memory, cfg: ModelConfig, mb: Members):
     """One decoder layer: (x, k after RoPE, v), the last two in the cache
     layout over the whole of S.  ``memory`` is whole on every member."""
@@ -381,7 +390,7 @@ def _decoder_tp(model: Whisper, tokens, memory, cfg: ModelConfig, mb: Members, c
 def _prefill_tp(model: Whisper, batch: dict, cfg: ModelConfig, max_len: int, mb: Members):
     """The sharded prefill: the encoder's output gathered once into the
     cache's whole ``memory``, the cache in the layout of :func:`cache_spec`."""
-    memory = mb.gather_seq(_encode_tp(model, batch["frames"], cfg, mb))
+    memory = _memory_tp(model, batch["frames"], cfg, mb)
     kv_s, hd_s = mb.policy.kv_dims(cfg.n_kv_heads, cfg.head_dim)
     shape = memory.shape[:mb.k + 1] + (max_len, cfg.n_kv_heads // (mb.tp if kv_s else 1),
                                        cfg.head_dim // (mb.tp if hd_s else 1))

@@ -10,10 +10,17 @@ arguments as they are.  ``torch.optim.AdamW`` is not used: it keeps a bf16
 parameter's state in bf16 and has no global clip.  ``opt_state_specs`` gives the
 state's layout under ZeRO-1 over the data-parallel axes, as specs for
 ``core.mesh.shard`` (tuples in place of ``PartitionSpec``).
+
+``adamw_update(..., update_specs=)`` is the reference's ZeRO-1 update on
+laid-out leaves: with the state laid out by ``opt_state_specs``, each
+member updates its 1/DP block of every f32 intermediate and only the new
+parameters, in their own dtype, are gathered over the DP axes; the numbers
+are those of the update without ``update_specs``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -63,11 +70,39 @@ def global_norm(tree: dict, layout=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def zero_dim(pspec, zspec, ndim: int):
+    """(local dim, DP axes) where the state's spec ``zspec`` cuts a dim that
+    the parameter's ``pspec`` keeps whole, or None where they agree."""
+    pad = (lambda s: tuple(s) + (None,) * (ndim - len(tuple(s))))
+    for i, (a, b) in enumerate(zip(pad(pspec), pad(zspec))):
+        if a != b:
+            return i, M._axes_of(b)
+    return None
+
+
 def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, lr_scale=1.0,
-                 layout=None):
+                 layout=None, update_specs=None):
     """Returns (new params, new state, metrics {"grad_norm", "lr"}).  With
     ``layout`` (:func:`global_norm`) the leaves are laid out on a mesh and
-    the clip takes the global gradient's norm."""
+    the clip takes the global gradient's norm.
+
+    ``update_specs`` (the state's specs by name, ``opt_state_specs(...)["m"]``;
+    it needs ``layout``): each member updates its block of the leaves that
+    the specs cut over the DP axes (``core.mesh.block_of``), and the new
+    parameters are gathered (``core.mesh.gather_blocks``).  A gradient may
+    come laid out as its parameter, or already as its state (a
+    reduce-scatter's result); ``state["step"]`` may be 0-d or one value a
+    member."""
+    zero = {}
+    if update_specs is not None:
+        if layout is None:
+            raise ValueError("adamw_update: update_specs needs the layout of the parameters")
+        mesh, specs = layout
+        k = mesh.stacked
+        zero = {n: z for n, p in params.items()
+                if (z := zero_dim(specs[n], update_specs[n], p.ndim - k)) is not None}
+        cut = {n for n in zero if grads[n].shape != params[n].shape}
+        layout = (mesh, {n: update_specs[n] if n in cut else specs[n] for n in params})
     gnorm = global_norm(grads, layout)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
@@ -75,14 +110,25 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, lr_sc
     b2c = 1.0 - cfg.b2 ** step.float()
     lr = cfg.lr * lr_scale
     new_params, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k].float() * scale
-        m = cfg.b1 * state["m"][k] + (1 - cfg.b1) * g
-        v = cfg.b2 * state["v"][k] + (1 - cfg.b2) * torch.square(g)
-        p32 = p.detach().float()
-        new_p = p32 - lr * (m / b1c / (torch.sqrt(v / b2c) + cfg.eps)
-                            + cfg.weight_decay * p32)
-        new_params[k], new_m[k], new_v[k] = new_p.to(p.dtype), m, v
+    with contextlib.ExitStack() as ctx:
+        if zero:
+            ctx.enter_context(layout[0])
+        for n, p in params.items():
+            g, p32 = grads[n], p.detach()
+            dim, axes = zero.get(n, (None, ()))
+            if n in zero:
+                p32 = M.block_of(p32, axes, dim)
+                if g.shape == p.shape:
+                    g = M.block_of(g, axes, dim)
+            g, p32 = g.float() * scale, p32.float()
+            m = cfg.b1 * state["m"][n] + (1 - cfg.b1) * g
+            v = cfg.b2 * state["v"][n] + (1 - cfg.b2) * torch.square(g)
+            new_p = p32 - lr * (m / M.lift(b1c, m) / (torch.sqrt(v / M.lift(b2c, v)) + cfg.eps)
+                                + cfg.weight_decay * p32)
+            new_p = new_p.to(p.dtype)
+            if n in zero:
+                new_p = M.gather_blocks(new_p, axes, dim)
+            new_params[n], new_m[n], new_v[n] = new_p, m, v
     return new_params, {"step": step, "m": new_m, "v": new_v}, {"grad_norm": gnorm, "lr": lr}
 
 

@@ -819,3 +819,87 @@ def test_sharded_family_smoke_prefill_on_card_matches_the_host(card, arch, seq_p
     assert got.shape == (4, cfg.padded_vocab) and bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= 2e-4
     assert (got_dec - want_dec).abs().max().item() <= 2e-4
+
+
+# -- the kernels as opaque ops (torch.ops.repro_torch.*) ---------------------------
+
+
+def _op_cases(card):
+    gen = torch.Generator(device=card).manual_seed(11)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=card).to(dtype)
+
+    logw = -torch.rand(2, 130, 4, 32, generator=gen, device=card)
+    return {
+        "gemm": (lambda: gemm(rnd(2, 128, 64), rnd(2, 64, 96)), gemm,
+                 2 * 2 * 128 * 96 * 64),
+        "gemm_bf16": (lambda: gemm(rnd(2, 128, 64, dtype=torch.bfloat16),
+                                   rnd(2, 64, 96, dtype=torch.bfloat16)), gemm,
+                      2 * 2 * 128 * 96 * 64),
+        "reduce_nway": (lambda: reduce_nway(rnd(5, 3, 1000), dim=0), reduce_nway, 4 * 3000),
+        "flash_attention": (lambda: flash_attention(*(rnd(4, 200, 64, dtype=torch.bfloat16)
+                                                      for _ in range(3)), window=50),
+                            flash_attention, 4 * 64 * 4 * (50 * 51 // 2 + 150 * 50)),
+        "rglru_scan": (lambda: rglru_scan(torch.rand(2, 300, 64, generator=gen, device=card),
+                                          rnd(2, 300, 64)), rglru_scan, 2 * 2 * 300 * 64),
+        "wkv": (lambda: wkv(rnd(2, 130, 4, 32), rnd(2, 130, 4, 32), rnd(2, 130, 4, 32), logw,
+                            rnd(4, 32)), wkv, None),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemm", "gemm_bf16", "reduce_nway", "flash_attention",
+                                  "rglru_scan", "wkv"])
+def test_kernel_ops_fake_implementations_and_flop_formulas_on_card(card, name):
+    """A real launch: one launch counted, and FlopCounterMode counts the
+    op's formula.  The same call under FakeTensorMode: the same output
+    shapes and dtypes on the card's device, the same FLOPs, and nothing
+    launched (the counter stays)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.rwkv6 import wkv_flops
+
+    call, wrapper, flops = _op_cases(card)[name]
+    if flops is None:
+        flops = wkv_flops(2, 130, 4, 32)
+    before = wrapper.launches
+    with FlopCounterMode(display=False) as real_flops:
+        out = call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert real_flops.get_total_flops() == flops
+    outs = out if isinstance(out, tuple) else (out,)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        with FlopCounterMode(display=False) as fake_flops:
+            fake = call()
+    fakes = fake if isinstance(fake, tuple) else (fake,)
+    assert wrapper.launches == before + 1
+    assert fake_flops.get_total_flops() == flops
+    for f, o in zip(fakes, outs):
+        assert (f.shape, f.dtype, f.device.type) == (o.shape, o.dtype, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemm", "reduce_nway", "flash_attention", "rglru_scan", "wkv"])
+def test_a_run_launches_directly_and_a_trace_goes_through_the_op(card, name, monkeypatch):
+    """On plain card tensors outside any dispatch mode the wrapper calls the
+    op's CUDA implementation itself (one launch, the op's dispatcher entry
+    untouched); under FlopCounterMode the call goes through the op."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import _build
+
+    call, wrapper, _ = _op_cases(card)[name]
+    seen = []
+    real = _build.traced
+    monkeypatch.setattr(_build, "traced", lambda *ts: seen.append(real(*ts)) or seen[-1])
+    before = wrapper.launches
+    call()
+    assert seen == [False] and wrapper.launches == before + 1
+    with FlopCounterMode(display=False):
+        call()
+    assert seen == [False, True] and wrapper.launches == before + 2
+    x = torch.ones(3, 5, device=card)
+    assert not real(x) and real(x.to("meta")) and real(x, torch.empty(1, device="meta"))

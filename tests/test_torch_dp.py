@@ -317,8 +317,11 @@ def test_resume_gives_every_member_member0s_residuals_as_the_reference(reference
         assert torch.equal(e, live[k][:1].expand_as(e))  # member 0's, everywhere
     assert any(not torch.equal(live[k][0], live[k][1]) for k in live)
     resumed, _ = again.fit(_source(cfg), steps=6, resume=True)
-    assert [m["step"] for m in again.metrics_log] == [4, 5, 6]
-    np.testing.assert_allclose([m["loss"] for m in again.metrics_log],
+    # the steps' entries; a step slower than the straggler factor adds a
+    # flag of its own (``Trainer._watch_straggler``), as a loaded host can
+    steps = [m for m in again.metrics_log if "loss" in m]
+    assert [m["step"] for m in steps] == [4, 5, 6]
+    np.testing.assert_allclose([m["loss"] for m in steps],
                                reference["losses_resumed"], rtol=2e-5)
     want = _as_model(reference, "resumed", initial)
     for name, p in resumed.named_parameters():

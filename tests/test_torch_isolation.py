@@ -53,7 +53,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.core.noc.telemetry.collector",
             "repro_torch.core.noc.service.server", "repro_torch.launch.mesh",
             "repro_torch.launch.steps", "repro_torch.models.parallel",
-            "repro_torch.models.convert"} <= set(mods)
+            "repro_torch.models.convert", "repro_torch.launch.shapes",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hillclimb"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -206,13 +206,21 @@ def test_causal_window_mask_matches_jax():
 
 
 def test_bf16_logits_are_not_ported():
+    """Under its old name: ``attn_bf16_logits`` is ported now.  A model
+    builds with it, and causal attention with bf16 logits (the plain
+    bf16-logit path, windowed too) equals the reference's within 2e-2 of
+    max|out|, the reference's bf16 tolerance."""
     tc = dataclasses.replace(tconfigs.get_smoke_config("yi_6b"), attn_bf16_logits=True)
-    with pytest.raises(NotImplementedError, match="attn_bf16_logits"):
-        ttransformer.init(torch.Generator().manual_seed(0), tc, "cpu")
-    _, _, _, tp = _attn_params("yi_6b")
-    x, pos = torch.zeros(1, 4, tc.d_model), torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tattn.attention(tp, x, pos, tc)
+    ttransformer.init(torch.Generator().manual_seed(0), tc, "cpu")
+    jc, _, jp, tp = _attn_params("yi_6b")
+    jc = dataclasses.replace(jc, attn_bf16_logits=True)
+    B, S = 2, 24
+    x = _rand(5, (B, S, jc.d_model))
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    for window in (0, 8):
+        out = _np(tattn.attention(tp, _t(x), torch.from_numpy(pos.copy()), tc, window=window))
+        ref = _np(jattn.attention(jp, jnp.asarray(x), jnp.asarray(pos), jc, window=window))
+        assert np.abs(out - ref).max() <= 2e-2 * np.abs(ref).max()
 
 
 # -- parameters -----------------------------------------------------------------
