@@ -82,7 +82,10 @@ Phases, each of which raises on failure:
    ``flash_attention`` 48 launches a step on its wgmma route); a learning
    gate (12 steps on one repeated batch lower the loss by a nat); exact
    resume from a checkpoint (2 layers, f32); recurrentgemma-2b (6 layers)
-   and rwkv6-3b (4 layers) at full width in bf16, 6 steps each; the f32
+   and rwkv6-3b (4 layers) at full width in bf16, 6 steps each, then at
+   full depth (26 and 32 layers) 2 steps each, and whisper-base at full
+   width and depth in bf16 (2 x 2048 tokens over 1500 frames, 6 steps,
+   every flash launch on the tensor-core route); the f32
    gradient gates also of moonshot-v1-16b-a3b (2 layers, the plain run on
    the kernel run's expert choices, flips counted) and whisper-base (full
    depth, 1500 frames, 448 tokens), each printing its worst leaf;
@@ -158,8 +161,9 @@ Phases, each of which raises on failure:
    expert-parallel at capacity_factor 64 (the cross-entropy; routing pinned
    to the sharded run's, flips counted); then moonshot at 2 layers in bf16,
    sharded, 4 steps; (11c) the rank mesh under NCCL at world size 1: a
-   smoke config's sharded loss, gradients and 2 trainer steps equal to the
-   stacked mesh's;
+   smoke config's sharded loss, gradients and 2 trainer steps (losses and
+   parameters) bit-equal to the stacked mesh's, the first step's global
+   norm and clip scale printed as hex floats;
 12. sharded serving and training of the other three families, each laid
    out by ``shard_model`` under ``make_policy`` on a stacked ("data",
    "model") mesh: (12a) recurrentgemma-2b on (2, 4), rwkv6-3b on (1, 4) and
@@ -205,11 +209,23 @@ Phases, each of which raises on failure:
    4 x 2048 with ``attn_bf16_logits`` (the plain bf16-logit path) and
    without it (the wgmma flash route), logits within 2e-2 of max|logits|,
    both prefill ms and peaks;
-14. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
+14. the port's examples (``src/repro_torch/examples``): ``quickstart``,
+   ``fault_tolerance`` and ``distributed_gemm`` in this process through
+   ``main(["--device", "cuda"])``, each with the kernel counters set to 0
+   before it and read after (``flash_attention`` on its ``mma_sync`` route
+   for the first two, ``gemm`` on its CUDA-core route and ``reduce_nway``
+   for the third must have launched), and ``collective_schedules``,
+   ``telemetry`` and ``service`` as ``python -m`` subprocesses under a
+   timeout (exit 0); each is gated on its pinned lines (the reference's
+   cycles, bytes and rows), quickstart on a loss a nat below ln(vocab) and
+   12 in-vocabulary tokens, fault_tolerance on its checkpoint steps,
+   distributed_gemm on every max_err within 2e-4; SUMMA's us a call is
+   printed per schedule;
+15. print the ``{"training": ...}`` line, the ``{"fabric": ...}`` line, the
    ``{"data_parallel": ...}`` line, the ``{"model_parallel": ...}`` line,
    the ``{"model_parallel_training": ...}`` line, the
    ``{"model_parallel_families": ...}`` line, the ``{"launch": ...}`` line,
-   the ``{"kernels": [...]}``
+   the ``{"examples": ...}`` line, the ``{"kernels": [...]}``
    line, one entry per route of each kernel (with its gradient's method and
    times where it has one, and its launches in each model's phase,
    ``launches_by_model``), and, last, the ``{"ok": true, ...}`` line.
@@ -350,6 +366,21 @@ TRAIN_RECURRENT = (
                    "flash_attention[tensor_core]": 4}),
     dict(arch="rwkv6_3b", n_layers=4, launches={"wkv": 8}),
 )
+# The same at full depth, 2 steps each (checks, not timings): the hybrid's
+# 26 layers are 18 recurrent and 8 attention, rwkv6 has 32.  Their f32 AdamW
+# moments are 26.5 and 23.1 GB (3.31 and 2.88 B parameters); the trainer
+# donates the old moments to the update, or the hybrid's would not fit.
+RECURRENT_FULL_STEPS = 2
+TRAIN_RECURRENT_FULL = (
+    dict(arch="recurrentgemma_2b", n_layers=26, steps=RECURRENT_FULL_STEPS,
+         launches={"rglru_scan": 54, "rglru_scan[backward]": 18, "flash_attention": 16,
+                   "flash_attention[tensor_core]": 16}),
+    dict(arch="rwkv6_3b", n_layers=32, steps=RECURRENT_FULL_STEPS, launches={"wkv": 64}),
+)
+# whisper-base at full width and depth in bf16 through Trainer._step_fn (its
+# loss takes frames, which the token sources of Trainer.fit do not give):
+# B sequences of 1500 random frames and S tokens, on one repeated batch.
+WHISPER_TRAIN_TOKENS, WHISPER_TRAIN_STEPS = (2, WAVE), 6
 # Data-parallel training (phase 9).  9a: qwen1.5-0.5b at full width and
 # depth in bf16 on a stacked ("data",) mesh of 4 members on the card, one
 # sequence of 2048 tokens each, int8-compressed gradients, phase 7's learning
@@ -516,6 +547,40 @@ SERVICE_GRID = {"mesh": (8, 8), "pattern": "transpose",
 # without failing on a noisy host.  A worker the supervisor finds wedged
 # (after its 60 s op deadline) fails the phase through the respawn check.
 FABRIC_BUDGET_S = 105.0
+# Phase 14: the port's examples (src/repro_torch/examples).  The three that
+# touch the card run in this process through main(["--device", "cuda"]),
+# each with the kernel counters set to 0 before it and read after; the
+# three host-only ones run as `python -m` subprocesses under a timeout.
+# Each is gated as the CPU tests gate it (tests/test_torch_examples_*.py):
+# the lines pinned below (the reference's numbers: examples/*.py on the
+# host), quickstart's last loss a nat below ln(vocab), fault_tolerance's
+# checkpoint steps, distributed_gemm's max_err within the main-path 2e-4.
+EXAMPLES_CARD = {"quickstart": ("flash_attention[mma_sync]",),
+                 "fault_tolerance": ("flash_attention[mma_sync]",),
+                 "distributed_gemm": ("gemm[cuda_core]", "reduce_nway")}
+EXAMPLES_HOST = ("collective_schedules", "telemetry", "service")
+EXAMPLE_PINNED = {
+    "distributed_gemm": ("per-op gated (comm/compute overlap): 2183 cycles",
+                         "barrier-serialized baseline:         2446 cycles  (1.12x slower)",
+                         "comm-only 361 / compute-only 2091 cycles"),
+    "fault_tolerance": ("storm completes degraded: makespan 91 -> 158 (1.74x)",
+                        "surviving 4x8 submesh at (0,0)",
+                        "24-unicast workload, makespan 200",
+                        "checkpoint at cycle 100 (28754 bytes, sha256 cc913ce65598",
+                        "makespan 200 -> 207",
+                        "respawned 1x, replayed its epoch log, makespan 200"),
+    "collective_schedules": ("     1Ki      302      302      216       71     3.04       tree",
+                             "simulator: 570 cycles; model: 570 cycles",
+                             "10 ops, makespan 808 cycles"),
+    "telemetry": ("makespan 561, 30720 busy beats",
+                  "makespan 561 -> 629, peak link utilization 0.114 -> 0.203"),
+    "service": ("bit-identical to saturation_sweep: OK",
+                "rate 0.02 -> mean latency 74.2 cycles", "rate 0.12 -> mean latency 91.5 cycles",
+                "rows on disk: 3", "resumed and completed: 6 rows, 3 served from the store, "
+                "3 computed after restart", "authenticated TCP client: 2 rows"),
+}
+EXAMPLE_TIMEOUT_S, EXAMPLES_AIM_S = 150, 120.0
+EXAMPLE_RTOL = 2e-4
 
 
 def fail(msg: str):
@@ -1864,9 +1929,10 @@ def resume_gate(seed: int) -> dict:
             "resumable_wall_s": wall}
 
 
-def recurrent_training(seed: int, arch: str, n_layers: int, launches: dict) -> dict:
+def recurrent_training(seed: int, arch: str, n_layers: int, launches: dict,
+                       steps: int = RECURRENT_STEPS) -> dict:
     """A recurrent family at full width, ``n_layers`` layers, bf16:
-    RECURRENT_STEPS steps, each with the kernel ``launches`` given."""
+    ``steps`` steps, each with the kernel ``launches`` given."""
     import statistics
 
     from repro_torch.configs import get_config
@@ -1878,14 +1944,14 @@ def recurrent_training(seed: int, arch: str, n_layers: int, launches: dict) -> d
     B, S = RECURRENT_TOKENS
     wrappers = model_kernels()
     trainer = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=3e-4), warmup=2,
-                                         total_steps=RECURRENT_STEPS), device=DEVICE)
+                                         total_steps=steps), device=DEVICE)
     src = SyntheticLMSource(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed, branching=4)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(wrappers)
-    trainer.fit(src, steps=RECURRENT_STEPS, seed=seed)
-    per_step = {k: v / RECURRENT_STEPS for k, v in launch_counts(wrappers).items() if v}
+    trainer.fit(src, steps=steps, seed=seed)
+    per_step = {k: v / steps for k, v in launch_counts(wrappers).items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
     dts = [m["dt"] * 1e3 for m in trainer.metrics_log if "loss" in m]
@@ -1896,16 +1962,66 @@ def recurrent_training(seed: int, arch: str, n_layers: int, launches: dict) -> d
     batch = {k: torch.from_numpy(v).long().to(DEVICE) for k, v in src.batch_at(0).items()}
     split = split_launches(lambda: trainer.family.loss_fn(trainer.state[0], batch, cfg),
                            list(trainer.state[0].parameters()))[0]
-    step_ms = statistics.median(dts[2:])
+    warm = dts[2:] or dts[-1:]
+    step_ms = statistics.median(warm)
     print(f"  train {cfg.name} ({n_layers} layers, bf16, {B} x {S}): losses "
-          f"{[round(x, 4) for x in losses]}; warm step {step_ms:.1f} ms (median of steps 3-"
-          f"{RECURRENT_STEPS}); peak {peak:.2f} GiB; launches per step {per_step}, "
-          f"split {split}", flush=True)
+          f"{[round(x, 4) for x in losses]}; warm step {step_ms:.1f} ms (median of steps "
+          f"{steps - len(warm) + 1}-{steps}); peak {peak:.2f} GiB; launches per step "
+          f"{per_step}, split {split}", flush=True)
     out = {"arch": cfg.name, "n_layers": n_layers, "batch": B, "seq": S, "losses": losses,
            "step_ms": dts, "warm_step_ms": step_ms, "peak_gib": peak,
            "launches_per_step": per_step, "launch_split": split}
     del trainer
     return out
+
+
+def whisper_training(seed: int) -> dict:
+    """whisper-base at full width and depth in bf16: WHISPER_TRAIN_STEPS
+    optimizer steps on one repeated batch (random frames and tokens), finite
+    losses, every flash launch on the tensor-core route."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("whisper_base")
+    B, S = WHISPER_TRAIN_TOKENS
+    wrappers = model_kernels()
+    trainer = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=3e-4), warmup=2,
+                                         total_steps=WHISPER_TRAIN_STEPS), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    _, _, batch = family_inputs(cfg, gen, B, S)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt_state, err_state = trainer.init_state(seed)
+    zero_counts(wrappers)
+    losses, dts = [], []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, opt_state, err_state, metrics = trainer._step_fn(model, opt_state, batch,
+                                                                err_state)
+        losses.append(float(metrics["loss"]))
+        dts.append((time.perf_counter() - t) * 1e3)
+    per_step = {k: v / WHISPER_TRAIN_STEPS for k, v in launch_counts(wrappers).items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flash = per_step.get("flash_attention", 0)
+    if not all(map(math.isfinite, losses)):
+        fail(f"whisper bf16 training: losses {losses}")
+    if not flash or per_step.get("flash_attention[tensor_core]") != flash:
+        fail(f"whisper bf16 training: flash launches a step {per_step}, not all on the "
+             "tensor-core route")
+    step_ms = statistics.median(dts[2:])
+    print(f"  train {cfg.name} (full depth, bf16, {B} x {S} tokens, {cfg.encoder_len} frames): "
+          f"losses {[round(x, 4) for x in losses]}; warm step {step_ms:.1f} ms (median of "
+          f"steps 3-{WHISPER_TRAIN_STEPS}); peak {peak:.2f} GiB; launches per step {per_step}",
+          flush=True)
+    del trainer, model, opt_state, err_state
+    return {"arch": cfg.name, "batch": B, "seq": S, "frames": cfg.encoder_len,
+            "losses": losses, "step_ms": dts, "warm_step_ms": step_ms, "peak_gib": peak,
+            "launches_per_step": per_step}
 
 
 def training_phase(seed: int, gen) -> dict:
@@ -1933,10 +2049,20 @@ def training_phase(seed: int, gen) -> dict:
     recurrent = [recurrent_training(seed, **spec) for spec in TRAIN_RECURRENT]
     gc.collect()
     torch.cuda.empty_cache()
+    print("[train] checks at full depth: the recurrent families, whisper-base in bf16")
+    recurrent_full = []
+    for spec in TRAIN_RECURRENT_FULL:
+        recurrent_full.append(recurrent_training(seed, **spec))
+        gc.collect()
+        torch.cuda.empty_cache()
+    whisper = whisper_training(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     wall = time.perf_counter() - t0
     print(f"[train] phase 7 took {wall:.1f} s")
     return {"kernel_grads": grads, "f32_gates": gates, "train": entry, "learning": learn,
-            "resume": resume, "recurrent": recurrent, "wall_s": wall}
+            "resume": resume, "recurrent": recurrent, "recurrent_full_depth": recurrent_full,
+            "whisper_bf16": whisper, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -2001,7 +2127,7 @@ def dp_training(seed: int) -> dict:
     one.fit(src, steps=steps, seed=seed)
     with torch.no_grad():
         one_loss = one.family.loss_fn(one.state[0], batch, cfg).item()
-    one_losses = [m["loss"] for m in one.metrics_log]
+    one_losses = [m["loss"] for m in one.metrics_log if "loss" in m]
     start_loss = one_losses[0]  # the whole batch's, at the initial weights
     del one
     kept = (start_loss - dp_loss) / (start_loss - one_loss)
@@ -2167,7 +2293,7 @@ def dp_rank_backend(seed: int) -> dict:
             for kind, mesh in (("ranks", ranked), ("stacked", stacked)):
                 tr = Trainer(cfg, tcfg, mesh=mesh)
                 model, _ = tr.fit(src, steps=2, seed=seed)
-                runs[kind] = ([m["loss"] for m in tr.metrics_log],
+                runs[kind] = ([m["loss"] for m in tr.metrics_log if "loss" in m],
                               {k: p.detach().clone() for k, p in model.named_parameters()})
                 del tr, model
             if runs["ranks"][0] != runs["stacked"][0] or any(
@@ -2912,7 +3038,11 @@ def mp_moe_training(seed: int) -> dict:
 def mp_rank_backend(seed: int) -> dict:
     """11c: the rank mesh under NCCL at world size 1 against the stacked mesh
     of one member: the sharded loss's global gradients of a smoke config,
-    then MP_RANK_STEPS steps of ``Trainer(policy=, mesh=)``, equal."""
+    then MP_RANK_STEPS steps of ``Trainer(policy=, mesh=)``, bit-equal.  The
+    first step's global norm and clip scale of each mesh are printed as hex
+    floats, and the first leaf whose moment or new parameter differs."""
+    from unittest import mock
+
     import torch.distributed as dist
 
     from repro_torch.configs import get_smoke_config
@@ -2922,7 +3052,26 @@ def mp_rank_backend(seed: int) -> dict:
     from repro_torch.models import transformer as tt
     from repro_torch.models.convert import global_grads, shard_model
     from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.runtime import trainer as trainer_mod
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    first_steps = {}
+
+    def recorded(kind):
+        """adamw_update, its first call's norm, scale and results kept."""
+        def update(params, grads, state, cfg_, lr_scale=1.0, layout=None, **kw):
+            new, opt, metrics = adamw_mod.adamw_update(params, grads, state, cfg_, lr_scale,
+                                                       layout, **kw)
+            if kind not in first_steps:
+                gnorm = metrics["grad_norm"]
+                scale = torch.clamp(cfg_.grad_clip / (gnorm + 1e-9), max=1.0)
+                first_steps[kind] = {"global_norm": gnorm.item(), "scale": scale.item(),
+                                     "m": {k: t.clone() for k, t in opt["m"].items()},
+                                     "v": {k: t.clone() for k, t in opt["v"].items()},
+                                     "new": {k: t.detach().clone() for k, t in new.items()}}
+            return new, opt, metrics
+        return update
 
     t0 = time.perf_counter()
     cfg = get_smoke_config("qwen1_5_0_5b")
@@ -2945,9 +3094,11 @@ def mp_rank_backend(seed: int) -> dict:
                 tr = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=1e-3), warmup=1,
                                                 total_steps=10), model=base, mesh=mesh,
                              policy=policy)
-                trained, _ = tr.fit(src, steps=MP_RANK_STEPS, seed=seed)
+                with mock.patch.object(trainer_mod, "adamw_update", recorded(kind)):
+                    trained, _ = tr.fit(src, steps=MP_RANK_STEPS, seed=seed)
                 params = {k: p.detach().clone() for k, p in trained.named_parameters()}
-                runs[kind] = (loss.item(), grads, [m["loss"] for m in tr.metrics_log], params)
+                losses = [m["loss"] for m in tr.metrics_log if "loss" in m]
+                runs[kind] = (loss.item(), grads, losses, params)
                 del model, tr, trained
         finally:
             dist.destroy_process_group()
@@ -2958,20 +3109,27 @@ def mp_rank_backend(seed: int) -> dict:
             and all(torch.equal(g, grads_s[k]) for k, g in grads_r.items())):
         fail(f"rank mesh under NCCL: the sharded loss {loss_r}, trainer losses {losses_r} or "
              f"gradients differ from the stacked mesh's ({loss_s}, {losses_s})")
-    # the parameters at the trainer tests' rtol 1e-4 / atol 1e-5 (AdamW scales
-    # each element's step to about lr, whatever its gradient's size)
+    r1, s1 = first_steps["ranks"], first_steps["stacked"]
+    first_diff = {}
+    for part in ("m", "v", "new"):
+        first_diff[part] = next((k for k, t in r1[part].items()
+                                 if not torch.equal(t, s1[part][k].reshape(t.shape))), None)
+    print(f"  rank mesh (NCCL) against the stacked mesh, step 1: global_norm "
+          f"{r1['global_norm'].hex()} / {s1['global_norm'].hex()}, scale {r1['scale'].hex()} / "
+          f"{s1['scale'].hex()}; first differing leaf of m, v, new parameters: {first_diff}")
     params_diff = max((p - params_s[k]).abs().max().item() for k, p in params_r.items())
-    if not all(torch.allclose(p, params_s[k], rtol=1e-4, atol=1e-5)
-               for k, p in params_r.items()):
+    if not all(torch.equal(p, params_s[k]) for k, p in params_r.items()):
         fail(f"rank mesh under NCCL: parameters after {MP_RANK_STEPS} steps differ from the "
              f"stacked mesh's by {params_diff:.3e}")
     wall = time.perf_counter() - t0
     print(f"  rank mesh (NCCL, 1 rank, (1, 1)): sharded smoke loss {loss_r:.6f}, its "
-          f"{len(grads_r)} global gradient leaves and {MP_RANK_STEPS} trainer steps' losses "
-          f"{losses_r} equal to the stacked mesh's; parameters after them within {params_diff:.3e} "
-          f"(rtol 1e-4, atol 1e-5); {wall:.1f} s", flush=True)
+          f"{len(grads_r)} global gradient leaves, {MP_RANK_STEPS} trainer steps' losses "
+          f"{losses_r} and the parameters after them equal to the stacked mesh's; "
+          f"{wall:.1f} s", flush=True)
     return {"loss": loss_r, "losses": losses_r, "params_max_abs_diff": params_diff,
-            "wall_s": wall}
+            "step1": {k: {"global_norm": r["global_norm"].hex(), "scale": r["scale"].hex()}
+                      for k, r in (("ranks", r1), ("stacked", s1))},
+            "step1_first_differing": first_diff, "wall_s": wall}
 
 
 def mp_phase(seed: int, phase7: dict, phase9: dict, smi: str) -> dict:
@@ -4236,6 +4394,109 @@ def fabric_phase(walls: dict) -> dict:
             "part_host_s": parts, "host_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the examples
+# ---------------------------------------------------------------------------
+
+
+def example_pinned(name: str, lines: list):
+    """Fail unless every pinned line of example ``name`` is in its output."""
+    missing = [t for t in EXAMPLE_PINNED.get(name, ()) if not any(t in ln for ln in lines)]
+    if missing:
+        fail(f"example {name}: missing the reference's lines {missing}")
+
+
+def card_example(name: str) -> dict:
+    """Example ``name`` through its main on the card: its printed lines
+    gated, its kernels' launches counted (they must all have launched)."""
+    import importlib
+    import io
+
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.reduce_nway import reduce_nway
+
+    wrappers = {**model_kernels(), "gemm": gemm, "reduce_nway": reduce_nway}
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got = mod.main(["--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts(wrappers).items() if v}
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"    | {ln}")
+    example_pinned(name, lines)
+    if not all(counts.get(k) for k in EXAMPLES_CARD[name]):
+        fail(f"example {name}: launches {counts}, not every one of {EXAMPLES_CARD[name]}")
+    out = {"wall_s": wall, "launches": counts}
+    if name == "quickstart":
+        losses, tokens, vocab = got["losses"], got["tokens"], got["vocab"]
+        if not (all(map(math.isfinite, losses)) and losses[-1] < math.log(vocab) - 1.0):
+            fail(f"quickstart: losses {losses[0]} -> {losses[-1]}, not a nat below "
+                 f"ln({vocab})")
+        if len(tokens) != 12 or not all(0 <= t < vocab for t in tokens):
+            fail(f"quickstart: generated {tokens}")
+        out.update(first_loss=losses[0], last_loss=losses[-1], tokens=tokens)
+    elif name == "fault_tolerance":
+        want = {"checkpoints": [5, 10, 12], "resumed_at": 13, "ran_to": 20, "recovered_from": 15}
+        if got != want:
+            fail(f"fault_tolerance: {got}, not the reference's {want}")
+        out.update(got)
+    else:
+        errs = {f"summa {k}": r["max_err"] for k, r in got["summa"].items()}
+        errs.update({f"fcl {k}": e for k, e in got["fcl"].items()},
+                    ag_matmul=got["ag_matmul"], matmul_rs=got["matmul_rs"])
+        if len(errs) != 10 or not all(0.0 <= e <= EXAMPLE_RTOL for e in errs.values()):
+            fail(f"distributed_gemm: max_err {errs}, above {EXAMPLE_RTOL}")
+        out.update(max_err=errs, summa_us={k: r["us"] for k, r in got["summa"].items()},
+                   cost_path=got["cost_path"])
+    print(f"  {name}: {wall:.1f} s, launches {counts}", flush=True)
+    return out
+
+
+def host_example(name: str) -> dict:
+    """Example ``name`` as ``python -m`` under a timeout: exit 0 and its
+    pinned lines."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}"],
+                          capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S, env=env,
+                          cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"example {name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    example_pinned(name, lines)
+    print(f"  {name} (python -m, host): exit 0, {len(lines)} lines, its pinned lines "
+          f"present; {wall:.1f} s", flush=True)
+    return {"wall_s": wall, "lines": len(lines)}
+
+
+def examples_phase(smi: str) -> dict:
+    """Phase 14; returns each example's numbers and the phase's wall."""
+    t0 = time.perf_counter()
+    print("[examples] src/repro_torch/examples: the card ones in-process on the card, the "
+          "host ones as python -m")
+    out = {}
+    for name in EXAMPLES_CARD:
+        out[name] = card_example(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in EXAMPLES_HOST:
+        out[name] = host_example(name)
+    us = ", ".join(f"{k} {v:.1f}" for k, v in out["distributed_gemm"]["summa_us"].items())
+    print(f"  distributed_gemm SUMMA 512^3 on a stacked (2, 2) mesh, us a call (mean of 10 "
+          f"after a warm one): {us}; card: {smi}")
+    wall = time.perf_counter() - t0
+    out["wall_s"] = wall
+    print(f"[examples] phase 14 took {wall:.1f} s (aim: under {EXAMPLES_AIM_S:.0f} s, not "
+          "gated)", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4383,7 +4644,16 @@ def main(argv=None) -> int:
     for name, key in (("reduce_nway", "reduce_nway"), ("flash_attention_wgmma", "flash_attention")):
         by_model.setdefault(name, {})[tag] = launch["against_the_card"]["launches"][key]
 
-    # 14. Result lines.  Each route of a kernel is an entry of its own.
+    # 14. The examples; their launches are gated inside the phase and join
+    # launches_by_model.
+    examples = examples_phase(smi)
+    for name, key in (("flash_attention", "flash_attention[mma_sync]"),
+                      ("gemm", "gemm[cuda_core]"), ("reduce_nway", "reduce_nway")):
+        for ex in EXAMPLES_CARD:
+            if examples[ex]["launches"].get(key):
+                by_model.setdefault(name, {})[f"14 examples {ex}"] = examples[ex]["launches"][key]
+
+    # 15. Result lines.  Each route of a kernel is an entry of its own.
     def entry(name, source, replaces, rows, route=None):
         if route is not None:
             rows = [r for r in rows if r["route"] == route]
@@ -4415,7 +4685,7 @@ def main(argv=None) -> int:
         entry("wkv", "src/repro_torch/kernels/csrc/wkv.cu",
               "src/repro/kernels/rwkv6.py:54", wkv_rows),
     ]
-    print(f"[chip_smoke] phases 1-13 took {time.perf_counter() - started:.1f} s")
+    print(f"[chip_smoke] phases 1-14 took {time.perf_counter() - started:.1f} s")
     print(json.dumps({"main_path": walls}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -4425,6 +4695,7 @@ def main(argv=None) -> int:
     print(json.dumps({"model_parallel_training": mpt}))
     print(json.dumps({"model_parallel_families": fams}))
     print(json.dumps({"launch": launch}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

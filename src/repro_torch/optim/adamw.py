@@ -6,9 +6,13 @@ on their device.  ``adamw_update`` clips by the global norm of the
 gradients, corrects the moments' bias, decays every leaf (decoupled), and
 computes the update in f32, cast back to each parameter's dtype; it is
 functional, like the reference: it returns new tensors and leaves its
-arguments as they are.  ``torch.optim.AdamW`` is not used: it keeps a bf16
-parameter's state in bf16 and has no global clip.  ``opt_state_specs`` gives the
-state's layout under ZeRO-1 over the data-parallel axes, as specs for
+arguments as they are, unless the caller donates its moments
+(``donate=True``, as the reference's jitted step donates its optimizer
+state): each old moment is then dropped from ``state`` once its new one is
+made, so that the update holds one copy of them, not two.
+``torch.optim.AdamW`` is not used: it keeps a bf16 parameter's state in
+bf16 and has no global clip.  ``opt_state_specs`` gives the state's
+layout under ZeRO-1 over the data-parallel axes, as specs for
 ``core.mesh.shard`` (tuples in place of ``PartitionSpec``).
 
 ``adamw_update(..., update_specs=)`` is the reference's ZeRO-1 update on
@@ -50,6 +54,15 @@ def adamw_init(params: dict) -> dict:
     }
 
 
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """The sum of squares of ``g`` in f32, taken over its elements in
+    row-major order whatever its memory layout: a reduction follows the
+    memory, so a transposed gradient (a stacked mesh's tied embedding) would
+    otherwise sum in another order than the same gradient laid out plainly
+    (a rank mesh's), and the clip scale would differ in its last bit."""
+    return torch.sum(torch.square(g.float().contiguous()))
+
+
 def global_norm(tree: dict, layout=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32.
 
@@ -59,10 +72,9 @@ def global_norm(tree: dict, layout=None) -> torch.Tensor:
     of copies, and on a rank mesh the members' sums added over every axis.
     """
     if layout is None:
-        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
+        return torch.sqrt(sum(_sum_squares(g) for g in tree.values()))
     mesh, specs = layout
-    total = sum(torch.sum(torch.square(g.float())) / M.copies(mesh, specs[k])
-                for k, g in tree.items())
+    total = sum(_sum_squares(g) / M.copies(mesh, specs[k]) for k, g in tree.items())
     if not mesh.stacked:
         with mesh:
             for name in mesh.axis_names:
@@ -81,7 +93,7 @@ def zero_dim(pspec, zspec, ndim: int):
 
 
 def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, lr_scale=1.0,
-                 layout=None, update_specs=None):
+                 layout=None, update_specs=None, donate: bool = False):
     """Returns (new params, new state, metrics {"grad_norm", "lr"}).  With
     ``layout`` (:func:`global_norm`) the leaves are laid out on a mesh and
     the clip takes the global gradient's norm.
@@ -92,7 +104,8 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, lr_sc
     parameters are gathered (``core.mesh.gather_blocks``).  A gradient may
     come laid out as its parameter, or already as its state (a
     reduce-scatter's result); ``state["step"]`` may be 0-d or one value a
-    member."""
+    member.  ``donate``: ``state``'s moments are given up (set to None as
+    the new ones are made); the numbers are the same."""
     zero = {}
     if update_specs is not None:
         if layout is None:
@@ -123,6 +136,8 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, lr_sc
             g, p32 = g.float() * scale, p32.float()
             m = cfg.b1 * state["m"][n] + (1 - cfg.b1) * g
             v = cfg.b2 * state["v"][n] + (1 - cfg.b2) * torch.square(g)
+            if donate:
+                state["m"][n] = state["v"][n] = None
             new_p = p32 - lr * (m / M.lift(b1c, m) / (torch.sqrt(v / M.lift(b2c, v)) + cfg.eps)
                                 + cfg.weight_decay * p32)
             new_p = new_p.to(p.dtype)

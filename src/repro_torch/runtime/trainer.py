@@ -266,8 +266,9 @@ class Trainer:
         lr_scale = warmup_cosine(opt_state["step"], warmup=self.tcfg.warmup,
                                  total=self.tcfg.total_steps)
         params = params_of(model)
+        # the old state is not read again: donate its moments (one copy at the peak)
         new, opt_state, metrics = adamw_update(params, grads, opt_state, self.tcfg.adamw,
-                                               lr_scale, self._layout)
+                                               lr_scale, self._layout, donate=True)
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(new[k])

@@ -590,8 +590,8 @@ def _dp_fit(cfg, mesh, steps=3):
     tr = Trainer(cfg, tcfg, mesh=mesh)
     src = SyntheticLMSource(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0, branching=2)
     model, _ = tr.fit(src, steps=steps, seed=0)
-    return [m["loss"] for m in tr.metrics_log], {k: p.detach().clone()
-                                                for k, p in model.named_parameters()}
+    losses = [m["loss"] for m in tr.metrics_log if "loss" in m]
+    return losses, {k: p.detach().clone() for k, p in model.named_parameters()}
 
 
 @pytest.mark.cuda
@@ -648,6 +648,46 @@ def test_rank_mesh_under_nccl_at_world_size_1_equals_the_stacked_mesh(card, tmp_
         assert all(torch.equal(p, want[1][k]) for k, p in got[1].items())
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_trainer_on_nccl_at_world_size_1_is_bit_equal_to_the_stacked_mesh(card,
+                                                                                  tmp_path):
+    """2 steps of ``Trainer(policy=, mesh=)`` on a (1, 1) rank mesh under
+    NCCL and on the stacked mesh of one member: equal losses and parameters,
+    bit for bit (the stacked mesh's tied-embedding gradient lies transposed
+    in memory; the global norm sums it in the logical order)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as M
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke_config("qwen1_5_0_5b")
+    src = SyntheticLMSource(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=4)
+    base = tt.init(torch.Generator(device=card).manual_seed(0), cfg, card)
+    ranked = M.RankMesh((1, 1), ("data", "model"), init_method=f"file://{tmp_path}/rendezvous",
+                        rank=0)
+    try:
+        runs = {}
+        for kind, mesh in (("ranks", ranked),
+                           ("stacked", M.Mesh((1, 1), ("data", "model"), device=card))):
+            tr = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=1e-3), warmup=1,
+                                            total_steps=10),
+                         model=base, mesh=mesh, policy=make_policy(cfg, mesh))
+            trained, _ = tr.fit(src, steps=2, seed=0)
+            runs[kind] = ([m["loss"] for m in tr.metrics_log if "loss" in m],
+                          {k: p.detach().clone() for k, p in trained.named_parameters()})
+    finally:
+        dist.destroy_process_group()
+    (losses_r, params_r), (losses_s, params_s) = runs["ranks"], runs["stacked"]
+    assert losses_r == losses_s
+    for k, p in params_r.items():
+        assert torch.equal(p, params_s[k].reshape(p.shape)), k
 
 
 @pytest.mark.cuda

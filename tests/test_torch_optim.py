@@ -67,6 +67,27 @@ def test_adamw_update_matches_reference(steps, lr_scale):
         np.testing.assert_allclose(_np(st["v"][k]), _np(sj["v"][k]), rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("steps", [1, 3])
+def test_adamw_update_with_donated_moments_gives_the_same_numbers(steps):
+    """``donate=True`` (the trainer's: the reference's jitted step donates
+    its optimizer state) drops each old moment from the state it was given
+    and returns the numbers of the functional update, bit for bit."""
+    g = _torch_tree(_leaves(1, 3.0))
+    params = _torch_tree(_leaves(0, 1.0))
+    cfg = toptim.AdamWConfig(lr=1e-2)
+    kept, given = toptim.adamw_init(params), toptim.adamw_init(params)
+    p_kept, p_given = params, params
+    for _ in range(steps):
+        p_kept, kept_next, _ = toptim.adamw_update(p_kept, g, kept, cfg)
+        p_given, given_next, _ = toptim.adamw_update(p_given, g, given, cfg, donate=True)
+        assert all(t is not None for t in kept["m"].values())
+        assert all(t is None for part in ("m", "v") for t in given[part].values())
+        kept, given = kept_next, given_next
+    for k in params:
+        assert torch.equal(p_kept[k], p_given[k])
+        assert torch.equal(kept["m"][k], given["m"][k]) and torch.equal(kept["v"][k], given["v"][k])
+
+
 def test_adamw_update_leaves_its_arguments():
     p = {"w": torch.ones(3)}
     s = toptim.adamw_init(p)
@@ -79,6 +100,23 @@ def test_global_norm_matches_reference():
     g = _leaves(3, 2.0)
     np.testing.assert_allclose(toptim.global_norm(_torch_tree(g)).item(),
                                float(joptim.adamw.global_norm(_jax_tree(g))), rtol=1e-6)
+
+
+@pytest.mark.parametrize("layout", [None, "stacked"])
+def test_global_norm_does_not_depend_on_memory_layout(layout):
+    """A leaf held transposed in memory (a stacked mesh's tied-embedding
+    gradient) gives the norm of the same values held row-major (a rank
+    mesh's), bit for bit: the sum runs in the logical order.  Summed in
+    memory order, a few of these 16 seeds differ in the last bit."""
+    mesh = M.Mesh((1, 1), ("data", "model"), device="cpu")
+    for seed in range(16):
+        x = torch.from_numpy(np.random.default_rng(seed).standard_normal((1, 1, 256, 640))
+                             .astype(np.float32))
+        col = x.transpose(2, 3).contiguous().transpose(2, 3)  # same values, column-major
+        assert not col.is_contiguous() and torch.equal(col, x)
+        lay = None if layout is None else (mesh, {"embed": (None, None)})
+        assert torch.equal(toptim.global_norm({"embed": col}, lay),
+                           toptim.global_norm({"embed": x}, lay)), seed
 
 
 @pytest.mark.parametrize("warmup,total", [(100, 5000), (0, 10), (20, 1000)])

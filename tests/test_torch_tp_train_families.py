@@ -110,7 +110,7 @@ for name, (arch, sp, adamw) in trainers.items():
         tr = Trainer(jc, TrainerConfig(adamw=AdamWConfig(**adamw), warmup=2, total_steps=10),
                      policy=pol, mesh=mesh)
         params, _ = tr.fit(src, steps=steps, resume=False)
-    out[f"{name}/losses"] = np.array([m["loss"] for m in tr.metrics_log])
+    out[f"{name}/losses"] = np.array([m["loss"] for m in tr.metrics_log if "loss" in m])
     flat(f"{name}/init", tr.init_state(jax.random.PRNGKey(0))[0])
     flat(f"{name}/params", params)
 np.savez(sys.argv[2], **out)
@@ -139,14 +139,30 @@ def _batch(name: str) -> dict:
     return batch
 
 
+# The reference subprocess's time limit an attempt: it takes about 95 s
+# with two other reference files running beside it, and about three
+# times that in a whole-suite run on a loaded host.
+REFERENCE_TIMEOUT_S = 600
+def _run_reference(args: list, env: dict):
+    """The reference subprocess, with REFERENCE_TIMEOUT_S an attempt and one
+    retry after a timeout: a reference run on 8 spoofed XLA devices can hang
+    in a collective under a loaded whole-suite run (seen under ``-n 6``)."""
+    for attempt in (1, 2):
+        try:
+            return subprocess.run([sys.executable, "-c", REFERENCE, *args], capture_output=True,
+                                  text=True, timeout=REFERENCE_TIMEOUT_S, env=env, cwd=ROOT)
+        except subprocess.TimeoutExpired:
+            if attempt == 2:
+                raise
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     d = tmp_path_factory.mktemp("tp_train_families")
     np.savez(d / "in.npz", **{f"{name}/{k}": v for name in CASES for k, v in _batch(name).items()})
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", REFERENCE, str(d / "in.npz"), str(d / "out.npz"),
-                           json.dumps([CASES, TRAINERS, TRAIN_STEPS])],
-                          capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
+    proc = _run_reference([str(d / "in.npz"), str(d / "out.npz"),
+                           json.dumps([CASES, TRAINERS, TRAIN_STEPS])], env)
     assert "REFERENCE OK" in proc.stdout, proc.stderr[-3000:]
     return dict(np.load(d / "out.npz"))
 
@@ -244,7 +260,7 @@ def test_sharded_trainer_matches_the_reference_trainer(reference, name):
                       model=init, mesh=mesh, policy=make_policy(tc, mesh, seq_parallel=sp))
     src = SyntheticLMSource(vocab=tc.vocab, seq_len=16, global_batch=4, seed=1)
     model, _ = trainer.fit(src, steps=TRAIN_STEPS, resume=False)
-    np.testing.assert_allclose([m["loss"] for m in trainer.metrics_log],
+    np.testing.assert_allclose([m["loss"] for m in trainer.metrics_log if "loss" in m],
                                reference[f"{name}/losses"], rtol=1e-5)
     got = unshard_tensors(model, dict(model.named_parameters()))
     want = from_jax_params(_tree(reference, f"{name}/params"), tc, "cpu")
