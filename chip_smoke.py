@@ -9,10 +9,12 @@ Phases, each of which raises on failure:
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc``, print the build time and ptxas's
    registers and spills (and a summary for the CUDA-core ``gemm``, ``wkv``,
-   ``mma.sync`` flash and ``rglru_scan`` kernels; a spill in either of the
-   last two fails), and count the HGMMA instructions of the two wgmma
-   kernels and the HMMA instructions of the ``mma.sync`` flash kernel in
-   the library's SASS (none fails);
+   ``mma.sync`` flash, ``rglru_scan`` and ``reduce_nway`` kernels; a spill
+   in the flash or ``rglru_scan`` kernel fails), count the HGMMA
+   instructions of the two wgmma kernels and the HMMA instructions of the
+   ``mma.sync`` flash kernel in the library's SASS (none fails), and, for
+   each ``add`` and ``max`` instantiation of ``reduce_nway``, its global
+   loads and those issued before its first combine;
 2. hold every kernel against its plain PyTorch version on the card, at
    the shapes of the main paths, with times, a library call as yardstick,
    and the card's least time for the same work (``bound_ms``).  ``gemm``
@@ -23,7 +25,14 @@ Phases, each of which raises on failure:
    route, so that the speed-up is read on one card.  Each
    CUDA-core ``gemm`` case names its launch plan (``gemm_plan``: tile 128
    or 64, vector or scalar loads); ``wkv`` prints its cluster size, shared
-   memory and resident clusters at head sizes 64 and 32;
+   memory and resident clusters at head sizes 64 and 32; each
+   ``reduce_nway`` case (the FCL router's shapes, then the main paths'
+   own: 11a's backward sum, phase 10's psum, the loss's pmax, 11a's
+   norm-weight gradients read in place as an expand, the sum over the
+   data axis and over one member) names
+   its plan (``reduce_plan``) and is also held bit-equal to the
+   member-order f32 loop.  Times are device times: the timed runs queue
+   behind a spin kernel, so a call's host time does not show;
 3. drive the collective GEMM path at the widths of yi-6b (d_model 4096,
    32 heads x 128, d_ff 11008) with T = 4096 tokens: SUMMA on a 4x4 mesh
    (all five schedules), FCL over 8 members (four schedules plus
@@ -119,7 +128,9 @@ Phases, each of which raises on failure:
    of the uncompressed one-card trainer's reduction of the whole batch's
    loss, 192
    tensor-core flash launches a step; step time, tokens/s, peak, the idle
-   share of a profiled step, the int8 payload; (9b) ``compressed_mean`` on
+   share of a profiled step, the int8 payload, and one step's
+   ``reduce_nway`` inputs that were not contiguous (read in place or
+   copied first, with their bytes); (9b) ``compressed_mean`` on
    9a's gradient shapes bit-equal to its plain version, with its device
    time and launches; (9c) the rank mesh under NCCL at world size 1
    (``file://`` rendezvous in a temporary directory): every axis function
@@ -139,7 +150,8 @@ Phases, each of which raises on failure:
    requests in bf16 twice, equal, ``reduce_nway`` launched, every prefill's
    flash launches on the tensor-core route, the peak under ``TP_PEAK_GIB``;
    the tokens that agree with phase 4's serve (printed, not gated), rows
-   dropped by member in an untimed prefill, a profiled prefill and decode
+   dropped by member and the ``reduce_nway`` inputs that were not
+   contiguous in an untimed prefill, a profiled prefill and decode
    step beside the unsharded phase's, and the psum (first held against the
    plain f32 sum at the bf16 activation's and the f32 aux's shapes) and
    ``all_to_all`` device ms beside their byte bounds; (10c) the rank mesh
@@ -152,8 +164,9 @@ Phases, each of which raises on failure:
    step, ``reduce_nway`` launched by the backward pass (counted apart from
    the forward's), the peak under ``MP_PEAK_GIB``; step time, tokens/s,
    MFU, peak and the idle share of a profiled step beside phases 7 and 9a,
-   the launches split into forward, recompute, backward and the copies'
-   sum, and the backward's sum at this shape (held against the plain sum,
+   the step's ``reduce_nway`` inputs that were not contiguous, the
+   launches split into forward, recompute, backward and the copies' sum,
+   and the backward's sum at this shape (held against the plain sum,
    timed beside its byte bound and ``torch.sum``); (11b) the f32 gradient
    gates at full width and 2 layers, each global gradient leaf against the
    unsharded model's within TRAIN_RTOL of its max|g|: qwen on (2, 4) with
@@ -239,11 +252,13 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -262,6 +277,7 @@ PEAK_F32 = 67e12        # FLOP/s, CUDA cores
 PEAK_TF32 = 494.7e12    # FLOP/s, tensor cores, TF32
 PEAK_BF16 = 989e12      # FLOP/s, tensor cores
 PEAK_BYTES = 3.35e12    # HBM bytes/s
+SPIN_HZ = 2.0e9         # cycles a second of torch.cuda._sleep: about the SM clock
 
 # yi-6b widths (src/repro/configs/yi_6b.py) and the token count.
 D_MODEL, N_HEADS, HEAD_DIM, D_FF, TOKENS = 4096, 32, 128, 11008, 4096
@@ -588,11 +604,20 @@ def fail(msg: str):
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs after one warm-up."""
-    fn()
+    """Mean device time of ``fn`` over ``iters`` runs.  A first loop of
+    ``iters`` runs warms ``fn`` up and times the host's enqueueing; the
+    timed runs then queue behind a spin kernel (``torch.cuda._sleep``) that
+    lasts 1.5 times that (at most a second), so that a call whose host time
+    exceeds its device time is timed by the device and not by the host's
+    pace."""
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * host_s, 1.0) * SPIN_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -679,16 +704,18 @@ def gemm_cases(gen):
     ]
 
 
-def reduce_cases(gen):
-    from repro_torch.kernels.ops import reduce_nway
-    from repro_torch.kernels.ref import reduce_nway_ref
-
-    def case(name, x, op, rtol, library, atol=None):
-        n, m = x.shape
-        nbytes = (n + 1) * m * x.element_size()
-        return dict(name=name, kernel=lambda: reduce_nway(x, op=op),
-                    plain=lambda: reduce_nway_ref(x, op), library=library,
-                    rtol=rtol, atol=atol, iters=20, bound=bound((n - 1) * m, PEAK_F32, nbytes))
+def reduce_shapes(gen) -> list:
+    """Phase 2's ``reduce_nway`` cases, from ``gen`` on the card: dicts of
+    ``name``, ``x``, ``op``, ``dim``, the tolerance against the plain
+    version (``rtol``, ``atol``), the PyTorch call for the same function
+    (``library``), the bytes the call must move (``nbytes``: each input
+    element read once, an expand's storage once, the output written once)
+    and ``iters``.  Plain tensors and calls only, so that
+    ``tools/reduce_bench.py`` times the same cases on another tree."""
+    def case(name, x, op, rtol, library, atol=None, dim=0, nbytes=None, iters=20):
+        out_numel = x.numel() // x.shape[dim]
+        return dict(name=name, x=x, op=op, dim=dim, rtol=rtol, atol=atol, library=library,
+                    nbytes=nbytes or (x.numel() + out_numel) * x.element_size(), iters=iters)
 
     m = D_MODEL * TOKENS
     xf = torch.randn(8, m, generator=gen, device=DEVICE)
@@ -696,10 +723,26 @@ def reduce_cases(gen):
     bits = (torch.rand(16, 1 << 20, generator=gen, device=DEVICE) < 0.95).to(torch.int32)
     ints = torch.randint(-2 ** 31, 2 ** 31 - 1, (16, 1 << 20), generator=gen, device=DEVICE,
                          dtype=torch.int32)
+    # The main paths' own shapes, over the model axis (dim 1) of a stacked
+    # (2, 4) mesh: 11a's backward sum (the transpose of the gather of S, 2 x
+    # 2048 tokens of d 1024 a member), phase 10's row-parallel psum (yi-6b, 2
+    # x 1972 tokens of d 4096) and the vocab-parallel loss's pmax of one
+    # 1024-token chunk's row maxima (models/common.py); the expands that an
+    # 11a step reads in place: its 49 norm weights' gradients (qwen1.5-0.5b,
+    # d 1024), summed over "data" and then, as an expand, over "model"
+    # (``sum_copies``); 11a's gradient summed over "data" (n = 2), and a
+    # rank mesh's sum at world size 1 (n = 1).
+    back = torch.randn(*MP_MESH, 2, 2048, 1024, generator=gen, device=DEVICE).to(torch.bfloat16)
+    row = torch.randn(*MP_MESH, 2, 1972, D_MODEL, generator=gen, device=DEVICE).to(torch.bfloat16)
+    maxes = torch.randn(*MP_MESH, 2, 1024, generator=gen, device=DEVICE)
+    norm = torch.randn(1, *MP_MESH[1:], 1024, generator=gen, device=DEVICE).to(torch.bfloat16)
+    spread = norm.expand(*MP_MESH, 1024)
+    one = back.view(1, -1)
     # f32 add: 8 terms, rounding ~8 * 2^-24; bf16 add: the f32 sums round to
     # bf16, held element by element (BF16_RTOL); max and and are exact (int32
     # max over the whole int32 range: bit-exact, where an f32 running value
-    # would round every value above 2^24).
+    # would round every value above 2^24).  Every case is then held bit-equal
+    # to the member-order f32 loop (``member_order``).
     return [
         case(f"add (8, {D_MODEL}*{TOKENS}) f32", xf, "add", 1e-5, lambda: torch.sum(xf, 0)),
         case(f"add (8, {D_MODEL}*{TOKENS}) bf16", xb, "add", BF16_RTOL,
@@ -707,18 +750,59 @@ def reduce_cases(gen):
         case(f"max (8, {D_MODEL}*{TOKENS}) f32", xf, "max", 0.0, lambda: torch.amax(xf, 0)),
         case("and (16, 2^20) int32", bits, "and", 0.0, None),
         case("max (16, 2^20) int32", ints, "max", 0.0, lambda: torch.amax(ints, 0)),
+        case(f"11a backward sum add {tuple(back.shape)} bf16 dim 1", back, "add", BF16_RTOL,
+             lambda: torch.sum(back, 1), atol=1e-5, dim=1, iters=50),
+        case(f"10 row-parallel psum add {tuple(row.shape)} bf16 dim 1", row, "add", BF16_RTOL,
+             lambda: torch.sum(row, 1), atol=1e-5, dim=1, iters=50),
+        case(f"loss pmax {tuple(maxes.shape)} f32 dim 1", maxes, "max", 0.0,
+             lambda: torch.amax(maxes, 1), dim=1, iters=200),
+        case(f"11a norm gradient add {tuple(spread.shape)} bf16 dim 1, expanded over dim 0 "
+             "(read in place)", spread, "add", BF16_RTOL, lambda: torch.sum(spread, 1),
+             atol=1e-5, dim=1, nbytes=(norm.numel() + spread[:, 0].numel()) * 2, iters=200),
+        case(f"data-axis sum add {tuple(back.shape)} bf16 dim 0", back, "add", BF16_RTOL,
+             lambda: torch.sum(back, 0), atol=1e-5, iters=50),
+        case(f"one member add (1, {back.numel()}) bf16", one, "add", BF16_RTOL,
+             lambda: torch.sum(one, 0), atol=1e-5, iters=50),
     ]
 
 
-def causal_pairs(S: int, window: int) -> int:
-    """Live (query, key) pairs of a causal mask, within ``window`` when > 0."""
-    if window <= 0 or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+def reduce_cases(gen):
+    """:func:`reduce_shapes` as ``run_case`` cases, each named with its plan."""
+    from repro_torch.kernels.ops import reduce_nway
+    from repro_torch.kernels.reduce_nway import _plan
+    from repro_torch.kernels.ref import reduce_nway_ref
+
+    def case(name, x, op, dim, rtol, atol, library, nbytes, iters):
+        plan = _plan(x, dim)
+        return dict(name=f"{name} [vec {plan.vec}, {plan.blocks} blocks]", plan=plan._asdict(),
+                    kernel=lambda: reduce_nway(x, op=op, dim=dim),
+                    exact=lambda: member_order(x, op, dim),
+                    plain=lambda: reduce_nway_ref(x, op, dim), library=library,
+                    rtol=rtol, atol=atol, iters=iters,
+                    bound=bound((x.shape[dim] - 1) * (x.numel() // x.shape[dim]), PEAK_F32,
+                                nbytes))
+
+    return [case(**shape) for shape in reduce_shapes(gen)]
+
+
+def member_order(x, op: str, dim: int):
+    """The kernel's arithmetic written out: row 0, then rows 1.. combined in
+    member order in an f32 running value (the integer itself for int32 max
+    and and), rounded once to x's dtype."""
+    acc = x.select(dim, 0) if x.dtype == torch.int32 and op != "add" else x.select(dim, 0).float()
+    for i in range(1, x.shape[dim]):
+        row = x.select(dim, i)
+        if op == "add":
+            acc = acc + row.float()
+        elif op == "max":
+            acc = torch.maximum(acc, row if acc.dtype == row.dtype else row.float())
+        else:
+            acc = acc & row
+    return acc.to(x.dtype)
 
 
 def flash_cases(gen):
-    from repro_torch.kernels.flash_attention import flash_route
+    from repro_torch.kernels.flash_attention import causal_pairs, flash_route
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     import torch.nn.functional as F
@@ -799,20 +883,10 @@ def rglru_cases(gen):
     ]
 
 
-def wkv_flops(B: int, S: int, H: int, hd: int) -> float:
-    """Flops of the chunked WKV: per chunk of n tokens, 4 hd per live pair
-    s <= t (the decayed r . k and P @ V) and 4 hd^2 per token (r . state and
-    the state update)."""
-    total = 0.0
-    for t0 in range(0, S, 64):
-        n = min(64, S - t0)
-        total += 4.0 * hd * n * (n + 1) / 2 + 4.0 * hd * hd * n
-    return B * H * total
-
-
 def wkv_cases(gen):
     from repro_torch.kernels.ops import wkv
     from repro_torch.kernels.ref import wkv_ref
+    from repro_torch.kernels.rwkv6 import wkv_flops
 
     def case(shape, dtype, rtol, iters, atol=None, logw=None):
         B, S, H, hd = shape
@@ -879,9 +953,11 @@ def run_case(cs) -> dict:
         del diff
     if not ratio <= 1.0:
         fail(f"{cs['name']}: max_abs_err {err:.3e} at {ratio:.3f} of its limit {limit}")
+    if "exact" in cs and not torch.equal(out, cs["exact"]()):
+        fail(f"{cs['name']}: not bit-equal to the member-order f32 loop")
     bound_ms, bound_by = cs["bound"]
-    row = dict(case=cs["name"], route=cs.get("route"), max_abs_err=err, rel_err=rel, tol=limit,
-               limit_ratio=ratio,
+    row = dict(case=cs["name"], route=cs.get("route"), plan=cs.get("plan"), max_abs_err=err,
+               rel_err=rel, tol=limit, limit_ratio=ratio,
                ms=time_ms(cs["kernel"], cs["iters"]),
                plain_ms=time_ms(cs["plain"], cs["iters"]),
                library_ms=time_ms(cs["library"], cs["iters"]) if cs["library"] else None,
@@ -924,7 +1000,7 @@ def print_ptxas(report: str):
             print(f"    {name}: {line.split(':', 1)[-1].strip()}")
 
 
-SPILL_CHECKED = ("gemm_kernel", "wkv_kernel", "flash_mma_kernel", "rglru_kernel")
+SPILL_CHECKED = ("gemm_kernel", "wkv_kernel", "flash_mma_kernel", "rglru_kernel", "reduce_kernel")
 
 
 def kernel_spills(report: str) -> dict:
@@ -946,25 +1022,61 @@ def kernel_spills(report: str) -> dict:
     return out
 
 
+@functools.cache
+def sass_text(lib) -> str:
+    """The SASS of the kernel library ``lib`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+
+    exe = Path(_build.nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(exe), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def tensor_core_sass(lib) -> dict:
     """Tensor-core instructions in the SASS of ``lib``: HGMMA (wgmma) in the
     two wgmma kernels, HMMA (mma.sync) in the mma.sync flash kernel, summed
     over each kernel's instantiations."""
-    from repro_torch.kernels import _build
-
-    exe = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(exe), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
     ops = {"gemm_wgmma_kernel": "HGMMA", "flash_wgmma_kernel": "HGMMA",
            "flash_mma_kernel": "HMMA"}
     counts = dict.fromkeys(ops, 0)
     current = None
-    for line in sass.splitlines():
+    for line in sass_text(lib).splitlines():
         if "Function :" in line:
             current = next((k for k in counts if k in line), None)
         elif current and ops[current] in line:
             counts[current] += 1
     return counts
+
+
+REDUCE_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "i": "int32"}
+REDUCE_COMBINE = {"FADD", "FMNMX", "FSETP", "IMNMX", "VIMNMX"}
+
+
+def reduce_sass(lib) -> dict:
+    """For each ``add`` and ``max`` instantiation of ``reduce_kernel`` in the
+    SASS of ``lib`` (``"bf16 add n2 vec 8"``; n 0 is the loop over groups
+    of 4 rows): its global loads, and how many of them issue before its
+    first combine (FADD; FMNMX or FSETP; IMNMX) in program order, the loads
+    a thread has in flight when it first waits on one."""
+    out, key = {}, None
+    for line in sass_text(lib).splitlines():
+        if "Function :" in line:
+            m = re.search(r"reduce_kernelI(f|13__nv_bfloat16|i)Li(\d)ELi(\d+)ELi(\d+)EE", line)
+            key = None
+            if m and m.group(2) in "01":
+                key = (f"{REDUCE_TYPES[m.group(1)]} {('add', 'max')[int(m.group(2))]} "
+                       f"n{m.group(3)} vec {m.group(4)}")
+                out[key] = {"loads": 0, "before_first_combine": None}
+            continue
+        op = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if key is None or op is None:
+            continue
+        name = op.group(1)
+        if name.startswith("LDG"):
+            out[key]["loads"] += 1
+        elif name.split(".")[0] in REDUCE_COMBINE and out[key]["before_first_combine"] is None:
+            out[key]["before_first_combine"] = out[key]["loads"]
+    return out
 
 
 def speedups(gemm_rows, flash_rows):
@@ -1749,6 +1861,8 @@ def train_flops(model, cfg, B: int, S: int) -> float:
     forward; the remat recompute not counted): 2 per weight of every
     product per token (the head included), and 4 * head_dim per live
     causal (query, key) pair per head for attention."""
+    from repro_torch.kernels.flash_attention import causal_pairs
+
     weights = sum(p.numel() for n, p in model.named_parameters() if p.ndim == 2 and n != "embed")
     weights += model.head.numel()
     attention = 4.0 * cfg.head_dim * cfg.n_heads * B * causal_pairs(S, 0) * cfg.n_layers
@@ -1777,11 +1891,16 @@ def split_launches(loss_of, params, wrappers=None) -> tuple[dict, tuple]:
 
 def profiled_step(trainer, batch) -> dict:
     """One warm optimizer step timed, then one profiled: device busy and idle
-    share against the warm wall."""
+    share against the warm wall, and the warm step's ``reduce_nway`` inputs
+    that were not contiguous (``reduce_layouts``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.reduce_nway import reduce_nway
 
     model, opt_state, err_state = trainer.state
     walls = {}
+    layouts = reduce_nway.layouts
+    layouts.update(dict.fromkeys(layouts, 0))
     for run in ("warm", "profiled"):
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             if run == "profiled" else contextlib.nullcontext()
@@ -1791,10 +1910,13 @@ def profiled_step(trainer, batch) -> dict:
             model, opt_state, err_state, _ = trainer._step_fn(model, opt_state, batch, err_state)
             torch.cuda.synchronize()
             walls[run] = (time.perf_counter() - t) * 1e3
+        if run == "warm":
+            step_layouts = dict(layouts)
     trainer.state = (model, opt_state, err_state)
     br = device_breakdown(prof)
     return {"wall_ms": walls["warm"], "profiled_wall_ms": walls["profiled"],
-            "idle_share": 1 - br["device_ms"] / walls["warm"], **br}
+            "idle_share": 1 - br["device_ms"] / walls["warm"], "reduce_layouts": step_layouts,
+            **br}
 
 
 def train_entry(seed: int) -> dict:
@@ -2142,6 +2264,8 @@ def dp_training(seed: int) -> dict:
           f"{per_step}; {len(leaves)} reference leaves, int8 payload {numel} B a member "
           f"({4 * numel} B in f32); profiled step: wall {prof['wall_ms']:.1f} ms, device "
           f"{prof['device_ms']:.1f} ms (idle {prof['idle_share']:.1%}): {top}", flush=True)
+    print(f"  one step's reduce_nway inputs not contiguous (read in place, copied first, and "
+          f"their bytes): {prof['reduce_layouts']}", flush=True)
     if not kept >= DP_KEEP:
         fail(f"dp train: the compressed run kept {kept:.1%} of the one-card run's loss "
              f"reduction, under {DP_KEEP:.0%}")
@@ -2663,10 +2787,15 @@ def tp_serve(seed: int, arch: str, mesh_shape: tuple, tag: str, unsharded: dict)
         nxt = state["logits"].argmax(-1)[:, None]
         fam.decode_step(model, state["cache"], nxt, tokens.shape[1], cfg, policy)
 
+    reduce_nway.layouts.update(dict.fromkeys(reduce_nway.layouts, 0))
     with torch.inference_mode(), ep_drops() as dropped:  # untimed: the drops counted
         prefill()
         torch.cuda.synchronize()
     out["reduce_nway_per_prefill"] = reduce_nway.launches
+    out["reduce_layouts_per_prefill"] = dict(reduce_nway.layouts)
+    print(f"  one prefill: {reduce_nway.launches} reduce_nway launches; inputs not contiguous "
+          f"(read in place, copied first, and their bytes): {out['reduce_layouts_per_prefill']}",
+          flush=True)
     drops = dropped["rows"].flatten().tolist() if "rows" in dropped else None
     if drops:
         print(f"  rows dropped by member at capacity, summed over the {cfg.n_layers} MoE "
@@ -2837,6 +2966,8 @@ def mp_training(seed: int, phase7: dict, phase9: dict) -> dict:
           f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms (idle "
           f"{prof['idle_share']:.1%}): {top}", flush=True)
     p7, p9 = phase7["train"], phase9["train"]
+    print(f"  one step's reduce_nway inputs not contiguous (read in place, copied first, and "
+          f"their bytes): {prof['reduce_layouts']}", flush=True)
     print(f"  beside phase 7 (one card, unsharded): warm step {p7['warm_step_ms']:.1f} ms, "
           f"{p7['tokens_per_s']:.0f} tokens/s, MFU {p7['mfu']:.2%}, peak {p7['peak_gib']:.2f} GiB, "
           f"idle {p7['profiled_step']['idle_share']:.1%}; phase 9a (4 stacked DP members): "
@@ -4523,8 +4654,8 @@ def main(argv=None) -> int:
     print(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s")
     print_ptxas(report)
     spills = kernel_spills(report)
-    print(f"  gemm, wkv, mma.sync flash and rglru_scan kernels (registers, spill bytes; "
-          f"0 spills expected): {spills}")
+    print(f"  gemm, wkv, mma.sync flash, rglru_scan and reduce_nway kernels (registers, spill "
+          f"bytes; 0 spills expected): {spills}")
     spilled = {k: v for k, v in spills.items() if k.startswith(("flash_mma", "rglru"))
                and v.get("spill_bytes")}
     if spilled:
@@ -4534,6 +4665,8 @@ def main(argv=None) -> int:
     print(f"  tensor-core instructions in the SASS (HGMMA, HMMA for flash_mma_kernel): {mma}")
     if not all(mma.values()):
         fail(f"a tensor-core kernel issues no HGMMA / HMMA: {mma}")
+    print(f"  reduce_nway in the SASS (global loads, and those issued before the first "
+          f"combine): {reduce_sass(path)}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
 

@@ -23,13 +23,14 @@ find the mesh from the enclosing ``with mesh:`` block:
 * ``ppermute`` (an ``index_select`` along the axis' dim; paired
   ``isend`` / ``irecv`` on a rank mesh);
 * ``psum`` and ``psum_scatter`` (the ``reduce_nway`` kernel over the axis'
-  dim for float32 and bfloat16; other dtypes as ``jax.lax.psum`` sums
-  them, see :func:`axis_sum`; a rank mesh keeps the same arithmetic: a
-  reduce-scatter by ``all_to_all_single`` and the ``reduce_nway`` router,
-  then ``all_gather`` for ``psum``), ``pmax`` (its ``max``),
-  ``all_gather``, ``all_to_all`` (``jax.lax.all_to_all``'s tiled form: a
-  reshape and ``movedim`` across the axis' dim on the stacked mesh, no
-  kernel; ``all_to_all_single`` on a rank mesh);
+  dim for float32 and bfloat16, which reads an expand or moved mesh dims
+  in place and gets a copy of any other layout, ``readable``; other dtypes
+  as ``jax.lax.psum`` sums them, see :func:`axis_sum`; a rank mesh keeps
+  the same arithmetic: a reduce-scatter by ``all_to_all_single`` and the
+  ``reduce_nway`` router, then ``all_gather`` for ``psum``), ``pmax`` (its
+  ``max``), ``all_gather``, ``all_to_all`` (``jax.lax.all_to_all``'s tiled
+  form: a reshape and ``movedim`` across the axis' dim on the stacked
+  mesh, no kernel; ``all_to_all_single`` on a rank mesh);
 * ``take`` and ``put``: a per-member index into a local dim, in place of
   ``jnp.take`` / ``dynamic_slice`` / ``dynamic_update_slice`` with a
   traced index; ``block_of`` and ``gather_blocks``: a member's block of a
@@ -69,7 +70,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import reduce_nway as _kernel
-from repro_torch.kernels.reduce_nway import reduce_nway
+from repro_torch.kernels.reduce_nway import readable, reduce_nway
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh")
 _INTS = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
@@ -224,7 +225,7 @@ def axis_sum(x: torch.Tensor, d: int) -> torch.Tensor:
     in member order, as the reference's psum adds them.
     """
     if x.dtype in (torch.float32, torch.bfloat16):
-        return reduce_nway(x.contiguous(), op="add", dim=d)
+        return reduce_nway(readable(x, d), op="add", dim=d)
     if x.dtype in (torch.float16, torch.float64):
         total = x.select(d, 0)
         for i in range(1, x.shape[d]):
@@ -260,7 +261,7 @@ class _Broadcast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        out = _counted(axis_sum, g.contiguous(), ctx.d)
+        out = _counted(axis_sum, g, ctx.d)
         _count(ctx.kind, g if ctx.kind == "all-reduce" else out, ctx.mesh)
         return out, None, None, None
 
@@ -297,7 +298,7 @@ def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
     if isinstance(mesh, RankMesh):
         return mesh.pmax(x, name)
     d = mesh.dim(name)
-    return reduce_nway(x.contiguous(), op="max", dim=d).unsqueeze(d).expand(x.shape)
+    return reduce_nway(readable(x, d), op="max", dim=d).unsqueeze(d).expand(x.shape)
 
 
 def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:

@@ -3,9 +3,16 @@
 Replaces ``src/repro/kernels/reduce_nway.py:reduce_nway`` (``_reduce_kernel``).
 The kernel is ``csrc/reduce_nway.cu``.  It is bound by device-memory bytes,
 (N + 1) * M * itemsize (each input row read once, the output written once),
-which on an H100 SXM is that many bytes over 3.35 TB/s.  Each thread keeps
-16 bytes of the output in registers and streams the N inputs through them
-with coalesced 16-byte loads, so no byte is read twice.
+which on an H100 SXM is that many bytes over 3.35 TB/s.  Its launch plan
+is :func:`reduce_plan`: a 16-byte vector a thread where the layout is
+aligned, and one block a tile; a thread loads its rows 4 at a time, each
+group's loads issued before its first combine (n = 1 and 2 written out).
+
+The kernel reads x in place when its layout is (outer, N, inner) through
+two strides, the collapsed dims before ``dim`` (0 for an ``expand``) and
+``dim``, with the dims after ``dim`` one contiguous run
+(:func:`reads_in_place`); :func:`readable` copies any other layout first,
+and counts the copy in ``reduce_nway.layouts``.
 
 Ops follow the reference: ``add`` sums in f32 and casts back (int32 too,
 as the Pallas kernel does), ``max`` is elementwise (exact on int32: the
@@ -36,7 +43,9 @@ of M.  ``reduce_nway.launches`` counts real launches only.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -49,13 +58,93 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 SUPPORTED = {"add": (torch.float32, torch.bfloat16, torch.int32),
              "max": (torch.float32, torch.bfloat16, torch.int32),
              "and": (torch.int32, torch.bool)}
+# csrc/reduce_nway.cu: threads (vectors) a block.
+THREADS = 256
+
+
+class ReducePlan(NamedTuple):
+    vec: int     # elements a vector (one a thread): 16 bytes, or 1
+    blocks: int  # the grid: one block a tile of THREADS vectors of a row
+
+
+@functools.lru_cache(maxsize=4096)
+def reduce_plan(outer: int, inner: int, itemsize: int, aligned: bool) -> ReducePlan:
+    """The kernel's launch plan for x viewed as (outer, n, inner), whatever n.
+
+    ``vec`` is a 16-byte vector (16 / itemsize elements) when ``aligned``
+    (the input's pointer 16-byte aligned, ``inner`` and both strides
+    multiples of the vector), else one element.  A thread takes one
+    vector and a block one tile of ``THREADS`` vectors of a row, so the
+    grid is ``outer`` times the tiles of a row, and the card's block
+    scheduler balances the SMs: on the card this measured faster than a
+    grid of one resident wave that walks the tiles, and 2 or 4 vectors a
+    thread no faster (``PERF.md`` §6).  Pointers are 64-bit, so one
+    plan serves inputs of any size; 2^31 blocks or more raise.
+    """
+    vec = 16 // itemsize if aligned else 1
+    blocks = outer * -(-inner // (THREADS * vec))
+    if blocks >= 2 ** 31:
+        raise ValueError(f"reduce_nway: {blocks} tiles of (outer {outer}, inner {inner}) "
+                         "exceed the kernel's 2^31 blocks")
+    return ReducePlan(vec, blocks)
+
+
+@functools.lru_cache(maxsize=4096)
+def _layout_of(shape, stride, dim: int):
+    """(outer, n, inner, so, sn) of a tensor of ``shape`` and ``stride``
+    viewed as (outer, n, inner) over ``dim``, element (o, i, e) at o * so +
+    i * sn + e, or None when the dims after ``dim`` are not one contiguous
+    run or those before it do not collapse to one stride.  Size-1 dims are
+    skipped; so = 0 when outer is 1, sn = 0 when n is 1."""
+    n, inner = shape[dim], 1
+    for k in range(len(shape) - 1, dim, -1):
+        if shape[k] != 1 and stride[k] != inner:
+            return None
+        inner *= shape[k]
+    outer, so = 1, 0
+    for k in range(dim - 1, -1, -1):
+        if shape[k] == 1:
+            continue
+        if outer == 1:
+            so = stride[k]
+        elif stride[k] != so * outer:
+            return None
+        outer *= shape[k]
+    return outer, n, inner, so, stride[dim] if n > 1 else 0
+
+
+def _layout(x, dim: int):
+    return _layout_of(x.shape, x.stride(), dim)
+
+
+def reads_in_place(x, dim: int = 0) -> bool:
+    """Whether the kernel reads ``x`` as it lies: the dims after ``dim`` one
+    contiguous run, those before it collapsed to one stride (which may be
+    0, an ``expand``).  A contiguous tensor always qualifies."""
+    return _layout(x, dim % x.ndim) is not None
+
+
+def readable(x, dim: int = 0):
+    """``x`` itself when the kernel reads it in place (:func:`reads_in_place`),
+    else a contiguous copy, counted in ``reduce_nway.layouts`` (``copied``,
+    ``copied_bytes``).  On the CPU always the contiguous tensor: the plain
+    version sums in ``torch.sum``'s order, which follows the layout, so its
+    callers keep the bits they had when every input was copied."""
+    if reads_in_place(x, dim):
+        return x.contiguous() if x.device.type == "cpu" else x
+    reduce_nway.layouts["copied"] += 1
+    reduce_nway.layouts["copied_bytes"] += x.numel() * x.element_size()
+    return x.contiguous()
 
 
 def reduce_nway(x, *, op: str = "add", bs: int = 512, dim: int = 0):
     """Reduce ``x`` over ``dim`` with ``op``: (N, M) -> (M,) by default.
 
     Any shape is taken; the reduced dim may sit anywhere (the stacked
-    mesh's ``psum`` reduces a middle dim in place, with no transpose).
+    mesh's ``psum`` reduces a middle dim in place, with no transpose).  On
+    the card the layout must be one the kernel reads in place
+    (:func:`reads_in_place`; :func:`readable` copies any other), or the
+    call raises.
     ``bs`` is the TPU's column tile and does not change the result.  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel or
     raises (a fake or meta tensor of a trace gets the output's shape from
@@ -83,23 +172,50 @@ def _reduce(x, op: str, dim: int):
         return _reduce(x.to(torch.int32), op, dim).to(torch.bool)
     if x.device.type == "cpu":
         return reduce_nway_ref(x, op, dim)
-    if not x.is_contiguous():
-        raise ValueError("reduce_nway: input must be contiguous")
     return (torch.ops.repro_torch.reduce_nway if _build.traced(x) else _launch)(x, op, dim)
 
 
+def _unreadable(x, dim: int) -> ValueError:
+    return ValueError(f"reduce_nway: the kernel cannot read strides {x.stride()} of "
+                      f"{tuple(x.shape)} over dim {dim}; pass readable(x, dim)")
+
+
+def _launch_args(x, dim: int):
+    """(layout, plan) of a launch on ``x``: :func:`_layout_of` and
+    :func:`reduce_plan`; None for a layout the kernel does not read."""
+    layout = _layout(x, dim)
+    if layout is None:
+        return None
+    outer, _, inner, so, sn = layout
+    itemsize = x.element_size()
+    vec = 16 // itemsize
+    aligned = x.data_ptr() % 16 == 0 and inner % vec == 0 and so % vec == 0 and sn % vec == 0
+    return layout, reduce_plan(outer, inner, itemsize, aligned)
+
+
 def _launch(x: torch.Tensor, op: str, dim: int) -> torch.Tensor:
-    """The launch on the card."""
-    shape = x.shape
-    out = torch.empty(shape[:dim] + shape[dim + 1:], dtype=x.dtype, device=x.device)
+    """The launch on the card; a layout the kernel does not read raises."""
+    args = _launch_args(x, dim)
+    if args is None:
+        raise _unreadable(x, dim)
+    layout, plan = args
+    out = torch.empty(x.shape[:dim] + x.shape[dim + 1:], dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = _build.library().repro_reduce_nway(
-            x.data_ptr(), out.data_ptr(), DTYPES[x.dtype], OPS.index(op),
-            math.prod(shape[:dim]), shape[dim], math.prod(shape[dim + 1:]),
-            torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), out.data_ptr(), DTYPES[x.dtype], OPS.index(op), *layout, plan.vec,
+            plan.blocks, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "reduce_nway")
     reduce_nway.launches += 1
+    if not x.is_contiguous():
+        reduce_nway.layouts["in_place"] += 1
+        reduce_nway.layouts["in_place_bytes"] += x.numel() * x.element_size()
     return out
+
+
+def _plan(x, dim: int) -> ReducePlan:
+    """The :func:`reduce_plan` that a launch on ``x`` (in a layout the
+    kernel reads) takes."""
+    return _launch_args(x, dim)[1]
 
 
 _reduce_op = torch.library.custom_op("repro_torch::reduce_nway", mutates_args=(),
@@ -108,6 +224,8 @@ _reduce_op = torch.library.custom_op("repro_torch::reduce_nway", mutates_args=()
 
 @_reduce_op.register_fake
 def _(x, op, dim):
+    if _layout(x, dim) is None:
+        raise _unreadable(x, dim)
     return x.new_empty(x.shape[:dim] + x.shape[dim + 1:])
 
 
@@ -135,3 +253,7 @@ class ReduceAdd(torch.autograd.Function):
 
 reduce_nway.launches = 0           # every launch
 reduce_nway.backward_launches = 0  # those made by a backward pass (``core/mesh.py``)
+# Inputs that were not contiguous: launches that read one in place and the
+# bytes a copy would have moved; copies that ``readable`` made of layouts
+# the kernel does not read, and their bytes.
+reduce_nway.layouts = dict.fromkeys(("in_place", "in_place_bytes", "copied", "copied_bytes"), 0)

@@ -131,6 +131,133 @@ def test_reduce_kernel_matches_plain_on_card(card, op, dtype, shape, dim):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _member_order(x, op, dim):
+    """The kernel's arithmetic written out: row 0, then rows 1.. combined in
+    member order in an f32 running value (the integer itself for int32 max
+    and and; bool through int32), rounded once to x's dtype."""
+    if x.dtype == torch.bool:
+        return _member_order(x.to(torch.int32), op, dim).to(torch.bool)
+    exact = x.dtype == torch.int32 and op != "add"
+    acc = x.select(dim, 0) if exact else x.select(dim, 0).float()
+    for i in range(1, x.shape[dim]):
+        row = x.select(dim, i) if exact else x.select(dim, i).float()
+        acc = acc + row if op == "add" else torch.maximum(acc, row) if op == "max" else acc & row
+    return acc.to(x.dtype)
+
+
+def _reduce_input(card, op, dtype, shape, seed, offset=0):
+    """Random rows for ``op`` on ``dtype``, ``offset`` elements into a fresh
+    buffer (1: off the 16-byte alignment)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    numel = math.prod(shape) + offset
+    if dtype == torch.bool:
+        x = torch.rand(numel, generator=gen, device=card) < 0.8
+    elif op == "max" and dtype == torch.int32:
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, (numel,), generator=gen, device=card,
+                          dtype=torch.int32)
+    elif dtype == torch.int32:
+        x = torch.randint(0, 2 if op == "and" else 100, (numel,), generator=gen, device=card,
+                          dtype=torch.int32)
+    else:
+        x = torch.randn(numel, generator=gen, device=card).to(dtype)
+    return x[offset:].view(shape)
+
+
+_OP_DTYPES = [("add", torch.float32), ("add", torch.bfloat16), ("add", torch.int32),
+              ("max", torch.float32), ("max", torch.bfloat16), ("max", torch.int32),
+              ("and", torch.int32), ("and", torch.bool)]
+
+
+# n: the mesh sizes 1, 2, 4, 8, the barrier's 16, and 3, 5, 17, which end
+# in a partial group of 4 rows; inner 4104, a
+# multiple of every vector but not of a tile (a ragged last tile); 1001 and
+# a pointer one element in, the one-element vectors.
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype", _OP_DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 16, 17])
+@pytest.mark.parametrize("inner,offset", [(4104, 0), (1001, 0), (4104, 1)])
+def test_reduce_kernel_is_bit_equal_to_the_member_order_loop_on_card(card, op, dtype, n,
+                                                                     inner, offset):
+    x = _reduce_input(card, op, dtype, (3, n, inner), seed=n, offset=offset)
+    before = reduce_nway.launches
+    out = reduce_nway(x, op=op, dim=1)
+    torch.cuda.synchronize()
+    assert reduce_nway.launches == before + 1
+    assert torch.equal(out, _member_order(x, op, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_kernel_over_more_than_65535_rows_on_card(card, dtype):
+    x = _reduce_input(card, "add", dtype, (70000, 3, 40), seed=2)
+    assert torch.equal(reduce_nway(x, dim=1), _member_order(x, "add", 1))
+
+
+@pytest.mark.cuda
+def test_reduce_kernel_past_2_31_elements_on_card(card):
+    """2^31 + 128 bf16 elements (4.3 GB): the second row's last elements lie
+    past offset 2^31, which a 32-bit offset would wrap."""
+    x = _reduce_input(card, "add", torch.bfloat16, (2, 2 ** 30 + 64), seed=3)
+    out = reduce_nway(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, (x[0].float() + x[1].float()).to(torch.bfloat16))
+    del x, out
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype", [("add", torch.float32), ("add", torch.bfloat16),
+                                      ("max", torch.bfloat16), ("and", torch.int32)])
+def test_reduce_kernel_reads_expanded_and_strided_inputs_in_place_on_card(card, op, dtype):
+    """An expand over the dims before ``dim`` and over ``dim`` itself, the
+    mesh dims moved, a slice of ``dim`` and a pointer off alignment are read
+    in place, equal to the kernel on a contiguous copy; a transposed inner
+    run raises, and ``readable`` copies it."""
+    from repro_torch.kernels.reduce_nway import readable, reads_in_place
+
+    base = _reduce_input(card, op, dtype, (1, 4, 3, 64, 40), seed=7)
+    moved = _reduce_input(card, op, dtype, (4, 2, 3, 64, 40), seed=8)
+    wide = _reduce_input(card, op, dtype, (2, 6, 3, 64, 40), seed=9)
+    layouts = [base.expand(2, 4, 3, 64, 40), base[:, :1].expand(2, 4, 3, 64, 40),
+               moved.movedim(0, 1), wide[:, 1:5],
+               _reduce_input(card, op, dtype, (2, 4, 3, 64, 40), seed=10, offset=1)]
+    for x in layouts:
+        assert reads_in_place(x, 1)
+        before = dict(reduce_nway.layouts)
+        out = reduce_nway(x, op=op, dim=1)
+        assert reduce_nway.layouts["in_place"] == before["in_place"] + (not x.is_contiguous())
+        assert torch.equal(out, reduce_nway(x.contiguous(), op=op, dim=1))
+        assert torch.equal(out, _member_order(x, op, 1))
+    t = wide.transpose(3, 4)
+    assert not reads_in_place(t, 1)
+    with pytest.raises(ValueError):
+        reduce_nway(t, op=op, dim=1)
+    copied = reduce_nway.layouts["copied"]
+    assert torch.equal(reduce_nway(readable(t, 1), op=op, dim=1), _member_order(t, op, 1))
+    assert reduce_nway.layouts["copied"] == copied + 1
+
+
+@pytest.mark.cuda
+def test_reduce_entry_refuses_a_plan_it_cannot_run_on_card(card):
+    """The C entry takes the wrapper's plan as given, but refuses a vector
+    width it was not built for and a 16-byte plan on a pointer off
+    alignment, which would fault."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import reduce_nway as R
+
+    x = torch.zeros(4, 4096, device=card)
+    out = torch.empty(4096, device=card)
+    plan = R.reduce_plan(1, 4096, 4, True)
+    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
+    assert lib.repro_reduce_nway(x.data_ptr(), out.data_ptr(), 0, 0, 1, 4, 4096, 0, 4096,
+                                 2, plan.blocks, stream) != 0
+    assert lib.repro_reduce_nway(x.data_ptr() + 4, out.data_ptr(), 0, 0, 1, 4, 4092, 0, 4096,
+                                 plan.vec, plan.blocks, stream) != 0
+    assert lib.repro_reduce_nway(x.data_ptr(), out.data_ptr(), 0, 0, 1, 4, 4096, 0, 4096,
+                                 plan.vec, plan.blocks, stream) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("accumulate", [False, True])
 def test_gemm_cuda_core_route_on_a_tensor_core_shape_on_card(card, accumulate):
