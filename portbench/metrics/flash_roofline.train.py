@@ -1,0 +1,20 @@
+"""flash_roofline.train: the attention forward's FLOPs a step (4 head_dim
+per live causal pair per head, over every layer, twice where the
+configuration states remat: the forward and its recompute) at 989 TFLOP/s,
+over the device time of the flash forward kernels."""
+
+from portbench import flops
+
+FLASH = ("flash_wgmma_kernel",)  # the bf16 route, csrc/flash_attention_wgmma.cu
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    spent = run.trace.seconds_in(FLASH)
+    if spent <= 0:
+        return None
+    s = run.shapes
+    passes = 2 if s["config"].get("remat") else 1
+    work = passes * flops.attention_flops(s["config"], s["batch"], s["seq"]) * run.units
+    return 100.0 * work / flops.PEAK_BF16 / spent

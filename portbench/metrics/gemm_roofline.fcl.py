@@ -1,0 +1,4 @@
+"""gemm_roofline.fcl: the fcl products' least time over their kernels' device
+time (``readers.gemm_roofline``)."""
+
+from portbench.readers import gemm_roofline as read  # noqa: F401
