@@ -19,6 +19,7 @@ from __future__ import annotations
 from repro_torch.core import mesh as M
 from repro_torch.core import schedules as sched
 from repro_torch.kernels.ops import gemm
+from repro_torch.tracing import spanned
 
 
 def fcl(attn_local, wo_local, axis: str, schedule: str = "native",
@@ -36,6 +37,7 @@ def fcl(attn_local, wo_local, axis: str, schedule: str = "native",
     return sched.all_reduce(partial_c, axis, schedule=schedule, chunks=chunks)
 
 
+@spanned("fcl")
 def fcl_sharded(attn, wo, mesh, axis: str = "model", schedule: str = "native",
                 scatter: bool = False):
     """shard_map counterpart.

@@ -58,6 +58,8 @@ function adds the bytes of its result, all members' together, to
 ``all-to-all``, ``ppermute`` as ``collective-permute``), and so does each
 transpose in a backward pass; the dry run (``launch/dryrun.py``) reads
 them.  Outside it the cost is one test of a module global per call.
+Each collective is also the span ``rt:collective.<name>`` while a profiler
+records (``repro_torch.tracing``).
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ import torch.distributed as dist
 
 from repro_torch.kernels import reduce_nway as _kernel
 from repro_torch.kernels.reduce_nway import readable, reduce_nway
+from repro_torch.tracing import spanned
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh")
 _INTS = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
@@ -203,6 +206,7 @@ def _sources(n: int, name: str, perm) -> list:
     return src
 
 
+@spanned("collective.ppermute")
 def ppermute(x: torch.Tensor, name: str, perm) -> torch.Tensor:
     """Member ``dst`` receives ``x`` of member ``src`` for each (src, dst).
     Its gradient is the inverse permutation of the cotangents."""
@@ -276,6 +280,7 @@ def _broadcast(y: torch.Tensor, d: int, n: int, kind: str) -> torch.Tensor:
     return y.expand(y.shape[:d] + (n,) + y.shape[d + 1:])
 
 
+@spanned("collective.psum")
 def psum(x: torch.Tensor, name: str) -> torch.Tensor:
     """Sum over the axis (:func:`axis_sum`), replicated to every member.
     Its gradient is the ``psum`` of the cotangents (integers carry none)."""
@@ -287,6 +292,7 @@ def psum(x: torch.Tensor, name: str) -> torch.Tensor:
     return _broadcast(axis_sum(x, d), d, x.shape[d], "all-reduce")
 
 
+@spanned("collective.pmax")
 def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
     """Maximum over the axis (the ``reduce_nway`` kernel's ``max`` over its
     dim), replicated to every member, as ``jax.lax.pmax``.  It carries no
@@ -301,6 +307,7 @@ def pmax(x: torch.Tensor, name: str) -> torch.Tensor:
     return reduce_nway(readable(x, d), op="max", dim=d).unsqueeze(d).expand(x.shape)
 
 
+@spanned("collective.psum_scatter")
 def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
     """Sum over the axis, scattering the member's dim 0 across it.  Its
     gradient is the ``all_gather`` of the cotangents."""
@@ -322,6 +329,7 @@ def psum_scatter(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor
     return parts if tiled else parts.squeeze(k)
 
 
+@spanned("collective.all_gather")
 def all_gather(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
     """Every member receives all members' ``x`` along the axis: stacked on a
     new dim 0, or concatenated on dim 0 when ``tiled``.  Its gradient is the
@@ -340,6 +348,7 @@ def all_gather(x: torch.Tensor, name: str, tiled: bool = True) -> torch.Tensor:
     return out
 
 
+@spanned("collective.all_to_all")
 def all_to_all(x: torch.Tensor, name: str, split_axis: int, concat_axis: int,
                tiled: bool = True) -> torch.Tensor:
     """``jax.lax.all_to_all(x, name, split_axis, concat_axis, tiled=True)``.
@@ -823,6 +832,7 @@ def copies(mesh, spec) -> int:
     return math.prod(s for a, s in zip(mesh.axis_names, mesh.shape) if a not in named)
 
 
+@spanned("collective.sum_copies")
 def sum_copies(g: torch.Tensor, mesh, spec) -> torch.Tensor:
     """The adjoint of :func:`shard`: a laid-out gradient's copies along the
     axes that ``spec`` does not name summed (a ``psum`` over each), so that

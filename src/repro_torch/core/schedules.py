@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import mesh as M
+from repro_torch.tracing import spanned
 
 SCHEDULES = ("native", "chain", "pipelined", "tree")
 
@@ -72,6 +73,7 @@ def _where(cond, a, b):
 # ---------------------------------------------------------------------------
 
 
+@spanned("collective.broadcast")
 def broadcast(x, axis: str, root: int = 0, schedule: str = "native", chunks: int = 1):
     """Broadcast ``x`` from ``root`` along ``axis`` to all members."""
     n = M.axis_size(axis)
@@ -133,6 +135,7 @@ def _broadcast_tree(x, axis, root, n, idx):
 # ---------------------------------------------------------------------------
 
 
+@spanned("collective.all_reduce")
 def all_reduce(x, axis: str, schedule: str = "native", chunks: int = 1):
     n = M.axis_size(axis)
     _check_pow2(n, "all_reduce")
@@ -196,6 +199,7 @@ def _ring_all_reduce(x, axis, n):
 # ---------------------------------------------------------------------------
 
 
+@spanned("collective.all_gather")
 def all_gather(x, axis: str, schedule: str = "native"):
     """Gather shards along a new leading dim -> concatenated on dim 0."""
     n = M.axis_size(axis)
@@ -229,6 +233,7 @@ def all_gather(x, axis: str, schedule: str = "native"):
     raise ValueError(f"unknown schedule {schedule!r}")
 
 
+@spanned("collective.reduce_scatter")
 def reduce_scatter(x, axis: str, schedule: str = "native"):
     """Sum over the axis, scattering dim 0: (m, ...) -> (m/n, ...).
 

@@ -28,6 +28,7 @@ import torch
 from repro_torch.core import mesh as M
 from repro_torch.core import schedules as sched
 from repro_torch.kernels.ops import gemm
+from repro_torch.tracing import spanned
 
 
 def summa(A_blk, B_blk, row_axis: str, col_axis: str, schedule: str = "native",
@@ -74,6 +75,7 @@ def _summa_ring(A_blk, B_blk, row_axis: str, col_axis: str):
     return C.to(A_blk.dtype)
 
 
+@spanned("collective.rotate_by")
 def _rotate_by(x, axis: str, n: int, shift):
     """Rotate x left by a per-member shift using log2(n) ppermutes."""
     out = x
@@ -217,6 +219,7 @@ def summa_noc_trace(mesh, tile_bytes: int, schedule: str = "native",
                          chunks=chunks, params=params).to_trace()
 
 
+@spanned("summa")
 def summa_sharded(A, B, mesh, row_axis="data", col_axis="model",
                   schedule: str = "native", chunks: int = 4):
     """shard_map counterpart: A (M, K), B (K, N), C (M, N) all 2-D block-sharded.

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.core import mesh as M
 
 
@@ -291,8 +292,13 @@ def chunked_cross_entropy(hidden, head, labels, cfg: ModelConfig, mb=None):
     the gold logit comes from the member whose block holds the label
     (``psum``), and the total and count are ``psum``'d over the batch axes.
     A slab's recompute runs the same collectives in the same order on every
-    member.  Returns the global loss, one value a member (*lead).
+    member.  Returns the global loss, one value a member (*lead).  The whole
+    is the traced region ``loss_head`` (``tracing.region``).
     """
+    return tracing.region("loss_head", _cross_entropy, hidden, head, labels, cfg, mb)
+
+
+def _cross_entropy(hidden, head, labels, cfg: ModelConfig, mb):
     S = hidden.shape[-2]
     chunk = min(cfg.loss_chunk, S)
     lead = hidden.shape[:-3]

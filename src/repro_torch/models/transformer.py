@@ -45,6 +45,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.core import mesh as M
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
@@ -216,14 +217,18 @@ def forward(model: Transformer, tokens, cfg: ModelConfig,
             return mb.unshard_batch(mb.gather_seq(x)), mb.first(aux)
     B, S = tokens.shape
     x = model.embed[tokens].to(cfg.compute_dtype)
-    positions = _positions(B, S, x.device)
+    return tracing.region("blocks", _blocks, model, x, _positions(B, S, x.device), cfg)
+
+
+def _blocks(model: Transformer, x, positions, cfg: ModelConfig):
+    """The layers and the final norm on the embedded ``x``: (hidden, aux
+    loss summed over the layers)."""
     layer = maybe_remat(_layer, cfg.remat)
     aux = torch.zeros((), device=x.device)
     for blk, window in zip(model.blocks, layer_windows_list(cfg)):
         x, a = layer(blk, x, positions, window, cfg)
         aux = aux + a
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x, aux
+    return rms_norm(x, model.final_norm, cfg.norm_eps), aux
 
 
 def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig,
@@ -332,6 +337,11 @@ def _forward_tp(model: Transformer, tokens, cfg: ModelConfig, mb: Members):
     ``cfg.remat``."""
     x = vocab_embed(model.embed, tokens, cfg, mb)
     positions = torch.arange(tokens.shape[-1], dtype=torch.int32, device=x.device)
+    return tracing.region("blocks", _blocks_tp, model, x, positions, cfg, mb)
+
+
+def _blocks_tp(model: Transformer, x, positions, cfg: ModelConfig, mb: Members):
+    """The layers and the final norm on the member's embedded ``x``."""
     layer = maybe_remat(_layer_tp, cfg.remat)
     aux = torch.zeros(x.shape[:mb.k], device=x.device)
     for blk, window in zip(model.blocks, layer_windows_list(cfg)):

@@ -57,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import mesh as M
 from repro_torch.models import get_family
@@ -263,15 +264,16 @@ class Trainer:
         if self.sharded:  # each copy's share summed: the global gradient
             specs = self._layout[1]
             grads = {k: M.sum_copies(g, self.mesh, specs[k]) for k, g in grads.items()}
-        lr_scale = warmup_cosine(opt_state["step"], warmup=self.tcfg.warmup,
-                                 total=self.tcfg.total_steps)
-        params = params_of(model)
-        # the old state is not read again: donate its moments (one copy at the peak)
-        new, opt_state, metrics = adamw_update(params, grads, opt_state, self.tcfg.adamw,
-                                               lr_scale, self._layout, donate=True)
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(new[k])
+        with tracing.span("optimizer"):
+            lr_scale = warmup_cosine(opt_state["step"], warmup=self.tcfg.warmup,
+                                     total=self.tcfg.total_steps)
+            params = params_of(model)
+            # the old state is not read again: donate its moments (one copy at the peak)
+            new, opt_state, metrics = adamw_update(params, grads, opt_state, self.tcfg.adamw,
+                                                   lr_scale, self._layout, donate=True)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(new[k])
         metrics["loss"] = loss
         return model, opt_state, err_state, metrics
 
