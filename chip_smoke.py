@@ -573,7 +573,7 @@ FABRIC_BUDGET_S = 105.0
 # checkpoint steps, distributed_gemm's max_err within the main-path 2e-4.
 EXAMPLES_CARD = {"quickstart": ("flash_attention[mma_sync]",),
                  "fault_tolerance": ("flash_attention[mma_sync]",),
-                 "distributed_gemm": ("gemm[cuda_core]", "reduce_nway")}
+                 "distributed_gemm": ("gemm[tf32x3]", "reduce_nway")}
 EXAMPLES_HOST = ("collective_schedules", "telemetry", "service")
 EXAMPLE_PINNED = {
     "distributed_gemm": ("per-op gated (comm/compute overlap): 2183 cycles",
@@ -665,7 +665,8 @@ def gemm_cases(gen):
         else:
             lib = (lambda: torch.bmm(a, b)) if batch else (lambda: torch.matmul(a, b))
         # ``route`` forces a route (the CUDA-core kernel on a tensor-core
-        # shape, for the speed-up on one card); else the wrapper's rule picks.
+        # shape, bf16 or f32, for the speed-up on one card); else the
+        # wrapper's rule picks.
         ptrs = [t.data_ptr() for t in (a, b) + ((c,) if accumulate else ())]
         taken = route or gemm_route(dtype, K, N, ptrs)
         tag = taken
@@ -685,11 +686,13 @@ def gemm_cases(gen):
     summa = (16, TOKENS // 4, D_MODEL // 4, D_FF // 4)       # one step on the 4x4 mesh
     fcl = (8, TOKENS, N_HEADS * HEAD_DIM // 8, D_MODEL)      # partials over 8 members
     sq = (0, D_MODEL, D_MODEL, D_MODEL)
+    summa_name = "summa_step {}x({}x{} @ {}x{}) +C f32".format(*summa[:3], *summa[2:])
+    fcl_name = "fcl_partials {}x({}x{} @ {}x{}) f32".format(*fcl[:3], *fcl[2:])
     return [
-        case("summa_step {}x({}x{} @ {}x{}) +C f32".format(*summa[:3], *summa[2:]),
-             *summa, f32, True, 1e-4, 5),
-        case("fcl_partials {}x({}x{} @ {}x{}) f32".format(*fcl[:3], *fcl[2:]),
-             *fcl, f32, False, 1e-4, 5),
+        case(summa_name, *summa, f32, True, 1e-4, 5),
+        case(summa_name, *summa, f32, True, 1e-4, 5, route="cuda_core"),
+        case(fcl_name, *fcl, f32, False, 1e-4, 5),
+        case(fcl_name, *fcl, f32, False, 1e-4, 5, route="cuda_core"),
         case(f"square {D_MODEL}^3 bf16", *sq, bf16, False, BF16_RTOL, 20, atol=1e-3),
         case(f"square {D_MODEL}^3 bf16", *sq, bf16, False, BF16_RTOL, 5, atol=1e-3,
              route="cuda_core"),
@@ -1034,16 +1037,18 @@ def sass_text(lib) -> str:
 
 def tensor_core_sass(lib) -> dict:
     """Tensor-core instructions in the SASS of ``lib``: HGMMA (wgmma) in the
-    two wgmma kernels, HMMA (mma.sync) in the mma.sync flash kernel, summed
+    three wgmma kernels, HMMA (mma.sync) in the mma.sync flash kernel, summed
     over each kernel's instantiations."""
-    ops = {"gemm_wgmma_kernel": "HGMMA", "flash_wgmma_kernel": "HGMMA",
-           "flash_mma_kernel": "HMMA"}
+    ops = {"gemm_wgmma_kernel": ("gemm_wgmma_kernel", "HGMMA"),
+           "gemm_kernel<tf32x3>": ("6tf32x3", "HGMMA"),
+           "flash_wgmma_kernel": ("flash_wgmma_kernel", "HGMMA"),
+           "flash_mma_kernel": ("flash_mma_kernel", "HMMA")}
     counts = dict.fromkeys(ops, 0)
     current = None
     for line in sass_text(lib).splitlines():
         if "Function :" in line:
-            current = next((k for k in counts if k in line), None)
-        elif current and ops[current] in line:
+            current = next((k for k, (mangled, _) in ops.items() if mangled in line), None)
+        elif current and ops[current][1] in line:
             counts[current] += 1
     return counts
 
@@ -1080,17 +1085,19 @@ def reduce_sass(lib) -> dict:
 
 
 def speedups(gemm_rows, flash_rows):
-    """The tensor-core routes against the other ones and the library, at
-    the shapes both routes ran in this run."""
+    """The tensor-core routes (``tensor_core``, gemm's f32 ``tf32x3``)
+    against the other ones (``cuda_core``, flash's ``mma_sync``) and the
+    library, at the shapes both routes ran in this run."""
     for kind, rows in (("gemm", gemm_rows), ("flash_attention", flash_rows)):
         by_shape = {}
         for r in rows:
             by_shape.setdefault(r["case"].rsplit(" [", 1)[0], {})[r["route"]] = r
         for shape, pair in by_shape.items():
             if len(pair) == 2:
-                tc = pair.pop("tensor_core")
-                (other, cc), = pair.items()
-                print(f"  {kind} {shape}: tensor-core {tc['ms']:.4f} ms, {other} "
+                other = "cuda_core" if "cuda_core" in pair else "mma_sync"
+                cc = pair.pop(other)
+                (route, tc), = pair.items()
+                print(f"  {kind} {shape}: {route} {tc['ms']:.4f} ms, {other} "
                       f"{cc['ms']:.4f} ms ({cc['ms'] / tc['ms']:.2f}x faster), library "
                       f"{tc['library_ms']:.4f} ms ({tc['ms'] / tc['library_ms']:.2f}x its time)")
 
@@ -4693,11 +4700,13 @@ def main(argv=None) -> int:
     reduce_nway.launches = 0
     walls = main_path(gen)
     launches = {"gemm": gemm.route_launches["cuda_core"],
+                "gemm_tf32x3": gemm.route_launches["tf32x3"],
                 "gemm_wgmma": gemm.route_launches["tensor_core"],
                 "reduce_nway": reduce_nway.launches}
-    print(f"  launches on the main path: {launches} (f32: the tensor-core gemm is on no "
-          f"main path); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name in ("gemm", "reduce_nway"):
+    print(f"  launches on the main path: {launches} (f32: aligned blocks take the 3xTF32 "
+          f"gemm, the bf16 one is on no main path); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in ("gemm_tf32x3", "reduce_nway"):
         if launches[name] <= 0:
             fail(f"{name} was never launched on the main path")
     torch.cuda.empty_cache()
@@ -4781,7 +4790,7 @@ def main(argv=None) -> int:
     # launches_by_model.
     examples = examples_phase(smi)
     for name, key in (("flash_attention", "flash_attention[mma_sync]"),
-                      ("gemm", "gemm[cuda_core]"), ("reduce_nway", "reduce_nway")):
+                      ("gemm_tf32x3", "gemm[tf32x3]"), ("reduce_nway", "reduce_nway")):
         for ex in EXAMPLES_CARD:
             if examples[ex]["launches"].get(key):
                 by_model.setdefault(name, {})[f"14 examples {ex}"] = examples[ex]["launches"][key]
@@ -4805,6 +4814,8 @@ def main(argv=None) -> int:
     kernels = [
         entry("gemm", "src/repro_torch/kernels/csrc/gemm.cu",
               "src/repro/kernels/gemm.py:48", gemm_rows, "cuda_core"),
+        entry("gemm_tf32x3", "src/repro_torch/kernels/csrc/gemm_tf32x3.cu",
+              "src/repro/kernels/gemm.py:48", gemm_rows, "tf32x3"),
         entry("gemm_wgmma", "src/repro_torch/kernels/csrc/gemm_wgmma.cu",
               "src/repro/kernels/gemm.py:48", gemm_rows, "tensor_core"),
         entry("reduce_nway", "src/repro_torch/kernels/csrc/reduce_nway.cu",

@@ -47,6 +47,7 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "repro_gemm": (P, P, P, P, I, I, I, I, I, L, L, L, L, I, I, P),
     "repro_gemm_wgmma": (P, P, P, P, I, I, I, I, P),
+    "repro_gemm_tf32x3": (P, P, P, P, I, I, I, I, P),
     "repro_reduce_nway": (P, P, I, I, L, I, L, L, L, I, I, P),
     "repro_flash_attention": (P, P, P, P, I, I, I, I, I, P),
     "repro_flash_attention_wgmma": (P, P, P, P, I, I, I, I, P),

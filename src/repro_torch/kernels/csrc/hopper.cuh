@@ -1,18 +1,18 @@
 // Hopper building blocks shared by the tensor-core kernels (sm_90a):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma instructions these kernels issue, and the host-side encoding of
-// TMA tensor maps.
+// wgmma instructions these kernels issue, the handover of registers between
+// warpgroups, and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box
-// whose inner extent is 64 bf16 (128 bytes) lands as rows of 128 bytes in
-// which 16-byte chunk c of row r sits at chunk c ^ (r % 8).  Eight rows
+// whose inner extent is 128 bytes (64 bf16, or 32 f32) lands as rows of 128
+// bytes in which 16-byte chunk c of row r sits at chunk c ^ (r % 8).  Eight rows
 // (1024 bytes) form one swizzle atom, so every tile starts 1024-byte
 // aligned.  The wgmma descriptors below describe exactly that layout:
 //
 // * K-major operand (rows of the tile run along M or N, the 64 contiguous
 //   elements along K): the stride between 8-row groups (SBO) is 1024 bytes;
 //   the leading offset is unused inside one atom.  The k-th slice of 16
-//   along K starts 32 * k bytes into the row.
+//   along K starts 32 * k bytes into the row (in f32, the k-th slice of 8).
 // * MN-major operand (the tile's rows run along K, the 64 contiguous
 //   elements along M or N): SBO = 1024 bytes between groups of 8 K-rows, and
 //   the leading offset (LBO) is the stride between 64-wide MN blocks, each a
@@ -121,6 +121,31 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) : : "memory");
 }
 
+// The same for a register operand (a wgmma reads it after it is issued):
+// its value stays live, in place, up to this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) : : "memory");
+}
+
+// Order this thread's ordinary stores to shared memory before the async
+// proxy's later reads of it (a wgmma operand, a TMA store).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Hand registers between warpgroups: every warp of a warpgroup sets its
+// threads' count together (a multiple of 8 in [24, 256]).
+template <int R>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // Accumulator fragment of m64nN (f32): register i of thread t of the
 // warpgroup holds row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2) and
 // column 8 * (i / 4) + 2 * (t % 4) + i % 2.
@@ -217,6 +242,28 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64 x 128) (+)= A(64 x 8, registers) B(8 x 128, shared, K-major), TF32
+// operands (an f32 register or word of which the tensor core reads the top
+// 19 bits), f32 sums; D is overwritten when scale_d is 0.  TF32 has no
+// transpose bit: B must be K-major.
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // ---- host: tensor maps -----------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -242,21 +289,32 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 tensor map over a row-major (d2, d1, d0) array whose d0 is
-// contiguous, with boxes of (1, box1, box0) and the 128-byte swizzle.
-// box0 * 2 must be 128 bytes.  Returns false when encoding fails.
-inline bool map_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-                        uint64_t d2, uint32_t box0, uint32_t box1) {
+// A 3-D tensor map over a row-major (d2, d1, d0) array of ``type`` (elements
+// of ``size`` bytes) whose d0 is contiguous, with boxes of (1, box1, box0)
+// and the 128-byte swizzle.  box0 * size must be 128 bytes.  Returns false
+// when encoding fails.
+inline bool map_3d(CUtensorMap* map, CUtensorMapDataType type, uint64_t size, const void* base,
+                   uint64_t d0, uint64_t d1, uint64_t d2, uint32_t box0, uint32_t box1) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, of dims 1 and 2
+  const cuuint64_t strides[2] = {d0 * size, d0 * d1 * size};  // bytes, of dims 1 and 2
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool map_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                        uint64_t d2, uint32_t box0, uint32_t box1) {
+  return map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d0, d1, d2, box0, box1);
+}
+
+inline bool map_f32_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                       uint64_t d2, uint32_t box0, uint32_t box1) {
+  return map_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, d0, d1, d2, box0, box1);
 }
 
 }  // namespace hopper

@@ -1,9 +1,21 @@
 """Batched GEMM with an accumulate-into-output epilogue (the DCA analogue).
 
-Replaces ``src/repro/kernels/gemm.py:gemm`` (``_gemm_kernel``) with two
-hand-written kernels; :func:`gemm_route` chooses between them by dtype,
+Replaces ``src/repro/kernels/gemm.py:gemm`` (``_gemm_kernel``) with three
+hand-written kernels; :func:`gemm_route` chooses among them by dtype,
 shape and alignment:
 
+- ``tf32x3``, ``csrc/gemm_tf32x3.cu``: f32 on the tensor cores at f32
+  accuracy.  Each operand is split into a TF32 hi (its low 13 mantissa bits
+  cleared) and lo = x - hi, and each product is lo*hi + hi*lo + hi*hi on
+  TF32 ``wgmma``, summed in f32 (~2^-21 relative dropped, as the mma.sync
+  flash kernel).  TF32 wgmma reads shared memory K-major only, so the
+  kernel computes O^T = B^T A^T: TMA brings A's K-major tiles, which a
+  splitting warpgroup turns into hi and lo in shared memory; B^T is the
+  register operand, loaded and split in registers.  One block per 128x128
+  output tile, two consumer warpgroups; the tensor core's sums truncate,
+  so each sums runs of four k steps in a fresh accumulator and adds them
+  into a second one on the CUDA cores.  Bound: 2*M*N*K / 164.9 TFLOP/s per
+  member (494.7 / 3).
 - ``tensor_core``, ``csrc/gemm_wgmma.cu``: bf16 on the tensor cores.  One
   block per 128x128 output tile; a producer warpgroup keeps TMA loads of A
   and B tiles in flight through a four-slot mbarrier ring, two consumer
@@ -11,17 +23,16 @@ shape and alignment:
   bit).  A bf16 product is exact in f32 and wgmma sums in f32, so the
   numbers are the reference's.  Bound: 2*M*N*K / 989 TFLOP/s per member on
   an H100 SXM.
-- ``cuda_core``, ``csrc/gemm.cu``: f32, and the bf16 shapes TMA cannot
+- ``cuda_core``, ``csrc/gemm.cu``: the f32 and bf16 shapes TMA cannot
   address.  One 256-thread block per output tile (128x128 or 64x64, by
   :func:`gemm_plan`), a K loop inside the block (in place of the TPU's
   sequential K grid axis and VMEM accumulator) through two shared-memory
   buffers with a register-staged prefetch of the next 16-deep tile, one
   barrier per K step, and an 8x8 (or 4x4) f32 register tile per thread.
-  It is bound by FP32 FMAs on the CUDA cores, since the reference
-  multiplies in f32 (TF32 would round the operands): 2*M*N*K / 67 TFLOP/s
-  per member.
+  It is bound by FP32 FMAs on the CUDA cores: 2*M*N*K / 67 TFLOP/s per
+  member.
 
-Both add ``C_in`` in f32 in the epilogue and mask ragged M, N, K, so the
+All three add ``C_in`` in f32 in the epilogue and mask ragged M, N, K, so the
 TPU's divisibility assert is not kept; ``bm/bn/bk`` are accepted for the
 reference's signature and do not change the result.  Leading batch
 dimensions are the mesh members of a stacked mesh: one launch covers them
@@ -50,21 +61,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gemm_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("cuda_core", "tensor_core")
+ROUTES = ("cuda_core", "tensor_core", "tf32x3")
 
 
 def gemm_route(dtype, K: int, N: int, ptrs=()) -> str:
     """The kernel a call on the card takes.
 
-    ``tensor_core`` for bfloat16 when TMA can address every operand: K > 0,
-    K % 8 == 0 and N % 8 == 0 (every row stride a multiple of 16 bytes),
-    and every address in ``ptrs`` (the operands' ``data_ptr()``) a multiple
-    of 16.  ``cuda_core`` for every other call: float32, and the other
-    bf16 shapes.
+    When TMA and 16-byte loads can address every operand: K > 0, every row
+    stride a multiple of 16 bytes (K and N multiples of 8 in bf16, of 4 in
+    f32) and every address in ``ptrs`` (the operands' ``data_ptr()``) a
+    multiple of 16, bfloat16 takes ``tensor_core`` and float32 ``tf32x3``.
+    Every other call takes ``cuda_core``: K = 333, N = 777, a misaligned
+    operand, K = 0.
     """
-    if (dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
+    per_16_bytes = {torch.bfloat16: 8, torch.float32: 4}.get(dtype)
+    if (per_16_bytes and K > 0 and K % per_16_bytes == 0 and N % per_16_bytes == 0
             and all(p % 16 == 0 for p in ptrs)):
-        return "tensor_core"
+        return "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
     return "cuda_core"
 
 
@@ -80,7 +93,9 @@ def gemm_plan(batch: int, M: int, N: int, K: int, sm_count: int, ptrs=(),
     ``ptrs`` (the operands' and the output's ``data_ptr()``) is a multiple
     of 16; otherwise the same kernel template loads scalars (K = 333,
     N = 777, and bf16 on this route).  Both choose among instantiations
-    of one kernel: neither is a fallback.
+    of one kernel: neither is a fallback.  Aligned f32 calls take the
+    ``tf32x3`` route and reach this plan only when ``_route="cuda_core"``
+    forces the CUDA-core kernel.
     """
     tiles128 = batch * math.ceil(M / 128) * math.ceil(N / 128)
     tile = 128 if tiles128 >= sm_count else 64
@@ -106,8 +121,9 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
     runs the plain version; a CUDA tensor launches the kernel that
     :func:`gemm_route` names, or raises (a fake or meta tensor of a trace
     gets the output's shape from the op, and nothing launches).
-    ``_route`` forces one route, for timing the two against each other on
-    the card; a shape outside the forced route's rule raises.
+    ``_route`` forces one route, for timing the routes against each other
+    on the card (``cuda_core`` takes every call); a shape outside the
+    forced route's rule raises.
     """
     del bm, bn, bk  # the TPU's block shape; the CUDA kernel tiles itself
     if a.ndim < 2 or b.ndim != a.ndim:
@@ -134,7 +150,7 @@ def gemm(a, b, c=None, *, bm: int = 128, bn: int = 128, bk: int = 128,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gemm: operands must be contiguous")
     if _route is not None and (_route not in ROUTES or (
-            _route == "tensor_core" and gemm_route(a.dtype, K, N) != _route)):
+            _route != "cuda_core" and gemm_route(a.dtype, K, N) != _route)):
         raise ValueError(f"gemm: route {_route!r} does not take {a.dtype} K={K} N={N}")
     return (torch.ops.repro_torch.gemm if _build.traced(*tensors) else _launch)(a, b, c, _route)
 
@@ -150,7 +166,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
     ptrs = [t.data_ptr() for t in (*tensors, out)]
     chosen = gemm_route(a.dtype, K, N, ptrs)
     if route is not None:
-        if route == "tensor_core" and chosen != route:
+        if route != "cuda_core" and chosen != route:
             raise ValueError(f"gemm: route {route!r} does not take {a.dtype} "
                              f"K={K} N={N} at these addresses")
         chosen = route
@@ -159,6 +175,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
     with torch.cuda.device(a.device):
         if chosen == "tensor_core":
             rc = _build.library().repro_gemm_wgmma(
+                a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), nb, M, N, K, stream)
+        elif chosen == "tf32x3":
+            rc = _build.library().repro_gemm_tf32x3(
                 a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), nb, M, N, K, stream)
         else:
             tile, vector = gemm_plan(nb, M, N, K, sm_count(a.device.index), ptrs, a.dtype)

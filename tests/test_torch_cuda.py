@@ -38,8 +38,9 @@ def _route_moved(wrapper, before):
 
 
 # (B, M, K, N): bf16 takes the tensor-core route when K % 8 == N % 8 == 0
-# (batched; ragged M and N tiles; K = 8; the SUMMA step), else the CUDA-core
-# one (K = 77, 333, 1); f32 always the CUDA-core one.
+# (batched; ragged M and N tiles; K = 8; the SUMMA step), f32 the 3xTF32
+# tensor-core route when K % 4 == N % 4 == 0; else the CUDA-core one (K =
+# 77, 333, 1).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(2, 128, 128, 128), (3, 200, 77, 130), (1, 1, 1, 1),
@@ -51,7 +52,8 @@ def test_gemm_kernel_matches_plain_on_card(card, shape, dt, accumulate):
     gen = torch.Generator(device=card).manual_seed(0)
     a, b, c = (torch.randn(B, *s, generator=gen, device=card).to(TDT[dt])
                for s in ((M, K), (K, N), (M, N)))
-    route = "tensor_core" if dt == "bf16" and K % 8 == 0 and N % 8 == 0 else "cuda_core"
+    per_16_bytes, fast = (8, "tensor_core") if dt == "bf16" else (4, "tf32x3")
+    route = fast if K % per_16_bytes == 0 and N % per_16_bytes == 0 else "cuda_core"
     before, routes = gemm.launches, dict(gemm.route_launches)
     out = gemm(a, b, c, accumulate=accumulate)
     torch.cuda.synchronize()
@@ -64,10 +66,11 @@ def test_gemm_kernel_matches_plain_on_card(card, shape, dt, accumulate):
     assert (out.float() - ref.float()).abs().max().item() <= tol * scale
 
 
-# (B, M, K, N) f32 on each launch plan of the CUDA-core kernel: 128 tiles
-# (the SUMMA step; K = 333 with scalar loads), 64 tiles (ragged; N = 777
-# and K = 333 load scalars, 332 x 776 vectors), and an operand at an
-# address that is not 16-byte aligned.
+# (B, M, K, N) f32 on each launch plan of the CUDA-core kernel, forced where
+# the 3xTF32 route would take the call: 128 tiles (the SUMMA step; K = 333
+# with scalar loads), 64 tiles (ragged; N = 777 and K = 333 load scalars,
+# 332 x 776 vectors), and an operand at an address that is not 16-byte
+# aligned.
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,plan", [((16, 1024, 1024, 2752), (128, True)),
                                         ((16, 1024, 333, 2752), (128, False)),
@@ -93,11 +96,34 @@ def test_gemm_f32_plans_match_plain_on_card(card, shape, plan, accumulate, align
     ptrs = [t.data_ptr() for t in (a, b, c)]
     want = plan if aligned else (plan[0], False)
     assert gemm_plan(B, M, N, K, sm_count(card.index or 0), ptrs) == want
-    out = gemm(a, b, c, accumulate=accumulate)
+    routes = dict(gemm.route_launches)
+    out = gemm(a, b, c, accumulate=accumulate, _route="cuda_core")
     torch.cuda.synchronize()
+    assert _route_moved(gemm, routes) == {r: int(r == "cuda_core") for r in routes}
     ref = tref.gemm_ref(a, b, c, accumulate=accumulate)
     scale = max(1.0, ref.abs().max().item())
     assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+# The 3xTF32 route keeps f32 accuracy: against an f64 product, at the SUMMA
+# step (+C) and the FCL partials, its error is at most twice the CUDA-core
+# route's on the same inputs.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,accumulate", [((16, 1024, 1024, 2752), True),
+                                              ((8, 4096, 512, 4096), False)])
+def test_gemm_tf32x3_error_against_f64_on_card(card, shape, accumulate):
+    B, M, K, N = shape
+    gen = torch.Generator(device=card).manual_seed(9)
+    a, b, c = (torch.randn(B, *s, generator=gen, device=card)
+               for s in ((M, K), (K, N), (M, N)))
+    routes = dict(gemm.route_launches)
+    fast = gemm(a, b, c, accumulate=accumulate)
+    slow = gemm(a, b, c, accumulate=accumulate, _route="cuda_core")
+    torch.cuda.synchronize()
+    assert _route_moved(gemm, routes) == {"cuda_core": 1, "tensor_core": 0, "tf32x3": 1}
+    ref = a.double() @ b.double() + (c.double() if accumulate else 0.0)
+    fast_err, slow_err = ((out.double() - ref).abs().max().item() for out in (fast, slow))
+    assert fast_err <= 2 * slow_err, (fast_err, slow_err)
 
 
 @pytest.mark.cuda
@@ -270,7 +296,7 @@ def test_gemm_cuda_core_route_on_a_tensor_core_shape_on_card(card, accumulate):
     fast = gemm(a, b, c, accumulate=accumulate)
     slow = gemm(a, b, c, accumulate=accumulate, _route="cuda_core")
     torch.cuda.synchronize()
-    assert _route_moved(gemm, routes) == {"cuda_core": 1, "tensor_core": 1}
+    assert _route_moved(gemm, routes) == {"cuda_core": 1, "tensor_core": 1, "tf32x3": 0}
     ref = tref.gemm_ref(a, b, c, accumulate=accumulate).float()
     for out in (fast, slow):  # one bf16 ulp, element by element
         assert bool(((out.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-3).all())

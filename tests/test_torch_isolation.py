@@ -122,8 +122,8 @@ def test_noc_substrate_imports_no_torch():
 def test_kernel_sources_are_in_the_package():
     sources = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu*"))
     assert sources == ["flash_attention.cu", "flash_attention_wgmma.cu", "gemm.cu",
-                       "gemm_wgmma.cu", "hopper.cuh", "reduce_nway.cu", "rglru_scan.cu",
-                       "wkv.cu"]
+                       "gemm_tf32x3.cu", "gemm_wgmma.cu", "hopper.cuh", "reduce_nway.cu",
+                       "rglru_scan.cu", "wkv.cu"]
 
 
 def test_mesh_without_a_device_raises_on_a_host_without_cuda():

@@ -1,9 +1,15 @@
-"""The kernel routes of the port's bf16 GEMM and flash attention, on the CPU.
+"""The kernel routes of the port's GEMM and flash attention, on the CPU.
 
 ``gemm_route`` and ``flash_route`` are pure functions of dtype, shape and
-alignment that choose between the tensor-core kernels (``csrc/*_wgmma.cu``)
-and the others (the CUDA-core ``gemm.cu``, the ``mma.sync`` flash kernel);
-they are held here to their stated rules.
+alignment that choose between the tensor-core kernels (``csrc/*_wgmma.cu``,
+``csrc/gemm_tf32x3.cu``) and the others (the CUDA-core ``gemm.cu``, the
+``mma.sync`` flash kernel); they are held here to their stated rules.
+
+The f32 tensor-core GEMM (``tf32x3``) cannot run here either, so its
+arithmetic is emulated (``tf32x3_gemm``: each operand split into a TF32 hi
+and lo, three TF32 products summed in f32) and held within the card
+tests' f32 tolerance of an f64 product at the SUMMA step's and the FCL
+partials' depths; one TF32 product alone breaks it.
 
 The tensor-core flash kernel cannot run here, so its arithmetic is emulated
 in plain PyTorch (``wgmma_flash``): exact bf16 products summed in f32, the
@@ -43,11 +49,51 @@ NEG_INF = -2.0e38
     (torch.bfloat16, 0, 8, (), "cuda_core"),                 # no product
     (torch.bfloat16, 64, 64, (0, 8), "cuda_core"),           # an 8-byte aligned operand
     (torch.bfloat16, 64, 64, (2, 0), "cuda_core"),
-    (torch.float32, 64, 128, (0, 256), "cuda_core"),         # f32 stays on the CUDA cores
-    (torch.float32, 4096, 4096, (), "cuda_core"),
+    (torch.float32, 64, 128, (0, 256), "tf32x3"),            # f32 on the tensor cores, 3xTF32
+    (torch.float32, 4096, 4096, (), "tf32x3"),
+    (torch.float32, 1024, 2752, (0, 256, 512), "tf32x3"),    # the SUMMA step (+C)
+    (torch.float32, 512, 4096, (0, 256, 512), "tf32x3"),     # the FCL partials
+    (torch.float32, 4, 4, (16, 32), "tf32x3"),               # K = 4: one partial k step
+    (torch.float32, 333, 776, (0, 16), "cuda_core"),         # K % 4 != 0
+    (torch.float32, 1024, 777, (0, 16), "cuda_core"),        # N % 4 != 0
+    (torch.float32, 0, 4, (), "cuda_core"),                  # no product
+    (torch.float32, 64, 64, (0, 8), "cuda_core"),            # an 8-byte aligned operand
 ])
 def test_gemm_route(dtype, K, N, ptrs, route):
     assert gemm_route(dtype, K, N, ptrs) == route
+
+
+# -- the tf32x3 gemm arithmetic, emulated -------------------------------------
+
+def tf32(x):
+    """x with its low 13 mantissa bits cleared: exact in TF32, as the
+    tensor core reads an f32 word."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def tf32x3_gemm(a, b, *, products=3):
+    """``csrc/gemm_tf32x3.cu``'s arithmetic on f32 a (M, K) and b (K, N):
+    hi = tf32(x), lo = x - hi (read as TF32), lo*hi + hi*lo + hi*hi, each
+    TF32 product exact in f32 and summed in f32.  ``products=1`` is one
+    TF32 product, hi*hi, which the kernel does not use."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    if products == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+@pytest.mark.parametrize("K", [1024, 512])  # the SUMMA step's and the FCL partials' depth
+@pytest.mark.parametrize("products,holds", [(3, True), (1, False)])
+def test_tf32x3_emulation_keeps_f32_accuracy(K, products, holds):
+    rng = np.random.default_rng(K)
+    a, b, c = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               for s in ((64, K), (K, 128), (64, 128)))
+    ref = a.double() @ b.double() + c.double()
+    out = tf32x3_gemm(a, b, products=products) + c
+    # the card tests' f32 limit: 1e-4 of max(1, max|ref|)
+    err = (out.double() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    assert (err <= 1e-4) == holds, err
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
