@@ -27,6 +27,9 @@ ARCH_IDS = [
 # in the reference's registry, not ported yet: none
 WAITING: list[str] = []
 
+# the port's own architectures, which the reference's registry lacks
+PORT_ONLY = ["moonlight_16b_a3b"]
+
 # canonical external names -> module ids
 ALIASES = {
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
@@ -44,8 +47,8 @@ ALIASES = {
 
 def _module(arch_id: str):
     arch_id = ALIASES.get(arch_id, arch_id)
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
+    if arch_id not in ARCH_IDS + PORT_ONLY:
+        raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS + PORT_ONLY}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 

@@ -50,7 +50,7 @@ SIGNATURES = {
     "repro_gemm_tf32x3": (P, P, P, P, I, I, I, I, P),
     "repro_reduce_nway": (P, P, I, I, L, I, L, L, L, I, I, P),
     "repro_flash_attention": (P, P, P, P, I, I, I, I, I, P),
-    "repro_flash_attention_wgmma": (P, P, P, P, I, I, I, I, P),
+    "repro_flash_attention_wgmma": (P, P, P, P, I, I, I, I, I, P),
     "repro_rglru_scan": (P, P, P, I, I, I, I, P, L, ctypes.c_uint, P),
     "repro_rglru_scan_scratch": (I, I, I, I),
     "repro_wkv": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),

@@ -4,8 +4,10 @@
 //   O[b] = softmax(mask((q[b] @ k[b]^T) * scale)) @ v[b],   scale = 1/sqrt(D)
 //
 // keeping key j for query i iff j <= i, and also j > i - window when
-// window > 0.  q, k, v, O are (BH, S, D) bf16, contiguous, D in {64, 128,
-// 256}.  The tensor-core route of src/repro/kernels/flash_attention.py:
+// window > 0.  q and k are (BH, S, D), v and O (BH, S, DV), bf16,
+// contiguous, with (D, DV) in {(64, 64), (128, 128), (256, 256)} and MLA's
+// (192, 128) (models/mla.py: 128 + 64 rope columns of q and k, v 128).
+// The tensor-core route of src/repro/kernels/flash_attention.py:
 // flash_attention (_flash_kernel); csrc/flash_attention.cu keeps f32 and
 // D in {16, 32}.
 //
@@ -22,22 +24,25 @@
 //   from P V by at most 2^-18 of P.  A single bf16 P would put 2^-9 into
 //   every weight, far past one bf16 ulp of the output.
 //
-// Bound: operations, 4 D flops per live (query, key) pair at the bf16
-// tensor-core rate (the P split costs 1.5x that in issued work).
+// Bound: operations, 2 (D + DV) flops per live (query, key) pair at the
+// bf16 tensor-core rate (the P split costs 1.5x the P V part in issued
+// work).
 //
-// Design.  One block owns BQ = 64 queries per consumer warpgroup: two
-// consumer warpgroups at D <= 128, one at D = 256 (the O accumulator alone
-// is then 128 f32 registers a thread).  A producer warp issues TMA loads:
+// Design.  The kernel is a template on the two head dims (D, DV).  One
+// block owns BQ = 64 queries per consumer warpgroup: two consumer
+// warpgroups at D and DV <= 192, one at 256 (the O accumulator alone is
+// then 128 f32 registers a thread).  A producer warp issues TMA loads:
 // the block's Q once, then the K and V tiles of 64 keys through a ring of
 // two slots with full / empty mbarriers, all with the 128-byte swizzle
-// (a row of D bf16 is D / 64 boxes of 64 x 64).  Each consumer
+// (a row of D bf16 is D / 64 boxes of 64 x 64; a slot holds K's D / 64
+// boxes, then V's DV / 64).  Each consumer
 //   1. issues S = Q K^T as wgmma.m64n64k16 with Q and K both read K-major
 //      from their natural (S, D) rows;
 //   2. scales, masks and exponentiates S in registers, with row max and
 //      row sum over the four lanes of a quad (shuffles);
 //   3. repacks P from the accumulator fragment into A-operand registers
 //      (the same thread owns the same elements) as P_hi and P_lo, and
-//      issues O += P V as wgmma.m64nDk16 with P from registers and V read
+//      issues O += P V as wgmma.m64nDVk16 with P from registers and V read
 //      MN-major through the transpose-B bit;
 //   4. releases the slot.
 // Only the kv tiles that hold a live key for some query of the block are
@@ -55,24 +60,26 @@ namespace {
 constexpr float NEG_INF = -2.0e38f;
 using bf16 = __nv_bfloat16;
 
-template <int D>
+template <int D, int DV>
 struct Cfg {
-  static constexpr int WG = D == 256 ? 1 : 2;     // consumer warpgroups
+  static constexpr int WG = D == 256 || DV == 256 ? 1 : 2;  // consumer warpgroups
   static constexpr int BQ = 64 * WG;              // queries per block
   static constexpr int BKV = 64;                  // keys per tile
-  static constexpr int TILE = 64 * D * 2;         // bytes of 64 rows of D bf16
+  static constexpr int TILE = 64 * D * 2;         // bytes of 64 rows of D bf16 (Q, K)
+  static constexpr int TILE_V = 64 * DV * 2;      // bytes of 64 rows of DV bf16 (V)
+  static constexpr int STAGE = TILE + TILE_V;     // one slot: K, then V
   static constexpr int ATOM = 64 * 128;           // one 64-row x 64-column box
   static constexpr int STAGES = 2;
   static constexpr int THREADS = 128 * WG + 32;   // + the producer warp
   static constexpr size_t SMEM =
-      1024 + (size_t)WG * TILE + (size_t)STAGES * 2 * TILE + (2 * STAGES + 1) * sizeof(uint64_t);
+      1024 + (size_t)WG * TILE + (size_t)STAGES * STAGE + (2 * STAGES + 1) * sizeof(uint64_t);
 };
 
-template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t dv) {
-  if constexpr (D == 64) hopper::wgmma_rs_n64(o, a, dv);
-  if constexpr (D == 128) hopper::wgmma_rs_n128(o, a, dv);
-  if constexpr (D == 256) hopper::wgmma_rs_n256(o, a, dv);
+template <int DV>
+__device__ __forceinline__ void pv(float (&o)[DV / 2], const uint32_t (&a)[4], uint64_t dv) {
+  if constexpr (DV == 64) hopper::wgmma_rs_n64(o, a, dv);
+  if constexpr (DV == 128) hopper::wgmma_rs_n128(o, a, dv);
+  if constexpr (DV == 256) hopper::wgmma_rs_n256(o, a, dv);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -96,18 +103,18 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+template <int D, int DV>
+__global__ void __launch_bounds__(Cfg<D, DV>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ O, int BH, int S,
                    int window, float scale_log2) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;                       // [WG][D / 64][64 rows][64]
-  uint8_t* KV = Qs + C::WG * C::TILE;       // [STAGES][K, V][D / 64][64 rows][64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(KV + C::STAGES * 2 * C::TILE);
+  uint8_t* KV = Qs + C::WG * C::TILE;       // [STAGES][K [D / 64], V [DV / 64]][64 rows][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + C::STAGES * C::STAGE);
   uint64_t* empty = full + C::STAGES;
   uint64_t* qbar = empty + C::STAGES;
 
@@ -143,12 +150,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int kt = kt_lo; kt <= kt_hi; ++kt) {
         const int it = kt - kt_lo, s = it % C::STAGES;
         hopper::mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
-        uint8_t* ks = KV + s * 2 * C::TILE;
-        hopper::mbar_arrive_expect_tx(&full[s], 2 * C::TILE);
+        uint8_t* ks = KV + s * C::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], C::STAGE);
+        // K's and V's boxes in turn (K's last box alone where D > DV)
         for (int a = 0; a < D / 64; ++a) {
           hopper::tma_load_3d(ks + a * C::ATOM, &map_k, &full[s], 64 * a, kt * C::BKV, bh);
-          hopper::tma_load_3d(ks + C::TILE + a * C::ATOM, &map_v, &full[s], 64 * a,
-                              kt * C::BKV, bh);
+          if (a < DV / 64)
+            hopper::tma_load_3d(ks + C::TILE + a * C::ATOM, &map_v, &full[s], 64 * a,
+                                kt * C::BKV, bh);
         }
       }
     }
@@ -170,9 +179,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int my_hi = qw0 < S ? min(qw0 + 63, S - 1) / C::BKV : -1;
   const int my_lo = window > 0 ? max(0, qw0 - window + 1) / C::BKV : 0;
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
   hopper::mbar_wait(qbar, 0);
@@ -187,7 +196,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       hopper::mbar_arrive(&empty[s]);
       continue;
     }
-    const uint32_t ks = hopper::smem_u32(KV + s * 2 * C::TILE);
+    const uint32_t ks = hopper::smem_u32(KV + s * C::STAGE);
     const uint32_t vs = ks + C::TILE;
 
     // 1. S = Q K^T: 16 columns of D per wgmma, 32 bytes apart in a box row.
@@ -246,7 +255,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // changes no number); after the first tiles it rarely does.
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j] *= alpha[0];
         o[4 * j + 1] *= alpha[0];
         o[4 * j + 2] *= alpha[1];
@@ -270,10 +279,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      // V MN-major: 16 keys are 2048 bytes on; its D / 64 boxes ATOM apart.
+      // V MN-major: 16 keys are 2048 bytes on; its DV / 64 boxes ATOM apart.
       const uint64_t dv = hopper::desc_sw128(vs + 2048 * kk, C::ATOM, 1024);
-      pv<D>(o, p_hi[kk], dv);
-      pv<D>(o, p_lo[kk], dv);
+      pv<DV>(o, p_hi[kk], dv);
+      pv<DV>(o, p_lo[kk], dv);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -283,39 +292,39 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     hopper::mbar_arrive(&empty[s]);
   }
 
-  const long long base = (long long)bh * S * D;
+  const long long base = (long long)bh * S * DV;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     if (row >= S) continue;
     const float lh = fmaxf(l[h], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(O + base + (long long)row * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(O + base + (long long)row * DV + col) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] / lh, o[4 * j + 2 * h + 1] / lh);
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int window,
            void* stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   CUtensorMap mq, mk, mv;
   if (!hopper::map_bf16_3d(&mq, q, D, S, BH, 64, 64) ||
       !hopper::map_bf16_3d(&mk, k, D, S, BH, 64, 64) ||
-      !hopper::map_bf16_3d(&mv, v, D, S, BH, 64, 64))
+      !hopper::map_bf16_3d(&mv, v, DV, S, BH, 64, 64))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)BH * ((S + C::BQ - 1) / C::BQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // scale = 1/sqrt(D) as the reference rounds it, times log2(e)
+  // scale = 1/sqrt(D) (q's width) as the reference rounds it, times log2(e)
   const float scale_log2 = (float)(1.0 / sqrt((double)D)) * 1.4426950408889634f;
-  flash_wgmma_kernel<D><<<(unsigned)blocks, C::THREADS, C::SMEM, (cudaStream_t)stream>>>(
+  flash_wgmma_kernel<D, DV><<<(unsigned)blocks, C::THREADS, C::SMEM, (cudaStream_t)stream>>>(
       mq, mk, mv, (bf16*)o, BH, S, window, scale_log2);
   return (int)cudaGetLastError();
 }
@@ -324,19 +333,25 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// bf16 only.  q, k, v, o: (BH, S, D) contiguous with 16-byte aligned bases;
-// D in {64, 128, 256}; window <= 0 means plain causal.  Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for operands outside
-// that rule, or when the tensor maps cannot be encoded).
+// bf16 only.  q, k: (BH, S, D); v, o: (BH, S, DV); contiguous with 16-byte
+// aligned bases; (D, DV) in {(64, 64), (128, 128), (256, 256), (192, 128)};
+// window <= 0 means plain causal.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for operands outside that rule, or when the tensor
+// maps cannot be encoded).
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
-                                           int BH, int S, int D, int window, void* stream) {
+                                           int BH, int S, int D, int DV, int window,
+                                           void* stream) {
   if (BH <= 0 || S <= 0) return 0;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 64: return launch<64>(q, k, v, o, BH, S, window, stream);
-    case 128: return launch<128>(q, k, v, o, BH, S, window, stream);
-    case 256: return launch<256>(q, k, v, o, BH, S, window, stream);
-    default: return (int)cudaErrorInvalidValue;
+  if (D == DV) {
+    switch (D) {
+      case 64: return launch<64, 64>(q, k, v, o, BH, S, window, stream);
+      case 128: return launch<128, 128>(q, k, v, o, BH, S, window, stream);
+      case 256: return launch<256, 256>(q, k, v, o, BH, S, window, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (D == 192 && DV == 128) return launch<192, 128>(q, k, v, o, BH, S, window, stream);
+  return (int)cudaErrorInvalidValue;
 }

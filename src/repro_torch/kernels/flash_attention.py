@@ -5,7 +5,8 @@ Replaces ``src/repro/kernels/flash_attention.py:flash_attention``
 chooses between them by dtype and head dim:
 
 - ``tensor_core``, ``csrc/flash_attention_wgmma.cu``: bf16 at d in {64,
-  128, 256}.  Q, K and V reach shared memory by TMA (K and V through a
+  128, 256}, and at q and k 192 wide with v 128 (MLA's heads,
+  ``models/mla.py``).  Q, K and V reach shared memory by TMA (K and V through a
   two-slot mbarrier ring fed by a producer warp); S = Q K^T and O += P V
   are ``wgmma`` products with f32 accumulators, one consumer warpgroup per
   64 queries (two per block at d <= 128, one at d = 256).  ``scale``
@@ -24,7 +25,12 @@ chooses between them by dtype and head dim:
   and each product taken as hi*hi + hi*lo + lo*hi (3xTF32); bf16 operands
   are exact in TF32, so Q K^T is one product and P V two.  Bound: 4 * d
   flops per live pair, the least of that at the f32 CUDA-core rate and
-  three times it at the TF32 tensor-core rate.
+  three times it at the TF32 tensor-core rate.  It takes equal head dims
+  only.
+
+v may be narrower than q and k (``dv`` < ``d``): the output is (BH, S,
+dv), the scale ``1 / sqrt(d)`` (q's width), and the work 2 (d + dv) flops
+per live pair.  The plain version and the gradient take any such pair.
 
 Both visit only the kv tiles that hold a live key for some query of the
 block, so a sliding-window layer costs O(S * window).  The numbers are the
@@ -46,8 +52,8 @@ goes through the op, whose fake implementation gives the output's
 shape, so a trace under ``FakeTensorMode`` or on meta tensors (the dry
 run, ``launch/dryrun.py``) never reaches ``data_ptr()`` or the library,
 and its FLOP formula (``torch.utils.flop_counter``) is the bound's
-convention: 4 * d per live (query, key) pair of the causal, windowed mask
-(:func:`causal_pairs`), per head.  ``flash_attention.launches`` and
+convention: 2 (d + dv) (4 d at equal dims) per live (query, key) pair of
+the causal, windowed mask (:func:`causal_pairs`), per head.  ``flash_attention.launches`` and
 ``.route_launches`` count real launches only.
 """
 
@@ -64,24 +70,30 @@ from repro_torch.kernels.ref import flash_attention_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TENSOR_CORE_DIMS = (64, 128, 256)
+TENSOR_CORE_UNEQUAL = ((192, 128),)  # (q and k's d, v's dv) of the tensor-core route
 ROUTES = ("mma_sync", "tensor_core")
 
 
-def flash_route(dtype, d: int, ptrs=()) -> str:
+def flash_route(dtype, d: int, ptrs=(), dv: int | None = None) -> str:
     """The kernel a call on the card takes.
 
-    ``tensor_core`` for bfloat16 at d in (64, 128, 256) when every address
-    in ``ptrs`` (the operands' ``data_ptr()``) is a multiple of 16, as TMA
-    needs; ``mma_sync`` for float32 and for bfloat16 at d in (16, 32).
+    ``tensor_core`` for bfloat16 at d in (64, 128, 256), or at (d, dv) in
+    ``TENSOR_CORE_UNEQUAL``, when every address in ``ptrs`` (the operands'
+    ``data_ptr()``) is a multiple of 16, as TMA needs; ``mma_sync`` for
+    float32 and for bfloat16 at d in (16, 32).  ``dv`` is v's head dim
+    (None: ``d``).
     """
-    if dtype == torch.bfloat16 and d in TENSOR_CORE_DIMS and all(p % 16 == 0 for p in ptrs):
+    dv = d if dv is None else dv
+    dims = d in TENSOR_CORE_DIMS if dv == d else (d, dv) in TENSOR_CORE_UNEQUAL
+    if dtype == torch.bfloat16 and dims and all(p % 16 == 0 for p in ptrs):
         return "tensor_core"
     return "mma_sync"
 
 
 def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
                     _route: str | None = None):
-    """Causal self-attention over (BH, S, d) q, k, v; the output in q's dtype.
+    """Causal self-attention over (BH, S, d) q and k and (BH, S, dv) v, dv at
+    most d; the output (BH, S, dv) in q's dtype.
 
     ``window > 0`` keeps, for query i, only keys j with i - window < j <= i.
     Operands of mixed float dtypes are cast to float32 (exact from
@@ -95,9 +107,11 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
     carries a gradient (:class:`FlashAttention`).
     """
     del bq, bkv  # the TPU's block shape; the CUDA kernel tiles itself
-    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
+    if q.ndim != 3 or k.shape != q.shape or v.ndim != 3 or v.shape[:2] != q.shape[:2] \
+            or v.shape[2] > q.shape[2]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}; need three equal (BH, S, d)")
+                         f"v {tuple(v.shape)}; need (BH, S, d) q and k and (BH, S, dv) v, "
+                         "dv <= d")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: operands lie on different devices")
     if any(t.dtype not in DTYPES for t in (q, k, v)):
@@ -106,13 +120,19 @@ def flash_attention(q, k, v, *, window: int = 0, bq: int = 128, bkv: int = 128,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         return flash_attention(q.float(), k.float(), v.float(), window=window,
                                _route=_route).to(q.dtype)
+    d, dv = q.shape[2], v.shape[2]
     if _route is not None and (_route not in ROUTES or (
-            _route == "tensor_core" and flash_route(q.dtype, q.shape[2]) != _route)):
+            _route == "tensor_core" and flash_route(q.dtype, d, dv=dv) != _route)):
         raise ValueError(f"flash_attention: route {_route!r} does not take {q.dtype} "
-                         f"d={q.shape[2]}")
+                         f"d={d} dv={dv}")
     if q.device.type != "cpu":
-        if q.shape[2] not in HEAD_DIMS:
-            raise ValueError(f"flash_attention: head dim {q.shape[2]} not in {HEAD_DIMS}")
+        if dv != d and (_route == "mma_sync" or flash_route(q.dtype, d, dv=dv) != "tensor_core"):
+            raise ValueError(f"flash_attention: {q.dtype} q and k at d={d} with v at dv={dv}: "
+                             "unequal head dims take the tensor-core route only, bfloat16 at "
+                             f"(d, dv) in {TENSOR_CORE_UNEQUAL}; the mma_sync route needs "
+                             "d == dv")
+        if dv == d and d not in HEAD_DIMS:
+            raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
         if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
             raise ValueError("flash_attention: operands must be contiguous")
     return FlashAttention.apply(q, k, v, int(window), _route)
@@ -132,21 +152,25 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
     """The launch on the card: the kernel that :func:`flash_route` names, or
     the forced ``route``."""
     BH, S, d = q.shape
+    dv = v.shape[2]
     # Both kernels copy by 16 bytes: an operand that is a view at an
     # unaligned offset is copied to a fresh (aligned) tensor.
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    out = torch.empty_like(q)
+    out = q.new_empty((BH, S, dv))
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
-    chosen = flash_route(q.dtype, d, ptrs)
+    chosen = flash_route(q.dtype, d, ptrs, dv)
     if route is not None:
         if route == "tensor_core" and chosen != route:
             raise ValueError(f"flash_attention: route {route!r} does not take {q.dtype} "
-                             f"d={d} at these addresses")
+                             f"d={d} dv={dv} at these addresses")
         chosen = route
+    if chosen == "mma_sync" and dv != d:
+        raise ValueError(f"flash_attention: the mma_sync route needs d == dv, got d={d} dv={dv}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if chosen == "tensor_core":
-            rc = _build.library().repro_flash_attention_wgmma(*ptrs, BH, S, d, window, stream)
+            rc = _build.library().repro_flash_attention_wgmma(*ptrs, BH, S, d, dv, window,
+                                                              stream)
         else:
             rc = _build.library().repro_flash_attention(*ptrs, DTYPES[q.dtype], BH, S, d,
                                                         window, stream)
@@ -162,7 +186,7 @@ _flash_op = torch.library.custom_op("repro_torch::flash_attention", mutates_args
 
 @_flash_op.register_fake
 def _(q, k, v, window, route):
-    return torch.empty_like(q)
+    return q.new_empty(q.shape[:2] + v.shape[2:])
 
 
 def causal_pairs(S: int, window: int) -> int:
@@ -176,9 +200,10 @@ def causal_pairs(S: int, window: int) -> int:
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
 def flash_attention_flops(q_shape, k_shape=None, v_shape=None, window=0, route=None, *,
                           out_shape=None, **_) -> int:
-    """4 * d per live (query, key) pair, per head: Q K^T and P V."""
+    """2 (d + dv) per live (query, key) pair, per head: Q K^T and P V."""
     BH, S, d = q_shape
-    return 4 * d * BH * causal_pairs(S, window)
+    dv = v_shape[2] if v_shape is not None else d
+    return 2 * (d + dv) * BH * causal_pairs(S, window)
 
 
 # The backward's plain attention holds (slice, S, S) f32 scores and as many

@@ -1,7 +1,9 @@
 """Shared building blocks: the model config, norms and initialisers.
 
 The port's counterpart of ``src/repro/models/common.py``.  ``ModelConfig``
-has the reference's fields, with torch dtypes.  ``remat`` recomputes each
+has the reference's fields, with torch dtypes, and the port's own
+(``PORT_FIELDS``: DeepSeek-V3's MoE and MLA), whose defaults leave a
+config as the reference's.  ``remat`` recomputes each
 layer in the backward pass (:func:`maybe_remat`, ``torch.utils.checkpoint``
 in place of ``jax.checkpoint``); the JAX-only knob ``scan_layers`` is
 accepted and changes nothing (the port runs its layers in a Python loop);
@@ -33,6 +35,14 @@ from repro_torch import tracing
 from repro_torch.core import mesh as M
 
 
+# The port's own fields, which the reference's record lacks: DeepSeek-V3's
+# MoE and MLA (``configs/moonlight_16b_a3b.py``).  At their defaults a
+# config is the reference's.
+PORT_FIELDS = ("moe_d_ff", "n_shared_experts", "router_scoring", "router_bias_rate",
+               "routed_scaling", "aux_loss_coef", "first_k_dense", "kv_lora_rank",
+               "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One record per assigned architecture (see ``repro_torch.configs``)."""
@@ -56,6 +66,20 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # DeepSeek-V3's MoE (``models/mlp.py``); the defaults are the capacity
+    # MoE above: softmax router, Switch aux loss, every layer an MoE
+    moe_d_ff: int = 0              # a routed expert's width; 0 -> d_ff
+    n_shared_experts: int = 0      # shared experts: one gated MLP of n * moe_d_ff
+    router_scoring: str = "softmax"  # softmax (Switch aux loss) | sigmoid (sequence-wise)
+    router_bias_rate: float = 0.0  # > 0: the selection bias, moved this much a step
+    routed_scaling: float = 1.0    # the normalised gates times this
+    aux_loss_coef: float = 0.01
+    first_k_dense: int = 0         # the first k layers a dense MLP of width d_ff
+    # latent attention (MLA, DeepSeek-V2; ``models/mla.py``) when kv_lora_rank > 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     # hybrid (recurrentgemma): pattern of blocks, e.g. ("rec", "rec", "attn")
     block_pattern: tuple[str, ...] = ()
     lru_width: int = 0             # 0 -> d_model
@@ -107,13 +131,16 @@ class ModelConfig:
             n_attn = sum(1 for i in range(L) if self._block_kind(i) == "attn")
             return (L - n_attn) * (rec + mlp) + n_attn * (attn + mlp) + 2 * v * d
         else:
-            attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+            attn = self._attn_params
             if self.n_experts:
-                mlp = self.n_experts * 3 * d * f + d * self.n_experts
+                mlp = self.n_experts * 3 * d * self.expert_ff + d * self.n_experts \
+                    + 3 * d * self.shared_ff
             else:
                 mlp = 3 * d * f
             per_layer = attn + mlp
         total = L * per_layer + 2 * v * d
+        if self.n_experts and self.first_k_dense:
+            total += self.first_k_dense * (3 * d * f - mlp)
         if self.family == "whisper":
             total += self.encoder_layers * (2 * attn + 2 * d * f + d * f)
         return total
@@ -123,11 +150,34 @@ class ModelConfig:
         """Active params per token (MoE: top_k experts only)."""
         if not self.n_experts:
             return self.n_params
-        d, f, L = self.d_model, self.d_ff, self.n_layers
-        hd = self.head_dim
-        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
-        mlp = self.top_k * 3 * d * f + d * self.n_experts
-        return L * (attn + mlp) + 2 * self.padded_vocab * d
+        d, L = self.d_model, self.n_layers
+        mlp = self.top_k * 3 * d * self.expert_ff + d * self.n_experts + 3 * d * self.shared_ff
+        dense = self.first_k_dense * (3 * d * self.d_ff - mlp)
+        return L * (self._attn_params + mlp) + dense + 2 * self.padded_vocab * d
+
+    @property
+    def _attn_params(self) -> int:
+        d, hd, H = self.d_model, self.head_dim, self.n_heads
+        if self.kv_lora_rank:
+            qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+            return (d * H * qk + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                    + self.kv_lora_rank * (1 + H * (self.qk_nope_head_dim + self.v_head_dim))
+                    + H * self.v_head_dim * d)
+        return d * (H * hd) + 2 * d * (self.n_kv_heads * hd) + (H * hd) * d
+
+    @property
+    def expert_ff(self) -> int:
+        """A routed expert's width."""
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def shared_ff(self) -> int:
+        """The shared experts' width (one gated MLP), 0 without them."""
+        return self.n_shared_experts * self.expert_ff
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer ``i`` holds the MoE (else a dense MLP of width d_ff)."""
+        return bool(self.n_experts) and i >= self.first_k_dense
 
     def _block_kind(self, i: int) -> str:
         if not self.block_pattern:

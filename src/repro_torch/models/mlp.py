@@ -49,13 +49,33 @@ back to be combined; the aux loss is averaged over the batch axes, and
 over the model axis when the tokens were sliced, whose slices are then
 gathered back.  Under any other policy each member runs the local MoE, its
 products summed over the model axis where the spec splits ``d_ff``.
+
+DeepSeek-V3's MoE (``router_scoring="sigmoid"``, the port's own; Moonlight,
+``configs/moonlight_16b_a3b.py``) keeps the capacity rule and the dispatch
+above and changes the router (``_route_biased``: sigmoid scores, the
+choice by score plus a selection bias, the chosen scores normalised and
+times ``routed_scaling``), adds the shared experts' gated MLP beside the
+routed ones, and replaces the Switch aux loss by the sequence-wise
+balance loss (``_sequence_loss``), whose per-sequence statistics are
+summed over the members that hold a sequence's blocks before they are
+multiplied.  The bias is no parameter: the forward passes that run inside
+``tally_loads`` add their loads, and ``update_router_biases`` moves the
+bias after the optimizer's step (``runtime/trainer.py``).  The routed
+experts' width is ``cfg.expert_ff``.  The whole MoE is the traced region
+``moe``; while a profiler records it counts its routed and dropped
+(token, choice) pairs on the card (``tracing.count``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core import mesh as M
 from repro_torch.models.common import REPLICATED, ModelConfig, ShardingPolicy, dense_init
 from repro_torch.models.parallel import Members, is_sharded
@@ -102,8 +122,14 @@ def mlp(params, x, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config whose gated MLP is the shared experts' (``d_ff`` their width)."""
+    return dataclasses.replace(cfg, d_ff=cfg.shared_ff)
+
+
 def init_moe_params(gen, cfg: ModelConfig, device=None) -> dict:
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    d, f, e = cfg.d_model, cfg.expert_ff, cfg.n_experts
     return {
         "router": dense_init(gen, (d, e), torch.float32, device),
         "w_gate": dense_init(gen, (e, d, f), cfg.param_dtype, device),
@@ -113,7 +139,7 @@ def init_moe_params(gen, cfg: ModelConfig, device=None) -> dict:
 
 
 def moe_param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
-    e, f = cfg.n_experts, cfg.d_ff
+    e, f = cfg.n_experts, cfg.expert_ff
     return {
         "router": (None, None),
         "w_gate": policy.w_expert_col(e, f),
@@ -144,6 +170,115 @@ def _route(params, xf, cfg: ModelConfig):
     ce = F.one_hot(gate_idx, E).sum((-3, -2)).float() / (T * K)
     aux = E * torch.sum(me * ce, dim=-1)
     return gate_vals, gate_idx, aux
+
+
+def _route_biased(params, xf, cfg: ModelConfig, bias):
+    """DeepSeek-V3's router (``noaux_tc`` with one group): sigmoid scores in
+    f32; each token's ``top_k`` experts by score plus the selection ``bias``
+    (which moves the choice, not the gates; None for none), the lower index
+    first among equal values; the chosen scores normalised and times
+    ``routed_scaling``.  Returns (gate_vals, gate_idx (..., T, K), scores
+    (..., T, E))."""
+    scores = torch.sigmoid(xf.float() @ params["router"])       # (..., T, E)
+    choice = scores if bias is None else scores + bias
+    gate_idx = torch.sort(choice, dim=-1, descending=True, stable=True)[1][..., :cfg.top_k]
+    gate_vals = torch.gather(scores, -1, gate_idx)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling
+    return gate_vals, gate_idx, scores
+
+
+def _sequence_stats(gate_idx, scores, seqs: int):
+    """Per sequence of the ``seqs`` that the tokens hold in order: how many of
+    its tokens chose each expert (no gradient), and the sum over its tokens
+    of each expert's score normalised over the experts.  Each (..., seqs, E)."""
+    E, T = scores.shape[-1], scores.shape[-2]
+    chosen = F.one_hot(gate_idx, E).sum(-2)                     # (..., T, E)
+    share = scores / scores.sum(-1, keepdim=True)
+
+    def per_seq(t):
+        return t.unflatten(-2, (seqs, T // seqs)).sum(-2)
+    return per_seq(chosen).float(), per_seq(share)
+
+
+def _sequence_loss(counts, shares, S: int, cfg: ModelConfig):
+    """DeepSeek-V3's sequence-wise balance loss (arXiv:2412.19437 §2.1.2),
+    sum_i f_i P_i with f_i = E / (K S) count_i and P_i = share_i / S over a
+    sequence of S tokens, meaned over the sequences: (...)."""
+    E, K = cfg.n_experts, cfg.top_k
+    return torch.sum(counts * shares, -1).mean(-1) * (E / (K * S * S))
+
+
+# The selection biases' loads of the step's forward passes, while
+# ``tally_loads`` is open: {id(bias): (bias, loads summed over the passes)}.
+_TALLY: dict | None = None
+
+
+@contextlib.contextmanager
+def tally_loads(into: dict):
+    """While open, each forward of an MoE with a selection bias adds the
+    (token, choice) pairs that chose each expert, a member's share, to
+    ``into``.  Open it around the loss's forward only: a remat recompute in
+    the backward pass routes the same tokens again."""
+    global _TALLY
+    prev, _TALLY = _TALLY, into
+    try:
+        yield into
+    finally:
+        _TALLY = prev
+
+
+def _tally(bias, counts, copies: int):
+    """Add a member's loads (its counts (..., seqs, E) over the ``copies``
+    members that route the same tokens) to the open tally."""
+    if _TALLY is None or bias is None:
+        return
+    load = counts.detach().sum(-2) / copies
+    key = id(bias)
+    _TALLY[key] = (bias, load if key not in _TALLY else _TALLY[key][1] + load)
+
+
+def update_router_biases(tally: dict, rate: float, mesh=None):
+    """DeepSeek-V3's auxiliary-loss-free balancing: ``b_i += rate * sign(mean
+    load - load_i)`` for each bias of ``tally``, its loads summed over the
+    members of ``mesh`` (the stacked mesh's leading dims, or every axis of a
+    rank mesh), so that the bias stays equal on every member.  In place,
+    outside autograd."""
+    with torch.no_grad():
+        for bias, load in tally.values():
+            if isinstance(mesh, M.RankMesh):
+                with mesh:
+                    for axis in mesh.axis_names:
+                        load = M.psum(load, axis)
+            elif mesh is not None:
+                load = load.sum(tuple(range(mesh.stacked)))
+            bias.add_(rate * torch.sign(load.mean() - load))
+
+
+# The routers' choices of the forward passes while ``record_choices`` is
+# open: gate_idx tensors in call order.
+_CHOICES: list | None = None
+
+
+@contextlib.contextmanager
+def record_choices(into: list):
+    """While open, each MoE forward outside a backward pass (so not a remat
+    recompute) appends its routers' choices, gate_idx (..., T, K) as int16,
+    to ``into``: what a comparison with a plain reference needs to tell a
+    routing flip at a near-tie from a wrong choice."""
+    global _CHOICES
+    prev, _CHOICES = _CHOICES, into
+    try:
+        yield into
+    finally:
+        _CHOICES = prev
+
+
+def _count_pairs(keep):
+    """The routed and the dropped (token, choice) pairs, on the card, while a
+    profiler records (``tracing.count``)."""
+    if tracing.counting():
+        tracing.count("moe.routed_pairs", keep.numel(), keep.device)
+        tracing.count("moe.dropped_pairs", (~keep).sum())
 
 
 def _dispatch_indices(gate_idx, E: int, C: int):
@@ -181,23 +316,34 @@ def _expert_ffn(params, buf, cfg: ModelConfig):
     return _bmm(h, params["w_down"].to(cd))
 
 
-def _moe_body(params, xf, cfg: ModelConfig, C: int, exchange=None, reduce=None):
+def _moe_body(params, xf, cfg: ModelConfig, C: int, exchange=None, reduce=None,
+              bias=None, seqs: int = 1):
     """Route, dispatch, the experts' FFN, combine.
 
-    xf: (..., T, d), one leading dim per mesh dim on the stacked mesh.
+    xf: (..., T, d), one leading dim per mesh dim on the stacked mesh, the
+    tokens of ``seqs`` sequences in order.
     ``exchange(buf, split, concat)`` carries the (..., E, C, d) buffer to
     the experts' owners and back (the expert-parallel ``all_to_all``);
     ``reduce`` sums the FFN's output over the members that split ``d_ff``.
     Each large temporary is dropped as soon as the next exists.  Returns
-    (combined (..., T, d), aux (...)).
+    (combined (..., T, d), aux): the Switch aux loss (...), or with the
+    sigmoid router the sequences' balance statistics (``_sequence_stats``).
     """
     T, d = xf.shape[-2:]
     lead = xf.shape[:-2]
     L = xf[..., 0, 0].numel()  # members
     E, K = cfg.n_experts, cfg.top_k
     cd = cfg.compute_dtype
-    gate_vals, gate_idx, aux = _route(params, xf, cfg)
+    if cfg.router_scoring == "sigmoid":
+        gate_vals, gate_idx, scores = _route_biased(params, xf, cfg, bias)
+        aux = _sequence_stats(gate_idx, scores, seqs)
+        del scores
+    else:
+        gate_vals, gate_idx, aux = _route(params, xf, cfg)
+    if _CHOICES is not None and not tracing.in_backward():
+        _CHOICES.append(gate_idx.detach().to(torch.int16))
     tok_idx, e_idx, c_idx, keep = _dispatch_indices(gate_idx, E, C)
+    _count_pairs(keep)
     # each member's kept rows to their unique (expert, slot) of its block of
     # the buffer; dropped rows to the spare row L * E * C
     base = (torch.arange(L, device=xf.device) * (E * C)).reshape(lead + (1,))
@@ -225,25 +371,47 @@ def _moe_local(params, xf, cfg: ModelConfig):
     return _moe_body(params, xf, cfg, moe_capacity(cfg, xf.shape[-2]))
 
 
-def moe(params, x, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
-    """Token-choice top-k MoE with capacity dropping.
+def moe(params, x, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED, bias=None,
+        shared=None):
+    """Token-choice top-k MoE with capacity dropping: the region ``moe``.
 
     x: (B, S, d) -> ((B, S, d), aux load-balance loss).  Under a policy,
     x is the member's (*lead, B, S, d) and the aux is per member; the
     expert-parallel path is taken, as in the reference, whenever the model
-    axis is wider than 1 and divides ``n_experts``.
+    axis is wider than 1 and divides ``n_experts``.  With the sigmoid
+    router, ``bias`` is the selection bias (E,) (a buffer, or None) and the
+    aux is the sequence-wise balance loss; ``shared`` (the shared experts'
+    gated MLP, or None) adds its output to the routed experts'.
     """
-    B, S, d = x.shape[-3:]
+    return tracing.region("moe", _moe, params, x, cfg, policy, bias, shared)
+
+
+def _moe(params, x, cfg: ModelConfig, policy: ShardingPolicy, bias, shared):
     if not is_sharded(policy):
+        out, aux = _moe_unsharded(params, x, cfg, bias)
+    else:
+        esize = policy.mesh_axis_sizes.get(policy.model_axis or "", 1)
+        if policy.model_axis is None or esize <= 1 or cfg.n_experts % esize != 0:
+            out, aux = _moe_tp_local(params, x, cfg, Members(policy), bias)
+        else:
+            out, aux = _moe_ep(params, x, cfg, policy, esize, bias)
+    if shared is not None:
+        out = out + mlp(shared, x, shared_cfg(cfg), policy)
+    return out, aux
+
+
+def _moe_unsharded(params, x, cfg: ModelConfig, bias):
+    B, S, d = x.shape[-3:]
+    if cfg.router_scoring != "sigmoid":
         out, aux = _moe_local(params, x.reshape(B * S, d), cfg)
         return out.reshape(B, S, d), aux
-    esize = policy.mesh_axis_sizes.get(policy.model_axis or "", 1)
-    if policy.model_axis is None or esize <= 1 or cfg.n_experts % esize != 0:
-        return _moe_tp_local(params, x, cfg, Members(policy))
-    return _moe_ep(params, x, cfg, policy, esize)
+    out, (counts, shares) = _moe_body(params, x.reshape(B * S, d), cfg,
+                                      moe_capacity(cfg, B * S), bias=bias, seqs=B)
+    _tally(bias, counts, 1)
+    return out.reshape(B, S, d), _sequence_loss(counts, shares, S, cfg)
 
 
-def _moe_tp_local(params, x, cfg: ModelConfig, mb: Members):
+def _moe_tp_local(params, x, cfg: ModelConfig, mb: Members, bias=None):
     """Each member's local MoE over its tokens; where the spec splits
     ``d_ff`` (experts that the model axis does not divide), each expert's
     product is summed over the model axis.  Under sequence parallelism the
@@ -253,14 +421,20 @@ def _moe_tp_local(params, x, cfg: ModelConfig, mb: Members):
     split_f = moe_param_specs(cfg, mb.policy)["w_down"][1] is not None
     xf = x.reshape(x.shape[:-3] + (B * S, d))
     out, aux = _moe_body(params, xf, cfg, moe_capacity(cfg, B * S),
-                         reduce=mb.psum if split_f else None)
+                         reduce=mb.psum if split_f else None, bias=bias, seqs=B)
+    if cfg.router_scoring == "sigmoid":
+        _tally(bias, aux[0], mb.tp)  # every member of the model axis routes the same tokens
+        aux = _sequence_loss(*aux, S, cfg)
     return mb.row_out(out.reshape(x.shape), False), aux
 
 
-def _moe_ep(params, x, cfg: ModelConfig, policy: ShardingPolicy, esize: int):
+def _moe_ep(params, x, cfg: ModelConfig, policy: ShardingPolicy, esize: int, bias=None):
     """Expert-parallel MoE over the batch and model axes (the reference's
     shard_map): x (*lead, B, S, d), whole over the model axis, in and out;
-    under sequence parallelism the member's block of S, in and out."""
+    under sequence parallelism the member's block of S, in and out.  The
+    sequence-wise loss sums each sequence's statistics over the members that
+    hold its blocks (a ``psum`` over the model axis) before it multiplies
+    them."""
     mb = Members(policy)
     axis = policy.model_axis
     B, S, d = x.shape[-3:]
@@ -278,8 +452,17 @@ def _moe_ep(params, x, cfg: ModelConfig, policy: ShardingPolicy, esize: int):
         return M.all_to_all(buf, axis, split_axis=split, concat_axis=concat)
 
     combined, aux = _moe_body(params, xs.reshape(xs.shape[:-3] + (Tl, d)), cfg,
-                              moe_capacity(cfg, Tl), exchange=exchange)
-    for a in tuple(policy.batch_axes) + ((axis,) if seq else ()):
-        aux = M.psum(aux, a) / M.axis_size(a)
+                              moe_capacity(cfg, Tl), exchange=exchange, bias=bias, seqs=B)
+    if cfg.router_scoring == "sigmoid":
+        counts, shares = aux
+        _tally(bias, counts, 1 if seq else esize)
+        if seq:
+            counts, shares = M.psum(counts, axis), M.psum(shares, axis)
+        aux = _sequence_loss(counts, shares, xs.shape[-2] * (esize if seq else 1), cfg)
+        for a in policy.batch_axes:
+            aux = M.psum(aux, a) / M.axis_size(a)
+    else:
+        for a in tuple(policy.batch_axes) + ((axis,) if seq else ()):
+            aux = M.psum(aux, a) / M.axis_size(a)
     out = combined.reshape(xs.shape)
     return (mb.gather(out, -2) if seq and not mb.seq else out), aux

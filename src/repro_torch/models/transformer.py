@@ -13,7 +13,11 @@ recomputes each layer in the backward pass when ``cfg.remat``.  With
 ``cfg.n_experts`` each layer's MLP is the capacity-routed MoE
 (``models/mlp.py:moe``): ``forward`` sums its load-balance aux loss over
 the layers, and ``prefill`` / ``decode_step`` drop it, as the reference
-does.
+does.  The port's own DeepSeek-V3 layers (``cfg.kv_lora_rank``,
+``cfg.first_k_dense``): each layer's attention is MLA (``models/mla.py``),
+the first ``first_k_dense`` layers hold a dense MLP and the rest the MoE
+with its shared experts and selection bias (a buffer of the ``Block``);
+they train only (``prefill`` and ``decode_step`` raise).
 
 Parameters require gradients only in a model built with ``trainable=True``.
 
@@ -48,6 +52,7 @@ from torch import nn
 from repro_torch import tracing
 from repro_torch.core import mesh as M
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (
@@ -77,11 +82,15 @@ def layer_windows_list(cfg: ModelConfig) -> list[int]:
 
 
 class Block(nn.Module):
-    """One layer: pre-norm attention and a pre-norm gated MLP (``mlp``) or
-    MoE (``moe``), both residual."""
+    """One layer: pre-norm attention (GQA, or MLA's weights with
+    ``cfg.kv_lora_rank``) and a pre-norm gated MLP (``mlp``) or MoE
+    (``moe``, with its ``shared`` experts' MLP when the config has them),
+    both residual.  ``router_bias`` is the MoE's selection bias, a buffer
+    (no gradient, not an AdamW leaf) that the trainer moves after each
+    step (``mlp.update_router_biases``)."""
 
     def __init__(self, norm1, norm2, attn: dict, mlp: dict | None = None,
-                 moe: dict | None = None):
+                 moe: dict | None = None, shared: dict | None = None, router_bias=None):
         super().__init__()
         if (mlp is None) == (moe is None):
             raise ValueError("a block holds either an mlp or a moe")
@@ -92,11 +101,21 @@ class Block(nn.Module):
             {k: param(v) for k, v in mlp.items()})
         self.moe = None if moe is None else nn.ParameterDict(
             {k: param(v) for k, v in moe.items()})
+        self.shared = None if shared is None else nn.ParameterDict(
+            {k: param(v) for k, v in shared.items()})
+        self.register_buffer("router_bias", router_bias)
+
+    def attention(self, h, positions, window: int, cfg: ModelConfig,
+                  policy: ShardingPolicy = REPLICATED):
+        """Self-attention on the normed ``h``, projected: MLA or GQA."""
+        if cfg.kv_lora_rank:
+            return mla_mod.attention(self.attn, h, positions, cfg, policy)
+        return attn_mod.attention(self.attn, h, positions, cfg, window=window, policy=policy)
 
     def ffn(self, h, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED):
         """The MLP or MoE on the normed ``h``: (out, aux loss or None)."""
         if self.moe is not None:
-            return mlp_mod.moe(self.moe, h, cfg, policy)
+            return mlp_mod.moe(self.moe, h, cfg, policy, self.router_bias, self.shared)
         return mlp_mod.mlp(self.mlp, h, cfg, policy), None
 
 
@@ -147,29 +166,67 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None,
 
     embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
 
-    def ffn():
-        if cfg.n_experts:
-            return {"moe": mlp_mod.init_moe_params(gen, cfg, device)}
-        return {"mlp": mlp_mod.init_mlp_params(gen, cfg, device)}
+    def attn():
+        if cfg.kv_lora_rank:
+            return mla_mod.init_mla_params(gen, cfg, device)
+        return attn_mod.init_attn_params(gen, cfg, device)
 
-    blocks = [Block(zeros(), zeros(), attn_mod.init_attn_params(gen, cfg, device), **ffn())
-              for _ in range(cfg.n_layers)]
+    def ffn(i):
+        if not cfg.is_moe_layer(i):
+            return {"mlp": mlp_mod.init_mlp_params(gen, cfg, device)}
+        out = {"moe": mlp_mod.init_moe_params(gen, cfg, device),
+               "router_bias": _router_bias(cfg, i, device)}
+        if cfg.n_shared_experts:
+            out["shared"] = mlp_mod.init_mlp_params(gen, cfg, device, d_ff=cfg.shared_ff)
+        return out
+
+    blocks = [Block(zeros(), zeros(), attn(), **ffn(i)) for i in range(cfg.n_layers)]
     lm_head = None if cfg.tie_embeddings else embed_init(
         gen, cfg.padded_vocab, cfg.d_model, cfg.param_dtype, device)
     return Transformer(cfg, embed, blocks, zeros(), lm_head, trainable)
+
+
+def from_named(cfg: ModelConfig, tensors: dict, trainable: bool = False) -> Transformer:
+    """A model holding ``tensors`` by parameter name (as ``named_parameters``
+    names them: ``blocks.3.attn.wq``, ...), the selection biases at zero."""
+    def group(i, name):
+        head = f"blocks.{i}.{name}."
+        found = {k[len(head):]: t for k, t in tensors.items() if k.startswith(head)}
+        return found or None
+
+    embed = tensors["embed"]
+    blocks = [Block(tensors[f"blocks.{i}.norm1"], tensors[f"blocks.{i}.norm2"], group(i, "attn"),
+                    mlp=group(i, "mlp"), moe=group(i, "moe"), shared=group(i, "shared"),
+                    router_bias=_router_bias(cfg, i, embed.device))
+              for i in range(cfg.n_layers)]
+    return Transformer(cfg, embed, blocks, tensors["final_norm"], tensors.get("lm_head"),
+                       trainable)
+
+
+def _router_bias(cfg: ModelConfig, i: int, device):
+    """Layer ``i``'s selection bias, zero, where the config moves one; else None."""
+    if cfg.is_moe_layer(i) and cfg.router_bias_rate:
+        return torch.zeros((cfg.n_experts,), dtype=torch.float32, device=device)
+    return None
 
 
 def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
     """Each parameter's spec under ``policy``, by reference leaf: a
     per-layer spec for ``blocks.*.<name>`` (the reference's stacked spec
     without its leading layer dim)."""
-    ffn, ffn_specs = (("moe", mlp_mod.moe_param_specs) if cfg.n_experts
-                      else ("mlp", mlp_mod.mlp_param_specs))
+    ffns = []
+    if cfg.n_experts:
+        ffns.append(("moe", mlp_mod.moe_param_specs(cfg, policy)))
+        if cfg.n_shared_experts:
+            ffns.append(("shared", mlp_mod.mlp_param_specs(mlp_mod.shared_cfg(cfg), policy)))
+    if not cfg.n_experts or cfg.first_k_dense:
+        ffns.append(("mlp", mlp_mod.mlp_param_specs(cfg, policy)))
+    attn_specs = (mla_mod.mla_param_specs if cfg.kv_lora_rank else attn_mod.attn_param_specs)
     specs = {"embed": policy.embed(cfg.padded_vocab), "final_norm": (None,),
              "blocks.*.norm1": (None,), "blocks.*.norm2": (None,)}
-    specs.update({f"blocks.*.attn.{k}": v
-                  for k, v in attn_mod.attn_param_specs(cfg, policy).items()})
-    specs.update({f"blocks.*.{ffn}.{k}": v for k, v in ffn_specs(cfg, policy).items()})
+    specs.update({f"blocks.*.attn.{k}": v for k, v in attn_specs(cfg, policy).items()})
+    for ffn, ffn_specs in ffns:
+        specs.update({f"blocks.*.{ffn}.{k}": v for k, v in ffn_specs.items()})
     if not cfg.tie_embeddings:
         specs["lm_head"] = policy.embed(cfg.padded_vocab)
     return specs
@@ -191,6 +248,12 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _serves(cfg: ModelConfig):
+    """MLA trains only: its latent KV cache is not ported."""
+    if cfg.kv_lora_rank:
+        raise NotImplementedError(f"{cfg.name}: serving MLA (a latent KV cache) is not ported")
+
+
 def _logits(model: Transformer, x, cfg: ModelConfig) -> torch.Tensor:
     """The last token's logits in f32 over the padded vocab."""
     x = rms_norm(x[:, -1], model.final_norm, cfg.norm_eps)
@@ -200,7 +263,7 @@ def _logits(model: Transformer, x, cfg: ModelConfig) -> torch.Tensor:
 def _layer(blk: Block, x, positions, window: int, cfg: ModelConfig):
     """One layer: (x, aux loss), the aux zero without the MoE."""
     h = rms_norm(x, blk.norm1, cfg.norm_eps)
-    x = x + attn_mod.attention(blk.attn, h, positions, cfg, window=window)
+    x = x + blk.attention(h, positions, window, cfg)
     h = rms_norm(x, blk.norm2, cfg.norm_eps)
     h, aux = blk.ffn(h, cfg)
     return x + h, torch.zeros((), device=x.device) if aux is None else aux
@@ -234,7 +297,8 @@ def _blocks(model: Transformer, x, positions, cfg: ModelConfig):
 def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig,
             policy: ShardingPolicy = REPLICATED):
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))
-    plus 0.01 of the MoE's aux loss (zero without the MoE).
+    plus ``cfg.aux_loss_coef`` (0.01 by default) of the MoE's aux loss
+    (zero without the MoE).
 
     Under a sharding policy the loss is vocab-parallel
     (``chunked_cross_entropy`` on the member's rows of the head) and the
@@ -249,10 +313,10 @@ def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig,
             x, aux = _forward_tp(model, batch["tokens"], cfg, mb)
             loss = chunked_cross_entropy(mb.gather_seq(x), model.head,
                                          mb.shard_batch(batch["labels"]), cfg, mb)
-            return mb.backward_loss(loss + 0.01 * aux)
+            return mb.backward_loss(loss + cfg.aux_loss_coef * aux)
     hidden, aux = forward(model, batch["tokens"], cfg)
     loss = chunked_cross_entropy(hidden, model.head, batch["labels"], cfg)
-    return loss + 0.01 * aux
+    return loss + cfg.aux_loss_coef * aux
 
 
 def prefill(model: Transformer, tokens, cfg: ModelConfig, policy: ShardingPolicy = REPLICATED,
@@ -262,6 +326,7 @@ def prefill(model: Transformer, tokens, cfg: ModelConfig, policy: ShardingPolicy
     The cache holds the keys after RoPE and the values for positions
     ``[0, S)``, zero up to ``max_len``.
     """
+    _serves(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     if S > max_len:
@@ -292,6 +357,7 @@ def decode_step(model: Transformer, cache: KVCache, tokens, pos: int, cfg: Model
     Writes the new keys and values into ``cache`` at ``pos`` and returns
     (logits, cache).
     """
+    _serves(cfg)
     mesh = check_layout(model, policy)
     if mesh is not None:
         with mesh:
@@ -325,8 +391,7 @@ def _layer_tp(blk: Block, x, positions, window: int, cfg: ModelConfig, mb: Membe
     mesh itself, since its remat recompute runs in the backward pass."""
     with mb.mesh:
         h = rms_norm_tp(x, blk.norm1, cfg, mb)
-        x = x + attn_mod.attention(blk.attn, h, positions, cfg, window=window,
-                                   policy=mb.policy)
+        x = x + blk.attention(h, positions, window, cfg, mb.policy)
         h, a = blk.ffn(rms_norm_tp(x, blk.norm2, cfg, mb), cfg, mb.policy)
         return x + h, torch.zeros(x.shape[:mb.k], device=x.device) if a is None else a
 

@@ -30,9 +30,12 @@ differentiates the family's ``loss_fn`` under the policy (the global loss,
 which it reports), sums each gradient's copies into the global gradient
 (``core.mesh.sum_copies``, once a step after the microbatches), and runs
 AdamW on the laid-out parameters, its clip on the global norm.  A
-parameter that gets no gradient raises, naming it.  Checkpoints hold the
-global parameters and moments, so a sharded run resumes unsharded and
-back.  Compressed gradients under a policy raise ``NotImplementedError``:
+parameter that gets no gradient raises, naming it.  An MoE with
+DeepSeek-V3's selection bias (``router_bias_rate``) has its biases moved
+after AdamW by the loads of the step's forward passes, summed over the
+members (``models/mlp.py:update_router_biases``).  Checkpoints hold the
+global parameters and moments (not the selection biases), so a sharded
+run resumes unsharded and back.  Compressed gradients under a policy raise ``NotImplementedError``:
 the reference's compressed step takes its parameters replicated inside
 its ``shard_map``, so that its policy changes nothing for a dense model
 and its expert-parallel MoE fails to lower (ROADMAP.md).
@@ -49,6 +52,7 @@ a stacked mesh.  A checkpoint holds the state as one flat dict
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import time
@@ -64,6 +68,7 @@ from repro_torch.models import get_family
 from repro_torch.models.common import REPLICATED, ModelConfig, ShardingPolicy, resolve_device
 from repro_torch.models.convert import (laid_out_specs, reference_leaves, shard_model,
                                         unshard_tensors)
+from repro_torch.models.mlp import tally_loads, update_router_biases
 from repro_torch.models.parallel import check_policy, is_sharded
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update, compressed_mean,
                                warmup_cosine)
@@ -158,6 +163,7 @@ class Trainer:
         self.metrics_log: list[dict] = []
         self.state = None  # (model, opt_state, err_state) after ``fit``
         self._layout = None  # (mesh, specs by name) of a laid-out model, from init_state
+        self._loads = {}  # the step's MoE loads by selection bias (mlp.tally_loads)
 
     # -- step ----------------------------------------------------------------
 
@@ -173,7 +179,8 @@ class Trainer:
         params = params_of(model)
 
         def value_and_grad(b):
-            loss = self._loss(model, b)
+            with self._tally():
+                loss = self._loss(model, b)
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
             out = {}
             for (k, p), g in zip(params.items(), grads):
@@ -254,9 +261,18 @@ class Trainer:
             raise RuntimeError("the compressed mean differs between members of the mesh")
         return loss, _by_param(leaves, {k: m[first].clone() for k, m in mean.items()}), err_state
 
+    def _tally(self):
+        """Around a loss's forward: the MoE's loads for the selection biases
+        (``mlp.tally_loads``), where the config moves them."""
+        if not self.model_cfg.router_bias_rate:
+            return contextlib.nullcontext()
+        return tally_loads(self._loads)
+
     def _step_fn(self, model, opt_state, batch, err_state):
-        """One optimizer step; the model's parameters are updated in place.
+        """One optimizer step; the model's parameters are updated in place,
+        and the MoE's selection biases by the step's loads.
         Returns (model, opt_state, err_state, metrics)."""
+        self._loads = {}
         if self.dp:
             loss, grads, err_state = self._dp_grads(model, batch, err_state)
         else:
@@ -274,6 +290,9 @@ class Trainer:
             with torch.no_grad():
                 for k, p in params.items():
                     p.copy_(new[k])
+            if self._loads:
+                update_router_biases(self._loads, self.model_cfg.router_bias_rate,
+                                     self.mesh if self.sharded else None)
         metrics["loss"] = loss
         return model, opt_state, err_state, metrics
 

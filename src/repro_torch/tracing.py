@@ -38,7 +38,21 @@ The spans (``portbench/program_spans.py`` reads them):
   final norm) and ``loss_head`` (``models/common.py:chunked_cross_entropy``,
   every slab with its recompute);
 * ``rt:optimizer`` (``runtime/trainer.py:Trainer._step_fn``: the learning
-  rate, AdamW and the parameters' copy).
+  rate, AdamW and the parameters' copy, and the routers' selection biases);
+* the regions ``mla`` (``models/mla.py``: latent attention, its projections
+  included) and ``moe`` (``models/mlp.py:moe``: routing, dispatch, the
+  expert-parallel exchange, the experts, combine and the shared experts).
+
+Counters (:func:`count`) are kept on the card, each a 0-d int64 tensor,
+and count only while a profiler records and outside a backward pass (where
+a remat recompute runs the forward again), so that an untraced step
+launches nothing for them; :func:`counters` reads them (one wait for the
+card), after a window, and :func:`reset_counters` drops them.  The
+counters:
+
+* ``moe.routed_pairs`` and ``moe.dropped_pairs``: the (token, choice) pairs
+  that the MoE's routers chose, over every member, and those of them that
+  capacity dropped (``models/mlp.py:_count_pairs``).
 """
 
 from __future__ import annotations
@@ -139,3 +153,39 @@ def region(name: str, fn, *args):
         outs = list(out) if isinstance(out, tuple) else [out]
         _mark(outs, box.open)
         return tuple(outs) if isinstance(out, tuple) else outs[0]
+
+
+# the counters by name: 0-d int64 tensors on the device that counted first
+_COUNTS: dict = {}
+_graph_task = getattr(torch._C, "_current_graph_task_id", lambda: -1)
+
+
+def in_backward() -> bool:
+    """Whether a backward pass runs on this thread (a remat recompute's
+    forward among it)."""
+    return _graph_task() != -1
+
+
+def counting() -> bool:
+    """Whether counters count now: a profiler records and no backward pass
+    runs on this thread."""
+    return bool(_profiler._is_profiler_enabled) and not in_backward()
+
+
+def count(name: str, n, device=None):
+    """Add ``n`` (an int, or an integer tensor on the device) to the counter
+    ``name``, kept on ``n``'s device or ``device``; call it only where
+    :func:`counting` holds."""
+    device = n.device if isinstance(n, torch.Tensor) else device
+    if name not in _COUNTS:
+        _COUNTS[name] = torch.zeros((), dtype=torch.int64, device=device)
+    _COUNTS[name].add_(n)
+
+
+def counters() -> dict:
+    """Every counter's value, by name (waits for the card)."""
+    return {name: int(t) for name, t in _COUNTS.items()}
+
+
+def reset_counters():
+    _COUNTS.clear()

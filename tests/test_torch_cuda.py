@@ -414,6 +414,35 @@ def test_mixed_dtype_wrappers_match_plain_on_card(card, kernel, first):
         assert bool(((out.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-3).all())
 
 
+# MLA's heads (models/mla.py): q and k 192 wide, v 128, bf16 on the
+# tensor-core route at scale 1 / sqrt(192): causal, windowed, ragged S,
+# and Moonlight's 8k sequence; each element within one bf16 ulp of the
+# plain version (the f32 result rounded once).
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(256, 0), (200, 48), (77, 0), (2048, 0), (8192, 0)])
+def test_flash_kernel_unequal_dims_match_plain_on_card(card, S, window):
+    gen = torch.Generator(device=card).manual_seed(21)
+    q, k = (torch.randn(2, S, 192, generator=gen, device=card).bfloat16() for _ in range(2))
+    v = torch.randn(2, S, 128, generator=gen, device=card).bfloat16()
+    routes = dict(flash_attention.route_launches)
+    out = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert out.shape == (2, S, 128) and out.dtype == torch.bfloat16
+    assert _route_moved(flash_attention, routes) == {"mma_sync": 0, "tensor_core": 1}
+    ref = tref.flash_attention_ref(q, k, v, window=window).float()
+    assert bool(((out.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-3).all())
+
+
+@pytest.mark.cuda
+def test_flash_unequal_dims_refuse_the_mma_route_on_card(card):
+    q = torch.zeros(2, 64, 192, device=card)
+    v = torch.zeros(2, 64, 128, device=card)
+    with pytest.raises(ValueError, match="unequal head dims"):
+        flash_attention(q, q, v)  # f32: the mma_sync route
+    with pytest.raises(ValueError, match="unequal head dims"):
+        flash_attention(q.bfloat16(), q.bfloat16(), v.bfloat16(), _route="mma_sync")
+
+
 @pytest.mark.cuda
 def test_flash_kernel_rejects_bad_operands_on_card(card):
     q = torch.zeros(2, 64, 32, device=card)
@@ -693,6 +722,17 @@ def test_flash_attention_gradients_on_card(card, shape, window, dt, tol):
     q, k, v, g = (torch.randn(shape, generator=gen, device=card).to(TDT[dt]) for _ in range(4))
     _grads_vs_plain(lambda *x: flash_attention(*x, window=window),
                     lambda *x: tref.flash_attention_ref(*x, window=window), (q, k, v), (g,), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(300, 0), (257, 100)])
+def test_flash_attention_unequal_dims_gradients_on_card(card, S, window):
+    """MLA's (192, 128) heads in bf16: the kernel forward, the plain backward."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, k = (torch.randn(4, S, 192, generator=gen, device=card).bfloat16() for _ in range(2))
+    v, g = (torch.randn(4, S, 128, generator=gen, device=card).bfloat16() for _ in range(2))
+    _grads_vs_plain(lambda *x: flash_attention(*x, window=window),
+                    lambda *x: tref.flash_attention_ref(*x, window=window), (q, k, v), (g,), 2e-2)
 
 
 @pytest.mark.cuda
@@ -1096,3 +1136,44 @@ def test_a_run_launches_directly_and_a_trace_goes_through_the_op(card, name, mon
     assert seen == [False, True] and wrapper.launches == before + 2
     x = torch.ones(3, 5, device=card)
     assert not real(x) and real(x.to("meta")) and real(x, torch.empty(1, device="meta"))
+
+
+@pytest.mark.cuda
+def test_moonlight_trains_on_the_stacked_mesh_on_card(card):
+    """Moonlight's blocks at its head widths (MLA's q and k 192, v 128) and a
+    small rest, in bf16 through ``Trainer.fit`` on the (1, 4) mesh with
+    sequence parallelism: the expert-parallel ``all_to_all`` and the
+    (192, 128) tensor-core flash kernel, the selection biases moved."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.steps import make_policy
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("moonlight_16b_a3b"), n_layers=3, d_model=256,
+                              n_heads=8, n_kv_heads=8, d_ff=512, vocab=1024, n_experts=16,
+                              moe_d_ff=64, kv_lora_rank=64, loss_chunk=128)
+    mesh = Mesh((1, 4), ("data", "model"), device=card)
+    model = tt.init(torch.Generator(device=card).manual_seed(0), cfg, card)
+    trainer = Trainer(cfg, TrainerConfig(adamw=AdamWConfig(lr=1e-3), warmup=1, total_steps=10),
+                      model=model, mesh=mesh, policy=make_policy(cfg, mesh, seq_parallel=True))
+
+    class Feed:
+        def batch_at(self, step):
+            x = np.random.default_rng(step).integers(0, cfg.vocab, (2, 513))
+            return {"tokens": x[:, :-1], "labels": x[:, 1:]}
+
+    routes = dict(flash_attention.route_launches)
+    trainer.fit(Feed(), steps=3)
+    torch.cuda.synchronize()
+    moved = _route_moved(flash_attention, routes)
+    assert moved["tensor_core"] >= 3 * cfg.n_layers and moved["mma_sync"] == 0
+    losses = [r["loss"] for r in trainer.metrics_log]
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    biases = [b.router_bias for b in trainer.state[0].blocks if b.router_bias is not None]
+    assert len(biases) == 2 and all(bool((b != 0).any()) for b in biases)

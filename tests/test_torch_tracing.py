@@ -268,3 +268,118 @@ def test_fit_calls_step_fn_once_a_step():
     trainer.fit(_Batches(cfg), steps=3)
     assert [step for step, _ in calls] == [0, 1, 2]  # the optimizer step each call starts at
     assert [loss for _, loss in calls] == [r["loss"] for r in trainer.metrics_log]
+
+
+# -- Moonlight's regions (mla, moe) and the MoE's counters ---------------------
+
+
+def _moonlight_cfg(remat=False):
+    return dataclasses.replace(get_smoke_config("moonlight_16b_a3b"), remat=remat, loss_chunk=4)
+
+
+def test_mla_and_moe_regions_span_a_profiled_step():
+    """Each layer's MLA and each MoE layer's MoE is a region: its forward
+    span, and its backward span after the forward, in a profiled sharded
+    step (the expert-parallel exchange inside the MoE's forward)."""
+    cfg = _moonlight_cfg()
+    model, policy = _sharded(cfg)
+    batch = _batch(cfg)
+    params = list(model.parameters())
+
+    def step():
+        loss = tt.loss_fn(model, batch, cfg, policy)
+        return torch.autograd.grad(loss, params)
+
+    _, events = _traced(step)
+    mla, moe = _spans(events, "mla"), _spans(events, "moe")
+    assert len(mla) == cfg.n_layers and len(_spans(events, "mla.backward")) == cfg.n_layers
+    assert len(moe) == cfg.n_layers - cfg.first_k_dense == len(_spans(events, "moe.backward"))
+    for fwd, bwd in ((mla[-1], _spans(events, "mla.backward")[0]),
+                     (moe[-1], _spans(events, "moe.backward")[0])):
+        assert fwd[2] <= bwd[1]
+    exchanges = _spans(events, "collective.all_to_all")
+    assert len(exchanges) == 2 * len(moe)  # dispatch and combine
+    assert all(any(_inside(x, m) for m in moe) for x in exchanges)
+
+
+def _skewed_moe(cfg, seed=0):
+    """One MoE layer's weights whose router sends tokens whose states sum
+    well above nought to experts 0-2 first, so that capacity drops pairs."""
+    model = tt.init(torch.Generator().manual_seed(seed), cfg, "cpu")
+    blk = model.blocks[1]
+    params = {k: p.detach().clone() for k, p in blk.moe.items()}
+    params["router"][:, :3] += 3.0
+    shared = {k: p.detach().clone() for k, p in blk.shared.items()}
+    return params, shared
+
+
+def test_counters_count_routed_and_dropped_pairs():
+    """Under a profiler the MoE counts its (token, choice) pairs and those that
+    capacity drops, once a forward: the remat recompute in the backward is
+    not counted again.  The dropped pairs are counted apart, by the plain
+    reference's capacity rule.  Without a profiler nothing is counted."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import moonlight_reference as ref
+
+    from repro_torch.models import mlp
+
+    cfg = _moonlight_cfg()
+    params, shared = _skewed_moe(cfg)
+    B, S, E, K = 2, 24, cfg.n_experts, cfg.top_k
+    h = (torch.randn(B, S, cfg.d_model, generator=torch.Generator().manual_seed(3))
+         + 1.0).requires_grad_(True)
+    bias = torch.zeros(E)
+
+    def step():
+        out = checkpoint(lambda x: mlp.moe(params, x, cfg, bias=bias, shared=shared)[0], h,
+                         use_reentrant=False)
+        return torch.autograd.grad(out.sum(), h)
+
+    tracing.reset_counters()
+    step()
+    assert tracing.counters() == {}
+    _traced(step)
+    counts = tracing.counters()
+    tracing.reset_counters()
+    _, idx, _, _ = ref.route(h.detach(), params["router"], bias, {"num_experts_per_tok": K,
+                                                               "routed_scaling_factor": 1.0})
+    C = ref.capacity({"n_routed_experts": E, "num_experts_per_tok": K,
+                      "capacity_factor": cfg.capacity_factor}, B * S)
+    dropped = int((~ref.kept(idx.reshape(-1, K), E, C)).sum())
+    assert dropped >= B * S * K // 3  # experts 0-2 take every token, keep C each
+    assert counts == {"moe.routed_pairs": B * S * K, "moe.dropped_pairs": dropped}
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """The aten operations that run while the mode is on, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_untraced_moonlight_step_runs_the_same_operations_as_without_regions(monkeypatch):
+    """With no profiler the regions, spans and counters run nothing: a
+    sharded Moonlight step (remat on) runs the same aten operations, in the
+    same order, as with ``tracing.region`` calling its function bare."""
+    cfg = _moonlight_cfg(remat=True)
+
+    def ops_of_a_step():
+        model, policy = _sharded(cfg)
+        params = list(model.parameters())
+        with _Ops() as mode:
+            loss = tt.loss_fn(model, _batch(cfg), cfg, policy)
+            torch.autograd.grad(loss, params)
+        return mode.ops
+
+    with_regions = ops_of_a_step()
+    monkeypatch.setattr(tracing, "region", lambda name, fn, *args: fn(*args))
+    assert ops_of_a_step() == with_regions
+    assert len(with_regions) > 1000
